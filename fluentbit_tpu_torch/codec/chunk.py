@@ -1,0 +1,94 @@
+"""Tagged chunks — the unit of buffering, routing and flushing.
+
+The port's own copy of ``fluentbit_tpu/codec/chunk.py``, trimmed to the
+in-memory decoded path (no copy witness, no storage or qos stamps).
+
+Reference semantics (src/flb_input_chunk.c): each input owns a pool of
+chunks keyed by tag; appends go to the active chunk for that tag until it
+reaches the ~2MB target size, at which point it is "locked"
+(src/flb_input_chunk.c:3135) and a new chunk is opened. Dispatch walks
+ready chunks and creates one flush per chunk and route.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+# Reference: chunks are locked once above ~2MB so flushes stay bounded.
+CHUNK_TARGET_SIZE = 2 * 1024 * 1024
+
+EVENT_TYPE_LOGS = "logs"
+
+
+class Chunk:
+    """A tagged, append-only buffer of concatenated msgpack events."""
+
+    __slots__ = ("tag", "event_type", "_parts", "_size", "records", "locked")
+
+    def __init__(self, tag: str, event_type: str = EVENT_TYPE_LOGS):
+        self.tag = tag
+        self.event_type = event_type
+        # appended spans are kept as a part list and joined lazily at
+        # get_bytes(): append is O(1) instead of a bytearray grow-copy
+        self._parts: List[bytes] = []
+        self._size = 0
+        self.records = 0
+        self.locked = False
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    def append(self, data: bytes, n_records: int) -> None:
+        if self.locked:
+            raise RuntimeError("append to locked chunk")
+        self._parts.append(bytes(data))
+        self._size += len(data)
+        self.records += n_records
+        if self._size >= CHUNK_TARGET_SIZE:
+            self.locked = True
+
+    def get_bytes(self) -> bytes:
+        if len(self._parts) == 1:
+            return self._parts[0]
+        joined = b"".join(self._parts)
+        if self.locked:
+            self._parts = [joined]
+        return joined
+
+
+class ChunkPool:
+    """Per-input chunk pool keyed by (event_type, tag).
+
+    Reference: ht_log_chunks hashtable per input (src/flb_input_log.c:1524);
+    input_chunk_get selects/creates the active chunk
+    (src/flb_input_chunk.c:3000). Callers serialize access (the engine's
+    ingest lock).
+    """
+
+    def __init__(self) -> None:
+        self._active: Dict[tuple, Chunk] = {}
+        self._ready: List[Chunk] = []
+
+    def append(self, tag: str, data: bytes, n_records: int,
+               event_type: str = EVENT_TYPE_LOGS) -> Chunk:
+        key = (event_type, tag)
+        chunk = self._active.get(key)
+        if chunk is None:
+            chunk = self._active[key] = Chunk(tag, event_type)
+        chunk.append(data, n_records)
+        if chunk.locked:
+            self._ready.append(chunk)
+            del self._active[key]
+        return chunk
+
+    def drain(self) -> List[Chunk]:
+        """Take all flushable chunks (locked + currently active non-empty)."""
+        out = list(self._ready)
+        self._ready.clear()
+        for key in list(self._active):
+            c = self._active.pop(key)
+            if c.records > 0:
+                c.locked = True
+                out.append(c)
+        return out

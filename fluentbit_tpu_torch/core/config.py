@@ -1,0 +1,186 @@
+"""Typed plugin configuration — config_map equivalent.
+
+The port's own copy of ``fluentbit_tpu/core/config.py``, trimmed to the
+keys this slice's plugins and engine read.
+
+Reference: include/fluent-bit/flb_config_map.h:33-51 defines a declarative
+per-plugin option schema that is auto-validated and written into plugin
+context structs. Here a plugin declares ``config_map`` as a list of
+ConfigMapEntry; ``apply_config_map`` validates + coerces user properties
+onto the instance.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+_SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgG]?)b?\s*$")
+_TIME_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*(ms|s|m|h|d)?\s*$")
+
+_SIZE_MULT = {"": 1, "k": 1024, "m": 1024 ** 2, "g": 1024 ** 3}
+_TIME_MULT = {None: 1.0, "ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+
+TRUE_WORDS = {"true", "on", "yes", "1", "enabled"}
+FALSE_WORDS = {"false", "off", "no", "0", "disabled"}
+
+
+def parse_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in TRUE_WORDS:
+        return True
+    if s in FALSE_WORDS:
+        return False
+    raise ValueError(f"invalid boolean value: {v!r}")
+
+
+def parse_size(v: Any) -> int:
+    """'10M' → bytes (flb_utils_size_to_bytes)."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    m = _SIZE_RE.match(str(v))
+    if not m:
+        raise ValueError(f"invalid size value: {v!r}")
+    return int(float(m.group(1)) * _SIZE_MULT[m.group(2).lower()])
+
+
+def parse_time(v: Any) -> float:
+    """'5s' / '100ms' → seconds."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    m = _TIME_RE.match(str(v))
+    if not m:
+        raise ValueError(f"invalid time value: {v!r}")
+    return float(m.group(1)) * _TIME_MULT[m.group(2)]
+
+
+def split_slist(v: Any, max_split: int = -1) -> List[str]:
+    """Space-separated list (config_map SLIST): respects max_split so the
+    trailing element may contain spaces (grep's 'Regex key pattern with
+    spaces')."""
+    if isinstance(v, (list, tuple)):
+        return [str(x) for x in v]
+    return str(v).split(None, max_split) if max_split >= 0 else str(v).split()
+
+
+_COERCERS = {
+    "raw": lambda v: v,  # pass-through (python-object properties, e.g. out_lib callback)
+    "str": lambda v: str(v),
+    "int": lambda v: int(str(v), 0),
+    "bool": parse_bool,
+    "size": parse_size,
+    "time": parse_time,
+    "slist": split_slist,
+}
+
+
+@dataclass
+class ConfigMapEntry:
+    """One declarative plugin option."""
+
+    name: str
+    type: str = "str"  # raw|str|int|bool|size|time|slist
+    default: Any = None
+    multiple: bool = False  # option may appear multiple times (e.g. grep rules)
+    slist_max_split: int = -1
+    desc: str = ""
+
+    def coerce(self, value: Any) -> Any:
+        if self.type == "slist" and self.slist_max_split >= 0:
+            return split_slist(value, self.slist_max_split)
+        fn = _COERCERS.get(self.type)
+        if fn is None:
+            raise ValueError(f"unknown config_map type {self.type!r}")
+        return fn(value)
+
+
+class Properties:
+    """Case-insensitive property bag with multi-value support.
+
+    Reference config keys are case-insensitive (flb_config_prop_get uses
+    strcasecmp); values set multiple times accumulate (grep Regex rules).
+    """
+
+    def __init__(self) -> None:
+        self._items: List[tuple] = []  # (lower_key, original_key, value)
+
+    def set(self, key: str, value: Any) -> None:
+        self._items.append((key.lower(), key, value))
+
+    def get(self, key: str, default: Any = None) -> Any:
+        k = key.lower()
+        for lk, _, v in reversed(self._items):
+            if lk == k:
+                return v
+        return default
+
+    def items(self):
+        return [(orig, v) for _, orig, v in self._items]
+
+
+def apply_config_map(config_map: List[ConfigMapEntry], props: Properties,
+                     target: Any) -> None:
+    """Validate + coerce properties onto ``target`` attributes.
+
+    Unknown properties raise (the reference fails startup on unknown keys).
+    Attribute name is the option name lowercased with '.' and '-' → '_'.
+    """
+    by_name = {e.name.lower(): e for e in config_map}
+    seen_multi: Dict[str, list] = {}
+    for key, value in props.items():
+        lk = key.lower()
+        entry = by_name.get(lk)
+        if entry is None:
+            if lk in CORE_INSTANCE_KEYS:
+                continue
+            raise ValueError(f"unknown property {key!r}")
+        coerced = entry.coerce(value)
+        attr = _attr_name(entry.name)
+        if entry.multiple:
+            seen_multi.setdefault(attr, []).append(coerced)
+        else:
+            setattr(target, attr, coerced)
+    for attr, values in seen_multi.items():
+        setattr(target, attr, values)
+    # defaults
+    for e in config_map:
+        attr = _attr_name(e.name)
+        if getattr(target, attr, None) is None:
+            if e.multiple:
+                setattr(target, attr, [])
+            elif e.default is not None:
+                setattr(target, attr, e.coerce(e.default))
+            else:
+                setattr(target, attr, None)
+
+
+def _attr_name(name: str) -> str:
+    return name.lower().replace(".", "_").replace("-", "_")
+
+
+# Instance-level keys consumed by the engine, valid for every plugin
+# (reference: flb_input.c/flb_output.c/flb_filter.c common properties).
+CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level"}
+
+
+@dataclass
+class ServiceConfig:
+    """[SERVICE] section (reference src/flb_config.c + flb_config.h)."""
+
+    flush: float = 1.0           # flush timer interval seconds
+    grace: float = 5.0           # shutdown grace period
+
+    _KEYMAP = {
+        "flush": ("flush", parse_time),
+        "grace": ("grace", parse_time),
+    }
+
+    def set(self, key: str, value: Any) -> None:
+        mapped = self._KEYMAP.get(key.lower())
+        if mapped is None:
+            raise ValueError(f"unknown service property {key!r}")
+        attr, fn = mapped
+        setattr(self, attr, fn(value))

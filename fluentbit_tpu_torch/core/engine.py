@@ -1,0 +1,282 @@
+"""The engine — event loop, ingest path, dispatch, flush.
+
+The port's counterpart of ``fluentbit_tpu/core/engine.py``, trimmed to the
+decoded path: ``input_log_append`` → decode → filter chain → chunk pool,
+and a flush timer that drains the pools to the outputs, with the grace
+window at stop. Storage, qos, guard, failpoints, the HTTP server, flux,
+the stream processor, multiline, retries and the raw chunk path wait for
+later slices.
+
+Reference: src/flb_engine.c (flb_engine_start event loop),
+src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
+(ingest + synchronous filter chain at append, :3078). The engine is a
+host-side asyncio loop in its own thread; the filter chain runs
+synchronously in the appending thread. Device work happens inside filters
+on ``engine.device``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import threading
+import time
+from typing import List, Optional
+
+import torch
+
+from ..codec.chunk import Chunk
+from ..codec.events import LogEvent, decode_events, reencode_event
+from .config import ServiceConfig
+from .plugin import (
+    FilterInstance,
+    FilterResult,
+    FlushResult,
+    InputInstance,
+    OutputInstance,
+    registry as default_registry,
+)
+
+log = logging.getLogger("flb.engine")
+
+
+class Engine:
+    """The pipeline runtime for one configuration context."""
+
+    def __init__(self, service: Optional[ServiceConfig] = None,
+                 device: Optional[torch.device] = None, registry=None):
+        self.service = service or ServiceConfig()
+        self.device = device
+        self.registry = registry or default_registry
+        self.inputs: List[InputInstance] = []
+        self.filters: List[FilterInstance] = []
+        self.outputs: List[OutputInstance] = []
+        self.loop: Optional[asyncio.AbstractEventLoop] = None
+        self._thread: Optional[threading.Thread] = None
+        self._started = threading.Event()
+        self._stopping = False
+        # serializes ingest (filters + pool appends) against pool drains
+        self._ingest_lock = threading.Lock()
+        self._pending_flushes: set = set()
+
+    # ------------------------------------------------------------------
+    # configuration
+    # ------------------------------------------------------------------
+
+    def _make_instance(self, create, name: str, props, peers):
+        ins = create(name)
+        n = sum(1 for p in peers if p.plugin.name == ins.plugin.name)
+        ins.name = f"{ins.plugin.name}.{n}"
+        for k, v in props.items():
+            ins.set(k, v)
+        return ins
+
+    # the instance lists are replaced, never mutated in place: the flush
+    # timer and ingest iterate them without a lock
+
+    def input(self, name: str, **props) -> InputInstance:
+        ins = self._make_instance(self.registry.create_input, name, props,
+                                  self.inputs)
+        self.inputs = self.inputs + [ins]
+        return ins
+
+    def filter(self, name: str, **props) -> FilterInstance:
+        ins = self._make_instance(self.registry.create_filter, name, props,
+                                  self.filters)
+        self.filters = self.filters + [ins]
+        return ins
+
+    def output(self, name: str, **props) -> OutputInstance:
+        ins = self._make_instance(self.registry.create_output, name, props,
+                                  self.outputs)
+        self.outputs = self.outputs + [ins]
+        return ins
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def start(self) -> None:
+        """Init every instance, then spawn the engine thread (flb_start)."""
+        if self._thread is not None:
+            raise RuntimeError("engine already started")
+        for ins in self.inputs + self.filters + self.outputs:
+            ins.configure()
+            ins.plugin.init(ins, self)
+        self._stopping = False
+        self._thread = threading.Thread(target=self._run, name="flb-engine",
+                                        daemon=True)
+        self._thread.start()
+        if not self._started.wait(timeout=10):
+            raise RuntimeError("engine failed to start")
+
+    def _run(self) -> None:
+        self.loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(self.loop)
+        try:
+            self.loop.run_until_complete(self._main())
+        finally:
+            self.loop.close()
+
+    async def _main(self) -> None:
+        for ins in self.inputs:
+            if ins.plugin.collect_interval is not None:
+                ins.collector_task = asyncio.ensure_future(
+                    self._collector(ins))
+        self._started.set()
+        flush_interval = max(0.02, self.service.flush)
+        try:
+            while not self._stopping:
+                await asyncio.sleep(flush_interval)
+                self.flush_all()
+            # graceful drain (grace period, src/flb_engine.c:1137-1160)
+            self.flush_all()
+            await asyncio.sleep(0.05)  # let queued flush spawns run
+            deadline = time.time() + self.service.grace
+            while self._pending_flushes and time.time() < deadline:
+                await asyncio.sleep(0.02)
+            for fut in list(self._pending_flushes):
+                fut.cancel()
+            if self._pending_flushes:
+                await asyncio.gather(*self._pending_flushes,
+                                     return_exceptions=True)
+        finally:
+            self._stopping = True
+            pending = [ins.collector_task for ins in self.inputs
+                       if ins.collector_task is not None]
+            for task in pending:
+                task.cancel()
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+            self._started.clear()
+
+    async def _collector(self, ins: InputInstance) -> None:
+        """Interval collector (flb_input_set_collector_time)."""
+        while True:
+            try:
+                ins.plugin.collect(self)
+            except Exception:
+                log.exception("input %s collect failed", ins.display_name)
+            await asyncio.sleep(ins.plugin.collect_interval)
+
+    def stop(self) -> None:
+        """Graceful stop with drain (flb_stop)."""
+        if self._thread is None:
+            return
+        self._stopping = True
+        self._thread.join(timeout=self.service.grace + 10)
+        if self._thread.is_alive():
+            log.warning("engine thread did not exit within %.1fs at stop()",
+                        self.service.grace + 10)
+        self._thread = None
+        for ins in self.inputs + self.filters + self.outputs:
+            try:
+                ins.plugin.exit()
+            except Exception:
+                log.exception("%s exit failed", ins.display_name)
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    # ------------------------------------------------------------------
+    # ingest path (reference: flb_input_log_append → input_chunk_append_raw)
+    # ------------------------------------------------------------------
+
+    def input_log_append(self, ins: InputInstance, tag: Optional[str],
+                         data: bytes, n_records: Optional[int] = None) -> int:
+        """Append encoded log events: decode, run the filter chain
+        synchronously (src/flb_input_chunk.c:3078), write the survivors
+        into the input's chunk pool. Returns the records written.
+
+        A filter that raises fails the append: the device path has no
+        silent pass-through (the reference package logs and continues)."""
+        tag = tag or ins.tag or ins.plugin.name
+        with self._ingest_lock:
+            events = self._run_filters(decode_events(data), tag)
+            if not events:
+                return 0
+            payload = b"".join(
+                ev.raw if ev.raw is not None else reencode_event(ev)
+                for ev in events)
+            ins.pool.append(tag, payload, len(events))
+            return len(events)
+
+    def _run_filters(self, events: List[LogEvent], tag: str) -> List[LogEvent]:
+        """flb_filter_do equivalent (src/flb_filter.c:119-330)."""
+        for f in self.filters:
+            if not events:
+                break
+            if not f.route.matches(tag):
+                continue
+            result, new_events = f.plugin.filter(events, tag, self)
+            if result == FilterResult.MODIFIED:
+                events = new_events if new_events is not None else []
+        return events
+
+    # ------------------------------------------------------------------
+    # dispatch + flush (reference: flb_engine_flush → flb_engine_dispatch)
+    # ------------------------------------------------------------------
+
+    def flush_all(self) -> None:
+        """Drain ready chunks and start one flush per (chunk, route).
+        While the engine runs, only its loop thread calls this (the timer,
+        the stop drain, ``flush_now``), so chunks reach each output in
+        the order they were drained."""
+        with self._ingest_lock:
+            chunks = [chunk for ins in self.inputs for chunk in ins.pool.drain()]
+        for chunk in chunks:
+            for out in self.outputs:
+                if (out.route.matches(chunk.tag)
+                        and chunk.event_type in out.plugin.event_types):
+                    self._spawn_flush(chunk, out)
+
+    def _spawn_flush(self, chunk: Chunk, out: OutputInstance) -> None:
+        coro = self._flush_one(chunk, out)
+        if self.loop is None or not self.running:
+            asyncio.run(coro)  # engine not started: flush inline
+            return
+
+        def _create():
+            fut = asyncio.ensure_future(coro)
+            self._pending_flushes.add(fut)
+            fut.add_done_callback(self._pending_flushes.discard)
+
+        try:
+            self.loop.call_soon_threadsafe(_create)
+        except RuntimeError:  # loop closed mid-stop
+            coro.close()
+            log.error("output %s: engine stopped, %d records dropped",
+                      out.display_name, chunk.records)
+
+    async def _flush_one(self, chunk: Chunk, out: OutputInstance) -> None:
+        try:
+            result = await out.plugin.flush(chunk.get_bytes(), chunk.tag, self)
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            log.exception("output %s flush raised", out.display_name)
+            result = FlushResult.ERROR
+        if result != FlushResult.OK:
+            # no retry scheduler in this slice: a non-OK flush drops
+            log.error("output %s: flush returned %s, %d records dropped",
+                      out.display_name, result.name, chunk.records)
+
+    def flush_now(self) -> None:
+        """Force a flush cycle and wait for pending flushes to settle."""
+        if self.loop is None or not self.running:
+            self.flush_all()
+            return
+        # the cycle runs on the loop thread, in order with the timer's;
+        # call_soon_threadsafe callbacks run FIFO, so once the sentinel
+        # fires every flush the cycle spawned is in _pending_flushes
+        settled = threading.Event()
+        try:
+            self.loop.call_soon_threadsafe(self.flush_all)
+            self.loop.call_soon_threadsafe(settled.set)
+        except RuntimeError:
+            return
+        settled.wait(timeout=5)
+        deadline = time.time() + 5
+        while self._pending_flushes and time.time() < deadline:
+            time.sleep(0.01)

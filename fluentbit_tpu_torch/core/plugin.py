@@ -1,0 +1,175 @@
+"""Plugin model — vtables, instances, registry.
+
+The port's own copy of ``fluentbit_tpu/core/plugin.py``, trimmed to the
+input, filter and output kinds of this slice. The port keeps its own
+registry: its plugins never register into the reference package's.
+
+Reference: the C plugin vtables flb_input_plugin / flb_filter_plugin /
+flb_output_plugin (include/fluent-bit/flb_input.h, flb_filter.h,
+flb_output.h) with cb_init/cb_collect/cb_filter/cb_flush/cb_exit, and the
+per-instance property machinery in src/flb_input.c / flb_output.c /
+flb_filter.c.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Dict, List, Optional, Type
+
+from .config import ConfigMapEntry, Properties, apply_config_map
+from .router import Route
+from ..codec.chunk import ChunkPool, EVENT_TYPE_LOGS
+
+
+class FlushResult(enum.Enum):
+    """Output flush verdicts (reference FLB_OK/FLB_RETRY/FLB_ERROR)."""
+
+    OK = 1
+    RETRY = 2
+    ERROR = 3
+
+
+class FilterResult(enum.Enum):
+    """Filter verdicts (FLB_FILTER_NOTOUCH / FLB_FILTER_MODIFIED)."""
+
+    NOTOUCH = 1
+    MODIFIED = 2
+
+
+class Plugin:
+    """Common plugin base."""
+
+    name: str = ""
+    description: str = ""
+    config_map: List[ConfigMapEntry] = []
+    # event types the plugin handles; logs only in this slice
+    event_types = (EVENT_TYPE_LOGS,)
+
+    def __init__(self) -> None:
+        self.instance: Optional["Instance"] = None
+
+    def init(self, instance: "Instance", engine) -> None:  # cb_init
+        pass
+
+    def exit(self) -> None:  # cb_exit
+        pass
+
+
+class InputPlugin(Plugin):
+    """Input vtable. Interval collectors declare ``collect_interval``
+    (seconds) and implement ``collect(engine)``
+    (flb_input_set_collector_time); library inputs expose ``push``."""
+
+    default_tag: Optional[str] = None
+    collect_interval: Optional[float] = None
+
+    def collect(self, engine) -> None:
+        pass
+
+
+class FilterPlugin(Plugin):
+    """Filter vtable: ``filter(events, tag, engine) -> (FilterResult,
+    events')`` over the decoded events of one append. Untouched records
+    keep their raw spans, so the chunk writer re-emits them verbatim."""
+
+    def filter(self, events: list, tag: str, engine) -> tuple:
+        return (FilterResult.NOTOUCH, events)
+
+
+class OutputPlugin(Plugin):
+    """Output vtable: async ``flush(chunk_bytes, tag, engine) -> FlushResult``."""
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        return FlushResult.OK
+
+
+class Instance:
+    """A configured plugin instance (flb_input_instance etc.)."""
+
+    def __init__(self, plugin: Plugin):
+        self.plugin = plugin
+        # provisional name; the engine re-numbers per context
+        self.name = f"{plugin.name}.0"
+        self.alias: Optional[str] = None
+        self.properties = Properties()
+        self.route = Route(match="*")
+        plugin.instance = self
+
+    def set(self, key: str, value: Any) -> None:
+        self.properties.set(key, value)
+
+    def configure(self) -> None:
+        """Apply config_map + core keys."""
+        apply_config_map(self.plugin.config_map, self.properties, self.plugin)
+        self.alias = self.properties.get("alias")
+        match = self.properties.get("match")
+        match_regex = self.properties.get("match_regex")
+        if match or match_regex:
+            self.route = Route(match=match, match_regex=match_regex)
+
+    @property
+    def display_name(self) -> str:
+        return self.alias or self.name
+
+
+class InputInstance(Instance):
+    def __init__(self, plugin: InputPlugin):
+        super().__init__(plugin)
+        self.pool = ChunkPool()
+        self.tag: Optional[str] = None
+        self.collector_task = None
+
+    def configure(self) -> None:
+        super().configure()
+        # default tag = per-instance name (dummy.0, dummy.1, ...)
+        self.tag = self.properties.get("tag") or self.plugin.default_tag or self.name
+
+
+class FilterInstance(Instance):
+    def __init__(self, plugin: FilterPlugin):
+        super().__init__(plugin)
+
+
+class OutputInstance(Instance):
+    def __init__(self, plugin: OutputPlugin):
+        super().__init__(plugin)
+
+
+class Registry:
+    """Plugin name → class registry for the input, filter and output kinds."""
+
+    def __init__(self) -> None:
+        self.inputs: Dict[str, Type[InputPlugin]] = {}
+        self.filters: Dict[str, Type[FilterPlugin]] = {}
+        self.outputs: Dict[str, Type[OutputPlugin]] = {}
+
+    def register(self, cls: Type[Plugin]) -> Type[Plugin]:
+        if issubclass(cls, InputPlugin):
+            self.inputs[cls.name] = cls
+        elif issubclass(cls, FilterPlugin):
+            self.filters[cls.name] = cls
+        elif issubclass(cls, OutputPlugin):
+            self.outputs[cls.name] = cls
+        else:
+            raise TypeError(f"unknown plugin kind {cls!r}")
+        return cls
+
+    def create_input(self, name: str) -> InputInstance:
+        return InputInstance(self._get(self.inputs, name, "input")())
+
+    def create_filter(self, name: str) -> FilterInstance:
+        return FilterInstance(self._get(self.filters, name, "filter")())
+
+    def create_output(self, name: str) -> OutputInstance:
+        return OutputInstance(self._get(self.outputs, name, "output")())
+
+    @staticmethod
+    def _get(table: dict, name: str, kind: str):
+        cls = table.get(name)
+        if cls is None:
+            raise ValueError(f"unknown {kind} plugin {name!r} (have: {sorted(table)})")
+        return cls
+
+
+#: Default registry; plugins self-register at import via ``@registry.register``.
+registry = Registry()

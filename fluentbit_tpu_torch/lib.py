@@ -1,0 +1,88 @@
+"""Embedding API — the library mode, on an explicit torch device.
+
+The port's counterpart of ``fluentbit_tpu/lib.py`` (reference:
+src/flb_lib.c + include/fluent-bit/flb_lib.h: flb_create / flb_input /
+flb_filter / flb_output / flb_*_set / flb_start / flb_stop / flb_lib_push).
+
+Usage::
+
+    import fluentbit_tpu_torch as flb
+    ctx = flb.create(flush="50ms")            # device="cuda" by default
+    in_ffd = ctx.input("lib")
+    ctx.filter("grep", match="*", regex="log aa")
+    ctx.output("lib", callback=cb)
+    ctx.start()
+    ctx.push(in_ffd, '{"log": "aa"}')
+    ctx.stop()
+"""
+
+from __future__ import annotations
+
+from .core.config import ServiceConfig
+from .core.engine import Engine
+from .core.plugin import InputInstance
+from .ops.device import DeviceLike, resolve
+
+# ensure plugin registration
+from . import plugins as _plugins  # noqa: F401
+
+
+class FLBContext:
+    """flb_ctx_t equivalent."""
+
+    def __init__(self, device: DeviceLike = None, **service_props):
+        self.device = resolve(device)
+        self.service = ServiceConfig()
+        for k, v in service_props.items():
+            self.service.set(k, v)
+        self.engine = Engine(self.service, self.device)
+        self._handles: list = []
+
+    # -- configuration (returns integer handles like the C API's ffd) --
+
+    def input(self, name: str, **props) -> int:
+        self._handles.append(self.engine.input(name, **props))
+        return len(self._handles) - 1
+
+    def filter(self, name: str, **props) -> int:
+        self._handles.append(self.engine.filter(name, **props))
+        return len(self._handles) - 1
+
+    def output(self, name: str, **props) -> int:
+        self._handles.append(self.engine.output(name, **props))
+        return len(self._handles) - 1
+
+    def set(self, ffd: int, **props) -> None:
+        """flb_input_set / flb_filter_set / flb_output_set: repeated calls
+        accumulate multi-value keys (grep's Regex/Exclude rules)."""
+        for k, v in props.items():
+            self._handles[ffd].set(k, v)
+
+    # -- lifecycle --
+
+    def start(self) -> None:
+        self.engine.start()
+
+    def stop(self) -> None:
+        self.engine.stop()
+
+    # -- data --
+
+    def push(self, ffd: int, data) -> int:
+        """flb_lib_push: inject JSON into an in_lib instance."""
+        ins = self._handles[ffd]
+        if not isinstance(ins, InputInstance):
+            raise TypeError("handle is not an input")
+        push = getattr(ins.plugin, "push", None)
+        if push is None:
+            raise TypeError(f"input {ins.name} does not accept pushes")
+        return push(data)
+
+    def flush_now(self) -> None:
+        self.engine.flush_now()
+
+
+def create(device: DeviceLike = None, **service_props) -> FLBContext:
+    """flb_create equivalent. ``device`` defaults to ``cuda`` and raises
+    where CUDA is absent; pass ``device="cpu"`` for the plain torch path."""
+    return FLBContext(device, **service_props)

@@ -1,0 +1,96 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, under
+``fluentbit_tpu_torch/_build/`` (listed in ``.gitignore``). The library
+name carries a digest of the source and flags, so an edited source never
+loads a stale build. Nothing here runs at import: the first ``load`` of a
+kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+#: keep the ``a``: plain sm_90 refuses wgmma/setmaxnreg in later kernels
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default prefix."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels build from csrc/ at first use")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+class KernelLibraries:
+    """Loaded ``csrc/<name>.cu`` libraries, each built on first use.
+    ``build_log`` maps a name to the wall seconds and the ptxas ``-v``
+    report of the ``nvcc`` run that built it in this process."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._loaded: Dict[str, ctypes.CDLL] = {}
+        self.build_log: Dict[str, dict] = {}
+
+    def load(self, name: str) -> ctypes.CDLL:
+        """The loaded library of ``csrc/<name>.cu``, built first if it
+        has no current build. Raises RuntimeError with the compiler's
+        output if the build fails."""
+        with self._lock:
+            lib = self._loaded.get(name)
+            if lib is None:
+                out = library_path(name)
+                if not out.exists():
+                    self._build(name, out)
+                lib = self._loaded[name] = ctypes.CDLL(str(out))
+            return lib
+
+    def _build(self, name: str, out: Path) -> None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(CSRC_DIR / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build of {name} failed: nvcc "
+                               f"exit {proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, out)
+        self.build_log[name] = {"seconds": time.perf_counter() - t0,
+                                "ptxas": proc.stdout.strip()}
+
+
+#: the process's kernel libraries (one build and one load per source)
+libraries = KernelLibraries()

@@ -55,3 +55,8 @@ def pytest_configure(config):
         "--xla_force_host_platform_device_count, set above) — the fast "
         "flux/sharding subset runs unmarked in tier-1; the full mesh "
         "matrix is additionally marked slow")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch/CUDA port's hand-written "
+        "kernels); each such test skips itself in a fixture when "
+        "torch.cuda.is_available() is false")

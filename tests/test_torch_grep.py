@@ -1,0 +1,245 @@
+"""The port's grep DFA program against the reference package's.
+
+``TorchGrepProgram(device="cpu")`` runs the plain torch versions of the
+kernel (``super_symbols_plain``, ``super_symbols_pairs_plain``,
+``match_plain``); they must equal ``GrepProgram`` on JAX's CPU backend
+exactly — symbols are integers and verdicts booleans. The CUDA kernel
+is held against the plain version in tests/test_torch_gpu.py.
+"""
+
+import functools
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fluentbit_tpu.ops.grep import GrepProgram, program_for as jax_program_for
+from fluentbit_tpu.regex.dfa import compile_dfa as _jax_compile_dfa
+from fluentbit_tpu_torch.ops import grep as tg
+from fluentbit_tpu_torch.ops.batch import assemble, bucket_size
+from fluentbit_tpu_torch.regex.dfa import compile_dfa as _compile_dfa
+
+# compiled once per pattern: both compilers are deterministic, and
+# tests/test_torch_regex.py holds their outputs equal
+compile_dfa = functools.lru_cache(maxsize=None)(_compile_dfa)
+jax_compile_dfa = functools.lru_cache(maxsize=None)(_jax_compile_dfa)
+
+APACHE2 = (
+    r'^(?<host>[^ ]*) [^ ]* (?<user>[^ ]*) \[(?<time>[^\]]*)\] '
+    r'"(?<method>\S+)(?: +(?<path>[^ ]*) +\S*)?" '
+    r'(?<code>[^ ]*) (?<size>[^ ]*)'
+    r'(?: "(?<referer>[^\"]*)" "(?<agent>.*)")?$'
+)
+MIXED_K = [APACHE2, "GET", r"^\d+ GET"]  # k = 3, 6, 5: three children
+
+
+def make_lines(n, seed):
+    rng = random.Random(seed)
+    lines = []
+    for i in range(n):
+        kind = rng.randrange(5)
+        if kind == 0:
+            lines.append(
+                f'10.0.{rng.randrange(256)}.{rng.randrange(256)} - user{i} '
+                f'[10/Oct/2024:13:55:36 -0700] "GET /p{i} HTTP/1.1" '
+                f'{rng.choice([200, 404, 500])} {rng.randrange(10000)}'.encode())
+        elif kind == 1:
+            lines.append(b"random junk line " + str(i).encode())
+        elif kind == 2:
+            lines.append(b"")
+        elif kind == 3:
+            lines.append(f'host{i} - ü [t] "POST /日本 Z" 201 7 "r" '
+                         f'"agent {i}"'.encode())
+        else:
+            lines.append(f"{i} GET c".encode())
+    return lines
+
+
+def staged(lines, max_len, pad_to=None, rules=1):
+    b = assemble(lines, max_len, pad_to)
+    return (np.ascontiguousarray(np.stack([b.batch] * rules)),
+            np.ascontiguousarray(np.stack([b.lengths] * rules)))
+
+
+def random_rows(rng, R, B, L):
+    """Seeded rows: random bytes (non-ASCII included), every length
+    class: -1, -2, 0, odd/even, L-1 and L."""
+    batch = rng.integers(0, 256, size=(R, B, L), dtype=np.uint8)
+    lengths = rng.integers(-2, L + 1, size=(R, B)).astype(np.int32)
+    special = np.array([-1, -2, 0, 1, L - 1, L], dtype=np.int32)
+    lengths[:, : min(B, len(special))] = special[: min(B, len(special))]
+    return batch, lengths
+
+
+def jax_tables(patterns, max_len):
+    """A reference program and its numpy tables, read before it
+    materializes (materializing frees ``_np``)."""
+    prog = GrepProgram([jax_compile_dfa(p) for p in patterns], max_len)
+    return prog, {k: v for k, v in prog._np.items()}
+
+
+def torch_tables(np_tables):
+    return {k: torch.from_numpy(v) for k, v in np_tables.items()
+            if v is not None}
+
+
+# -- super-symbols (K1, K2) --
+
+@pytest.mark.parametrize("pattern,L", [(APACHE2, 512), (APACHE2, 37),
+                                       ("GET", 64), ("GET", 33),
+                                       (r"^\d+ GET", 40)])
+def test_super_symbols_equal_reference(pattern, L):
+    prog, np_t = jax_tables([pattern], L)
+    batch, lengths = random_rows(np.random.default_rng(L), 1, 29, L)
+    prog._materialize()
+    symbols = jax.jit(prog._super_symbols)
+    ref = np.asarray(symbols(prog._tbl, jnp.asarray(batch),
+                             jnp.asarray(lengths)))
+    t = torch_tables(np_t)
+    bt, lt = torch.from_numpy(batch), torch.from_numpy(lengths)
+    if "pair_maps" in t:  # even k, R <= 32: the reference took K2
+        got = tg.super_symbols_pairs_plain(t, bt, lt, prog.k)
+    else:
+        got = tg.super_symbols_plain(t, bt, lt, prog.k)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # K1 without the pair tables: the reference's per-byte path
+    t1 = {k: v for k, v in t.items() if k != "pair_maps"}
+    tbl1 = {k: v for k, v in prog._tbl.items() if k != "pair_maps"}
+    ref1 = np.asarray(symbols(tbl1, jnp.asarray(batch), jnp.asarray(lengths)))
+    np.testing.assert_array_equal(
+        tg.super_symbols_plain(t1, bt, lt, prog.k).numpy(), ref1)
+    # K2 is only a faster route to K1's symbols
+    np.testing.assert_array_equal(ref1, ref)
+
+
+# -- verdicts (K3) over tests/test_ops_grep.py's cases and more --
+
+@pytest.mark.parametrize("pattern", ["abc", r"^\d+ GET", APACHE2, r"a*b|c$"])
+def test_match_vs_reference(pattern):
+    lines = make_lines(64, seed=7)
+    batch, lengths = staged(lines, 256)
+    ref = GrepProgram([jax_compile_dfa(pattern)], max_len=256)
+    dfa = compile_dfa(pattern)
+    got = tg.TorchGrepProgram([dfa], 256, device="cpu").match(batch, lengths)
+    np.testing.assert_array_equal(got, ref.match(batch, lengths))
+    np.testing.assert_array_equal(
+        got[0], np.array([dfa.match_bytes(ln) for ln in lines]))
+
+
+def test_match_multi_rule_different_fields():
+    patterns = ["GET", r"^\d", APACHE2]
+    lines = make_lines(32, seed=9)
+    a = assemble(lines, 128)
+    b = assemble([ln[::-1] for ln in lines], 128)
+    batch = np.stack([a.batch, b.batch, a.batch])
+    lengths = np.stack([a.lengths, b.lengths, a.lengths])
+    ref = GrepProgram([jax_compile_dfa(p) for p in patterns], 128)
+    got = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], 128, "cpu")
+    np.testing.assert_array_equal(got.match(batch, lengths),
+                                  ref.match(batch, lengths))
+
+
+def test_invalid_and_padded_rows():
+    lines = [b"abc", None, b"x" * 999, b"", b"xx"]
+    batch, lengths = staged(lines, 16, bucket_size(len(lines)))
+    assert lengths.shape == (1, 256) and lengths[0, 2] == -2
+    got = tg.TorchGrepProgram([compile_dfa("x*")], 16, "cpu").match(batch, lengths)
+    ref = GrepProgram([jax_compile_dfa("x*")], 16).match(batch, lengths)
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, 0] and not got[0, 1] and not got[0, 2] and got[0, 3]
+    assert not got[0, 5:].any()
+
+
+@pytest.mark.parametrize("L", [45, 0])
+@pytest.mark.parametrize("B", [0, 1, 17])
+@pytest.mark.parametrize("patterns", [[APACHE2], ["GET"], MIXED_K])
+def test_match_edge_shapes(B, patterns, L):
+    """B in {0, 1, 17}; lengths -1/-2/0/max_len; non-ASCII bytes; odd
+    and empty rows."""
+    rng = np.random.default_rng(B)
+    batch, lengths = random_rows(rng, len(patterns), B, L)
+    got = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L,
+                              "cpu").match(batch, lengths)
+    assert got.shape == (len(patterns), B) and got.dtype == bool
+    if B == 0:
+        return  # nothing for the reference to compare
+    ref = GrepProgram([jax_compile_dfa(p) for p in patterns], L)
+    np.testing.assert_array_equal(got, ref.match(batch, lengths))
+
+
+def test_apache2_bulk_4096():
+    """apache2 at [1, 4096, 512], the shape of one 4096-record append."""
+    lines = make_lines(4096, seed=1234)
+    lines[5] = b"y" * 512  # a row of exactly max_len
+    batch, lengths = staged(lines, 512)
+    assert lengths[0, 5] == 512
+    got = tg.program_for([APACHE2], 512, "cpu").match(batch, lengths)
+    ref = jax_program_for([APACHE2], 512).match(batch, lengths)
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() > 0 and (~got).sum() > 0
+
+
+def test_mixed_k_child_split():
+    lines = make_lines(50, seed=5)
+    batch, lengths = staged(lines, 64, rules=3)
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in MIXED_K], 64, "cpu")
+    assert prog.decision()["k_groups"] == [3, 5, 6]
+    ref = GrepProgram([jax_compile_dfa(p) for p in MIXED_K], 64)
+    np.testing.assert_array_equal(prog.match(batch, lengths),
+                                  ref.match(batch, lengths))
+
+
+# -- state carried across from the reference package --
+
+@pytest.mark.parametrize("patterns", [[APACHE2], ["GET", "DENY"],
+                                      [r"^\d+ GET"]])
+def test_from_jax_tables(patterns):
+    L = 96
+    ref, np_t = jax_tables(patterns, L)
+    own = tg.build_tables([compile_dfa(p) for p in patterns], ref.k)
+    assert set(own) == {k for k, v in np_t.items() if v is not None}
+    for name, arr in own.items():
+        assert arr.dtype == np_t[name].dtype, name
+        np.testing.assert_array_equal(arr, np_t[name], err_msg=name)
+    carried = tg.from_jax_tables(np_t, ref.k, L, device="cpu")
+    native = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, "cpu")
+    for name, arr in native.tables.items():
+        np.testing.assert_array_equal(carried.tables[name].numpy(),
+                                      arr.numpy(), err_msg=name)
+    batch, lengths = random_rows(np.random.default_rng(3), len(patterns), 33, L)
+    for i, ln in enumerate(make_lines(20, seed=4)):
+        batch[:, i, :] = 0
+        batch[:, i, : len(ln)] = np.frombuffer(ln, np.uint8)
+        lengths[:, i] = len(ln)
+    got = carried.match(batch, lengths)
+    np.testing.assert_array_equal(got, native.match(batch, lengths))
+    np.testing.assert_array_equal(got, ref.match(batch, lengths))
+
+
+@pytest.mark.parametrize("patterns", [[APACHE2], MIXED_K, ["GET", "DENY"]])
+def test_decision_matches_reference(patterns):
+    ref = GrepProgram([jax_compile_dfa(p) for p in patterns], 128)
+    got = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], 128, "cpu")
+    d_ref, d_got = ref.decision(), got.decision()
+    assert d_got.pop("kernel_resolved") == "scan"
+    d_ref.pop("kernel_resolved")
+    assert d_got == d_ref
+
+
+def test_kernel_choice_is_explicit():
+    with pytest.raises(NotImplementedError):
+        tg.TorchGrepProgram([compile_dfa("GET")], 64, "cpu", kernel="assoc")
+    with pytest.raises(ValueError):
+        tg.TorchGrepProgram([compile_dfa("GET")], 64, "cpu", kernel="bogus")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    prog = tg.TorchGrepProgram([compile_dfa("GET")], 32, "cpu")
+    batch, lengths = random_rows(np.random.default_rng(0), 1, 4, 32)
+    with pytest.raises(ValueError):
+        tg.grep_dfa(prog.tables, torch.from_numpy(batch),
+                    torch.from_numpy(lengths), prog.k)

@@ -1,0 +1,150 @@
+"""Config 1's pipeline through the port against the reference package.
+
+``fluentbit_tpu_torch.create(device="cpu")`` and ``fluentbit_tpu.create()``
+take the same lib-input records (made from a seed, with fixed timestamps)
+through grep and must hand their lib outputs the same bytes. Also: the
+port never imports the reference package or JAX, and asks for CUDA unless
+told otherwise.
+"""
+
+import ast
+import json
+import pathlib
+import random
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fluentbit_tpu
+import fluentbit_tpu_torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+APACHE2 = (
+    r'^(?<host>[^ ]*) [^ ]* (?<user>[^ ]*) \[(?<time>[^\]]*)\] '
+    r'"(?<method>\S+)(?: +(?<path>[^ ]*) +\S*)?" '
+    r'(?<code>[^ ]*) (?<size>[^ ]*)'
+    r'(?: "(?<referer>[^\"]*)" "(?<agent>.*)")?$'
+)
+
+
+def make_appends(seed, sizes=(64, 5, 40)):
+    """Appends of [ts, body] pairs: apache lines, junk, non-ASCII,
+    missing and non-string fields, and values past max_len."""
+    rng = random.Random(seed)
+    appends = []
+    i = 0
+    for n in sizes:
+        recs = []
+        for _ in range(n):
+            kind = rng.randrange(8)
+            code = rng.choice(["200", "404", "500"])
+            line = (f'10.0.0.{i % 256} - u{i} [10/Oct/2000:13:55:36 -0700] '
+                    f'"{rng.choice(["GET", "POST"])} /p/{i} HTTP/1.1" '
+                    f'{code} {rng.randrange(9999)}')
+            if kind == 0:
+                body = {"log": line, "code": code}
+            elif kind == 1:
+                body = {"log": line + ' "-" "curl ünï"', "code": code}
+            elif kind == 2:
+                body = {"log": f"GET junk DENY {i}", "code": code}
+            elif kind == 3:
+                body = {"msg": "no log field"}
+            elif kind == 4:
+                body = {"log": i}
+            elif kind == 5:  # longer than tpu_max_record_len
+                body = {"log": line + ' "-" "' + "a" * 600 + '"',
+                        "code": code}
+            elif kind == 6:
+                body = {"log": "POST 日本 " + "x" * rng.randrange(40)}
+            else:
+                body = {"log": ""}
+            recs.append([1700000000 + i + 0.25, body])
+            i += 1
+        appends.append(recs)
+    return appends
+
+
+def run_pipeline(create, appends, rules, **create_kw):
+    out = []
+    ctx = create(flush="50ms", grace="1", **create_kw)
+    in_ffd = ctx.input("lib", tag="app.log")
+    f = ctx.filter("grep", match="app.*")
+    for key, value in rules:
+        ctx.set(f, **{key: value})
+    ctx.output("lib", match="*", callback=lambda data, tag: out.append(data))
+    ctx.start()
+    try:
+        for recs in appends:
+            ctx.push(in_ffd, json.dumps(recs))
+    finally:
+        ctx.stop()
+    return b"".join(out), ctx
+
+
+RULE_SETS = {
+    "config1_apache2": [("regex", "log " + APACHE2)],
+    "legacy": [("exclude", "log DENY"), ("regex", "log ^10\\.0\\.0\\.")],
+    "and": [("logical_op", "and"), ("regex", "log GET"),
+            ("regex", "code ^[24]")],
+    "or": [("logical_op", "or"), ("exclude", "log 500"),
+           ("exclude", "log ünï")],
+    "exclude": [("exclude", "log " + APACHE2)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(RULE_SETS))
+def test_lib_output_bytes_match_reference(name):
+    appends = make_appends(seed=len(name))
+    rules = RULE_SETS[name]
+    ref, _ = run_pipeline(fluentbit_tpu.create, appends, rules)
+    got, ctx = run_pipeline(fluentbit_tpu_torch.create, appends, rules,
+                            device="cpu")
+    assert got == ref
+    assert len(ref) > 0
+    # appends of >= tpu_batch_records (32) took the device program
+    grep = ctx.engine.filters[0].plugin
+    assert grep._program is not None
+    assert len(grep.match_seconds) == sum(len(a) >= 32 for a in appends)
+
+
+def test_create_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluentbit_tpu_torch.create()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluentbit_tpu_torch.create(device="cuda")
+    assert fluentbit_tpu_torch.create(device="cpu").device.type == "cpu"
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_reference_package():
+    files = sorted((REPO / "fluentbit_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "fluentbit_tpu"}, path
+
+
+def test_import_loads_no_jax_or_reference_module():
+    code = (
+        "import sys, fluentbit_tpu_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'fluentbit_tpu', 'triton')]\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
