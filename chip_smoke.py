@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
 
 1. environment: torch/CUDA/nvcc/triton versions, the card's name and power
    limit;
-2. build: the main path's kernel from ``fluentbit_tpu_torch/csrc`` with
-   ``nvcc``, with ptxas' report;
+2. build: every kernel of ``fluentbit_tpu_torch/csrc`` (``grep_dfa``,
+   ``sketch``), one ``nvcc`` each, started together, with ptxas' report;
 3. kernel against plain: the ``grep_dfa`` kernel against its plain torch
    version on the card, bool for bool, on three programs (apache2 k=3, an
    even-k literal set, a mixed-k 3-rule set) at [R, 65536, 512] and the
@@ -21,7 +21,20 @@ Phases (any failure exits non-zero):
    an Exclude rule in front; each run's output bytes must equal the same
    pipeline on ``device="cpu"``, the kept records must equal a Python
    ``re`` filter over the input, and the kernel's launch count must show
-   every append of >= 32 records went through it.
+   every append of >= 32 records went through it;
+5. sketch kernels against plain: ``hll_update`` (p = 14, 10) and
+   ``cms_update`` (4 x 16384 int32, 4 x 512 int64, 4 x 16384 int32 with
+   weights) against their plain torch versions on the card at the main
+   path's [4096, 256] and at [65536, 256], registers and tables exactly
+   equal, with CUDA-event times of both;
+6. pipeline: BASELINE config 4 (http input → log_to_metrics cardinality
+   over ``user`` and frequency over ``path`` → prometheus_exporter), 64
+   POSTs of 4096 records, on ``device="cuda"`` and then ``"cpu"``: the
+   rendered text, registers and table must be equal between the devices
+   and agree with a check computed here from Python ints (registers,
+   the estimate within 3% of the exact distinct count, the exact top-10
+   paths within count-min's error), and each sketch kernel must have
+   launched once per POST.
 
 The card's name and power limit (as ``nvidia-smi`` gives them) come
 before the kernels JSON line, which is the line before the last; the last
@@ -32,7 +45,9 @@ beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import math
 import os
 import random
 import re
@@ -53,6 +68,23 @@ APACHE2 = (
 APACHE2_PY = re.compile(APACHE2.replace("(?<", "(?P<"), re.ASCII | re.MULTILINE)
 EXCLUDE = r'HTTP/1\.1" 500 '
 EXCLUDE_PY = re.compile(EXCLUDE, re.ASCII | re.MULTILINE)
+
+# config 4 (conf/baseline4-metrics.yaml): the two log_to_metrics filters
+CARDINALITY = dict(match="firehose", metric_mode="cardinality",
+                   metric_name="unique_users",
+                   metric_description="distinct user ids (HLL estimate)",
+                   value_field="user", tag="metrics")
+FREQUENCY = dict(match="firehose", metric_mode="frequency",
+                 metric_name="hot_paths",
+                 metric_description="hottest request paths (count-min "
+                                    "estimate)",
+                 value_field="path", frequency_top_k="10", tag="metrics")
+SKETCH_L = 256     # log_to_metrics' tpu_max_record_len
+HLL_P = 14         # its sketch_precision
+CMS_D, CMS_W = 4, 16384  # its sketch_depth x sketch_width
+USER_IDS = 120_000  # ~106k distinct users in 262,144 draws
+PATHS = 10_000
+PATH_ZIPF_S = 1.1
 
 EVEN_K = ["GET", "DENY"]             # literal rules: k = 6, pair tables
 MIXED_K = [APACHE2, "GET", r"^\d+ GET"]  # k = 3, 6, 5: three child programs
@@ -141,11 +173,28 @@ def make_rows(np, seed: int, R: int, B: int):
     return batch, lengths
 
 
+def host_ms(torch, fn, iters: int) -> float:
+    """Mean host ms to enqueue one call of ``fn`` (no synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device ms of ``fn`` over ``iters`` calls, warmed, by CUDA events."""
+    """Mean device ms of ``fn`` over ``iters`` calls, warmed, by CUDA
+    events. A sleep kernel first holds the stream for longer than the
+    host takes to enqueue the calls, so the events time the device's
+    back-to-back work and not the host's launch rate (a stream queue
+    that fills up still lets the host's rate in)."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
+    enqueue_s = host_ms(torch, fn, iters) * iters / 1e3
+    # ~2e9 SM cycles a second (H100 SXM boost 1.98 GHz)
+    torch.cuda._sleep(int(min(1.5 * enqueue_s + 1e-3, 2.0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -247,6 +296,7 @@ def phase_kernels(np, torch, tg, compile_dfa, seed: int) -> list:
             err = int((got.int() - plain.int()).abs().max())
             iters = 50 if B == 4096 else 20
             k_ms = cuda_ms(torch, lambda: prog.dispatch(b, ln), iters)
+            k_host_ms = host_ms(torch, lambda: prog.dispatch(b, ln), iters)
             p_ms = cuda_ms(torch, lambda: plain_dispatch(torch, tg, prog,
                                                          tables, b, ln), 3)
             bms, by = bound_ms(torch, prog, b, ln,
@@ -255,7 +305,8 @@ def phase_kernels(np, torch, tg, compile_dfa, seed: int) -> list:
                    "k_groups": prog.decision()["k_groups"],
                    "launches": launches, "mismatches": mism, "max_abs_err": err,
                    "matched_rows": int(got.sum()), "ms": k_ms,
-                   "plain_ms": p_ms, "bound_ms": bms, "bound_by": by}
+                   "host_enqueue_ms": k_host_ms, "plain_ms": p_ms,
+                   "bound_ms": bms, "bound_by": by}
             log("kernel-vs-plain: " + json.dumps(res))
             if mism:
                 raise SystemExit(f"grep_dfa disagrees with match_plain on "
@@ -367,6 +418,271 @@ def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
     return report
 
 
+def sketch_rows(np, seed: int, B: int):
+    """[B, 256] rows from a seed: values drawn Zipf-like (s = 1.1) from a
+    vocabulary of 8192 random byte strings of length 0-256 (the first 64
+    all-0xFF), so that atomics collide; pad bytes past a length are left
+    random, and ~2% of rows each get length -1 and -2."""
+    rng = np.random.default_rng(seed)
+    vocab = rng.integers(0, 256, size=(8192, SKETCH_L), dtype=np.uint8)
+    vlen = rng.integers(0, SKETCH_L + 1, size=8192).astype(np.int32)
+    vocab[:64] = 0xFF
+    idx = (rng.zipf(1.1, size=B) - 1) % 8192
+    lengths = vlen[idx]
+    lengths[rng.random(B) < 0.02] = -1
+    lengths[rng.random(B) < 0.02] = -2
+    return vocab[idx], lengths
+
+
+def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None) -> tuple:
+    """Least time for one sketch update of these rows. Bytes: each row's
+    bytes before its length, every length (and weight) once, and each
+    state word the rows touch read once and written once, over HBM's
+    rate. Operations, for a row with a length: an xor and a multiply per
+    byte, the finaliser (8), and for HLL index and rank (5), for
+    count-min the second hash (9) and per depth row a multiply, an add
+    and a modulo (3), over the int32 peak. The larger bounds it."""
+    valid = ln >= 0
+    used = ln.clamp(min=0, max=b.shape[1]).long()
+    n_valid = int(valid.sum())
+    if p is not None:
+        idx, _ = tsk.hll_index_rank_plain(b, ln, p)
+        words = int(torch.unique(idx[valid]).numel())
+        per_row = 8 + 5
+    else:
+        d, w = state.shape
+        cols = tsk.cms_cols_plain(b, ln, d, w)
+        flat = cols + (torch.arange(d, device=b.device) * w)[:, None]
+        words = int(torch.unique(flat[:, valid]).numel())
+        per_row = 8 + 9 + 3 * d
+    nbytes = (int(used.sum()) + ln.numel() * 4
+              + (0 if weights is None else weights.numel() * 4)
+              + 2 * words * state.element_size())
+    ops = 2 * int(used.sum()) + per_row * n_valid
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_sketch_kernels(np, torch, tsk, seed: int) -> list:
+    dev = torch.device("cuda")
+    cases = [("hll_update", {"p": HLL_P}), ("hll_update", {"p": 10}),
+             ("cms_update", {"d": CMS_D, "w": CMS_W, "dtype": torch.int32}),
+             ("cms_update", {"d": 4, "w": 512, "dtype": torch.int64}),
+             ("cms_update", {"d": CMS_D, "w": CMS_W, "dtype": torch.int32,
+                             "weights": True})]
+    results = []
+    for name, cfg in cases:
+        for B in (RECORDS, 65536):
+            batch, lengths = sketch_rows(np, seed + B + len(results), B)
+            b = torch.from_numpy(batch).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            weights = None
+            if cfg.get("weights"):
+                wts = np.random.default_rng(seed).integers(-3, 1 << 16, size=B)
+                weights = torch.from_numpy(wts.astype(np.int32)).to(dev)
+            if name == "hll_update":
+                p = cfg["p"]
+                state = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+                kernel, plain = tsk.hll_update, tsk.hll_update_plain
+                args = (b, ln, p)
+                label = {"p": p}
+            else:
+                p = None
+                state = torch.zeros((cfg["d"], cfg["w"]), dtype=cfg["dtype"],
+                                    device=dev)
+                kernel, plain = tsk.cms_update, tsk.cms_update_plain
+                args = (b, ln, weights)
+                label = {"d": cfg["d"], "w": cfg["w"],
+                         "dtype": str(cfg["dtype"]).split(".")[-1],
+                         "weighted": weights is not None}
+            got, want = state.clone(), state.clone()
+            before = kernel.launches
+            kernel(got, *args)
+            launches = kernel.launches - before
+            plain(want, *args)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            k_ms = cuda_ms(torch, lambda: kernel(got, *args), 200)
+            k_host_ms = host_ms(torch, lambda: kernel(got, *args), 200)
+            p_ms = cuda_ms(torch, lambda: plain(want, *args), 5)
+            bms, by = sketch_bound_ms(torch, tsk, b, ln, state, weights, p)
+            res = {"kernel": name, **label, "shape": [B, SKETCH_L],
+                   "launches": launches, "max_abs_err": err,
+                   "rows_counted": int((ln >= 0).sum()),
+                   "state_nonzero": int((want != 0).sum()), "ms": k_ms,
+                   "host_enqueue_ms": k_host_ms, "plain_ms": p_ms,
+                   "bound_ms": bms, "bound_by": by}
+            log("sketch-vs-plain: " + json.dumps(res))
+            if err != 0:
+                raise SystemExit(f"{name} disagrees with its plain version: "
+                                 f"{res}")
+            if launches != 1 or res["state_nonzero"] == 0:
+                raise SystemExit(f"{name}: bad launch or empty state: {res}")
+            results.append(res)
+    return results
+
+
+def make_posts(np, seed: int) -> tuple:
+    """64 JSON-array bodies of 4096 records from a seed: ``user`` drawn
+    from 120k ids, ``path`` Zipf(1.1) over 10k paths, ~2% of each value
+    longer than 256 B (host-hashed overflow rows), ~3% of records
+    without each field. Returns (bodies, users, paths), the field values
+    as the filters see them (UTF-8 bytes, missing ones left out)."""
+    rng = np.random.default_rng(seed)
+    n = APPENDS * RECORDS
+    users = rng.integers(0, USER_IDS, size=n)
+    ranks = np.arange(1, PATHS + 1, dtype=np.float64)
+    prob = ranks ** -PATH_ZIPF_S
+    paths = rng.choice(PATHS, size=n, p=prob / prob.sum())
+    long_user = rng.random(n) < 0.02
+    long_path = rng.random(n) < 0.02
+    no_user = rng.random(n) < 0.03
+    no_path = rng.random(n) < 0.03
+    status = rng.choice([200, 200, 200, 304, 404, 500], size=n)
+    bodies, user_vals, path_vals = [], [], []
+    for a in range(APPENDS):
+        recs = []
+        for i in range(a * RECORDS, (a + 1) * RECORDS):
+            rec = {"status": int(status[i])}
+            if not no_user[i]:
+                u = f"user-{users[i]:06d}"
+                rec["user"] = u + "-" + "u" * 300 if long_user[i] else u
+                user_vals.append(rec["user"].encode())
+            if not no_path[i]:
+                pth = f"/api/v1/items/{paths[i]}"
+                rec["path"] = (pth + "/" + "p" * 300 + f"/{i}" if long_path[i]
+                               else pth)
+                path_vals.append(rec["path"].encode())
+            recs.append(rec)
+        bodies.append(json.dumps(recs).encode())
+    return bodies, user_vals, path_vals
+
+
+def run_config4(flb, device: str, bodies: list) -> dict:
+    import http.client
+
+    ctx = flb.create(device=device, flush="50ms", grace="2")
+    ctx.input("http", tag="firehose", port=0, listen="127.0.0.1")
+    ctx.filter("log_to_metrics", **CARDINALITY)
+    ctx.filter("log_to_metrics", **FREQUENCY)
+    ctx.output("prometheus_exporter", match="metrics")
+    ctx.start()
+    try:
+        port = ctx.engine.inputs[0].plugin.bound_port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        t0 = time.perf_counter()
+        for body in bodies:
+            conn.request("POST", "/", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            if resp.status != 201:
+                raise SystemExit(f"config 4 on {device}: POST answered "
+                                 f"{resp.status}")
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+        conn.close()
+    finally:
+        ctx.stop()
+    hll, cms = (f.plugin for f in ctx.engine.filters)
+    return {"text": ctx.engine.outputs[0].plugin.render(), "wall": wall,
+            "hll": hll, "cms": cms}
+
+
+def fnv1a_mix(value: bytes) -> int:
+    """FNV-1a 32 then murmur3 fmix32, from Python ints (independent of
+    the port's code)."""
+    h = 0x811C9DC5
+    for byte in value:
+        h = ((h ^ byte) * 0x01000193) & 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def independent_check(np, users: list, paths: list, hll, cms) -> dict:
+    """The HLL registers from scratch, the estimate against the exact
+    distinct count, and the count-min top 10 against the exact top 10."""
+    regs = np.zeros(1 << HLL_P, dtype=np.int32)
+    for v in set(users):
+        h = fnv1a_mix(v)
+        rest = (h << HLL_P) & 0xFFFFFFFF
+        rank = min(32 - rest.bit_length() + 1, 33 - HLL_P)
+        i = h >> (32 - HLL_P)
+        regs[i] = max(regs[i], rank)
+    distinct = len(set(users))
+    est = hll.hll.estimate()
+    counts = collections.Counter(paths)
+    exact = counts.most_common(11)
+    top = [(int(v), labels[-1].encode())
+           for labels, v in cms.metric.samples()]
+    slack = math.e * len(paths) / CMS_W
+    res = {"registers_equal_python": bool(np.array_equal(
+               regs, hll.hll.registers.cpu().numpy())),
+           "distinct_users": distinct, "hll_estimate": est,
+           "hll_rel_err": abs(est - distinct) / distinct,
+           "top10_set_equal": ({k for _, k in top}
+                               == {k for k, _ in exact[:10]}),
+           "top10_exact_margin": exact[9][1] - exact[10][1],
+           "top10_within_cms_bound": all(
+               counts[k] <= est_k <= counts[k] + slack for est_k, k in top),
+           "cms_slack": slack}
+    return res
+
+
+def phase_config4(np, torch, tsk, flb, seed: int, card: str,
+                  sketch_results: list) -> dict:
+    bodies, users, paths = make_posts(np, seed)
+    n_records = APPENDS * RECORDS
+    tsk.hll_update.launches = tsk.cms_update.launches = 0
+    gpu = run_config4(flb, "cuda", bodies)
+    launches = {"hll_update": tsk.hll_update.launches,
+                "cms_update": tsk.cms_update.launches}
+    cpu = run_config4(flb, "cpu", bodies)
+    check = independent_check(np, users, paths, gpu["hll"], gpu["cms"])
+
+    def p50_ms(f) -> dict:
+        return {step: statistics.median(s[i] for s in f.step_seconds) * 1e3
+                for i, step in enumerate(("stage", "launch", "readback"))}
+
+    main_ms = {r["kernel"]: r["ms"] for r in sketch_results
+               if r["shape"][0] == RECORDS and r.get("p", HLL_P) == HLL_P
+               and r.get("w", CMS_W) == CMS_W and not r.get("weighted")}
+    busy_ms = sum(main_ms[k] * launches[k] for k in launches)
+    res = {"records": n_records, "posts": len(bodies),
+           "render_equal_cpu": gpu["text"] == cpu["text"],
+           "registers_equal_cpu": torch.equal(gpu["hll"].hll.registers.cpu(),
+                                              cpu["hll"].hll.registers),
+           "table_equal_cpu": torch.equal(gpu["cms"].cms.table.cpu(),
+                                          cpu["cms"].cms.table),
+           "launches": launches, **check,
+           "lines_per_s": n_records / gpu["wall"],
+           "cpu_lines_per_s": n_records / cpu["wall"],
+           "p50_ms_cardinality": p50_ms(gpu["hll"]),
+           "p50_ms_frequency": p50_ms(gpu["cms"]),
+           "cpu_p50_ms_cardinality": p50_ms(cpu["hll"]),
+           "cpu_p50_ms_frequency": p50_ms(cpu["cms"]),
+           "device_busy_share": busy_ms / (gpu["wall"] * 1e3), "card": card}
+    log("config4: " + json.dumps(res))
+    log("config4 render (cuda):\n" + gpu["text"])
+    failed = [k for k in ("render_equal_cpu", "registers_equal_cpu",
+                          "table_equal_cpu", "registers_equal_python",
+                          "top10_set_equal", "top10_within_cms_bound")
+              if not res[k]]
+    if res["hll_rel_err"] > 0.03:
+        failed.append("hll_rel_err")
+    if res["top10_exact_margin"] <= 0:
+        failed.append("top10_exact_margin")
+    if launches != {"hll_update": APPENDS, "cms_update": APPENDS}:
+        failed.append("launches")
+    if failed:
+        raise SystemExit(f"config 4 failed {failed}: {res}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -384,6 +700,7 @@ def main() -> int:
     from fluentbit_tpu_torch.codec.events import decode_events
     from fluentbit_tpu_torch.ops import cuda_build
     from fluentbit_tpu_torch.ops import grep as tg
+    from fluentbit_tpu_torch.ops import sketch as tsk
     from fluentbit_tpu_torch.ops.device import describe, resolve
     from fluentbit_tpu_torch.regex.dfa import compile_dfa
 
@@ -394,7 +711,9 @@ def main() -> int:
     # fresh build from the sources in this checkout
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    cuda_build.libraries.load("grep_dfa")
+    cuda_build.libraries.build(["grep_dfa", "sketch"])
+    for name in ("grep_dfa", "sketch"):
+        cuda_build.libraries.load(name)
     build = {"seconds": time.perf_counter() - t0,
              "kernels": {n: {"nvcc_seconds": v["seconds"],
                              "ptxas": [ln for ln in v["ptxas"].splitlines()
@@ -404,6 +723,9 @@ def main() -> int:
 
     variants = phase_kernels(np, torch, tg, compile_dfa, args.seed)
     pipeline = phase_pipeline(tg, flb, decode_events, args.seed, env["card"])
+    sketches = phase_sketch_kernels(np, torch, tsk, args.seed)
+    config4 = phase_config4(np, torch, tsk, flb, args.seed, env["card"],
+                            sketches)
 
     main_shape = next(v for v in variants
                       if v["program"] == "apache2" and v["shape"][1] == 4096)
@@ -424,6 +746,26 @@ def main() -> int:
         "shape": main_shape["shape"],
         "variants": variants,
     }]}
+    replaces = {"hll_update": ("fluentbit_tpu/ops/sketch.py:137",
+                               ["fluentbit_tpu/ops/sketch.py:40",
+                                "fluentbit_tpu/ops/sketch.py:66",
+                                "fluentbit_tpu/ops/sketch.py:76"]),
+                "cms_update": ("fluentbit_tpu/ops/sketch.py:267",
+                               ["fluentbit_tpu/ops/sketch.py:260"])}
+    for name, (at, fuses) in replaces.items():
+        cases = [r for r in sketches if r["kernel"] == name]
+        main = next(r for r in cases if r["shape"][0] == RECORDS
+                    and r.get("p", HLL_P) == HLL_P
+                    and r.get("w", CMS_W) == CMS_W and not r.get("weighted"))
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "fluentbit_tpu_torch/csrc/sketch.cu",
+            "replaces": at, "fuses": fuses,
+            "launches": config4["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shape": main["shape"], "variants": cases})
     log(f"total_seconds: {time.perf_counter() - t_all:.1f}")
     log(env["card"])
     log(json.dumps(kernels))

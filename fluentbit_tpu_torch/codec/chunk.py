@@ -1,7 +1,8 @@
 """Tagged chunks — the unit of buffering, routing and flushing.
 
 The port's own copy of ``fluentbit_tpu/codec/chunk.py``, trimmed to the
-in-memory decoded path (no copy witness, no storage or qos stamps).
+in-memory decoded path (no copy witness, no storage or qos stamps). Log
+and metrics chunks share a pool, keyed by event type and tag.
 
 Reference semantics (src/flb_input_chunk.c): each input owns a pool of
 chunks keyed by tag; appends go to the active chunk for that tag until it
@@ -18,6 +19,7 @@ from typing import Dict, List
 CHUNK_TARGET_SIZE = 2 * 1024 * 1024
 
 EVENT_TYPE_LOGS = "logs"
+EVENT_TYPE_METRICS = "metrics"
 
 
 class Chunk:

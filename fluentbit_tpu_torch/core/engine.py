@@ -2,10 +2,12 @@
 
 The port's counterpart of ``fluentbit_tpu/core/engine.py``, trimmed to the
 decoded path: ``input_log_append`` → decode → filter chain → chunk pool,
-and a flush timer that drains the pools to the outputs, with the grace
-window at stop. Storage, qos, guard, failpoints, the HTTP server, flux,
-the stream processor, multiline, retries and the raw chunk path wait for
-later slices.
+typed appends (``input_event_append``: metrics snapshots, no filter
+chain), hidden inputs (the emitter that log_to_metrics feeds), server
+inputs listening on the engine's loop, and a flush timer that drains the
+pools to the outputs, with the grace window at stop. Storage, qos,
+guard, failpoints, the admin HTTP server, flux, the stream processor,
+multiline, retries and the raw chunk path wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
@@ -55,8 +57,11 @@ class Engine:
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
         self._stopping = False
-        # serializes ingest (filters + pool appends) against pool drains
-        self._ingest_lock = threading.Lock()
+        # serializes ingest (filters + pool appends) against pool drains;
+        # reentrant because a filter may append from inside the chain
+        # (log_to_metrics emits its snapshot through input_event_append)
+        self._ingest_lock = threading.RLock()
+        self._start_error: Optional[BaseException] = None
         self._pending_flushes: set = set()
 
     # ------------------------------------------------------------------
@@ -92,6 +97,18 @@ class Engine:
         self.outputs = self.outputs + [ins]
         return ins
 
+    def hidden_input(self, name: str, **props) -> InputInstance:
+        """Create and initialize an internal input at once: the hidden
+        ``emitter`` a filter's init makes for itself (reference
+        plugins/filter_rewrite_tag/rewrite_tag.c:245-260)."""
+        ins = self._make_instance(self.registry.create_input, name, props,
+                                  self.inputs)
+        with self._ingest_lock:
+            self.inputs = self.inputs + [ins]
+        ins.configure()
+        ins.plugin.init(ins, self)
+        return ins
+
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
@@ -104,11 +121,16 @@ class Engine:
             ins.configure()
             ins.plugin.init(ins, self)
         self._stopping = False
+        self._start_error = None
         self._thread = threading.Thread(target=self._run, name="flb-engine",
                                         daemon=True)
         self._thread.start()
         if not self._started.wait(timeout=10):
             raise RuntimeError("engine failed to start")
+        if self._start_error is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+            raise RuntimeError("engine failed to start") from self._start_error
 
     def _run(self) -> None:
         self.loop = asyncio.new_event_loop()
@@ -119,10 +141,19 @@ class Engine:
             self.loop.close()
 
     async def _main(self) -> None:
-        for ins in self.inputs:
-            if ins.plugin.collect_interval is not None:
-                ins.collector_task = asyncio.ensure_future(
-                    self._collector(ins))
+        try:
+            for ins in self.inputs:
+                if ins.plugin.collect_interval is not None:
+                    ins.collector_task = asyncio.ensure_future(
+                        self._collector(ins))
+                elif getattr(ins.plugin, "server_task_needed", False):
+                    # bind before start() returns, so a caller can read
+                    # bound_port; the task serves until stop() cancels it
+                    ins.collector_task = asyncio.ensure_future(
+                        await ins.plugin.start_server(self))
+        except Exception as exc:  # reported by start(), which raises
+            self._start_error = exc
+            self._stopping = True
         self._started.set()
         flush_interval = max(0.02, self.service.flush)
         try:
@@ -201,6 +232,17 @@ class Engine:
                 for ev in events)
             ins.pool.append(tag, payload, len(events))
             return len(events)
+
+    def input_event_append(self, ins: InputInstance, tag: Optional[str],
+                           data: bytes, event_type: str,
+                           n_records: int = 1) -> int:
+        """Typed append (metrics snapshots): no filter chain (reference
+        typed appends, src/flb_input_metric.c). Returns the records
+        written."""
+        tag = tag or ins.tag or ins.plugin.name
+        with self._ingest_lock:
+            ins.pool.append(tag, data, n_records, event_type)
+        return n_records
 
     def _run_filters(self, events: List[LogEvent], tag: str) -> List[LogEvent]:
         """flb_filter_do equivalent (src/flb_filter.c:119-330)."""

@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -55,8 +55,9 @@ def library_path(name: str) -> Path:
 
 class KernelLibraries:
     """Loaded ``csrc/<name>.cu`` libraries, each built on first use.
-    ``build_log`` maps a name to the wall seconds and the ptxas ``-v``
-    report of the ``nvcc`` run that built it in this process."""
+    ``build_log`` maps a name to the wall seconds (from the start of the
+    builds started with it) and the ptxas ``-v`` report of the ``nvcc``
+    run that built it in this process."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -70,26 +71,44 @@ class KernelLibraries:
         with self._lock:
             lib = self._loaded.get(name)
             if lib is None:
-                out = library_path(name)
-                if not out.exists():
-                    self._build(name, out)
-                lib = self._loaded[name] = ctypes.CDLL(str(out))
+                self._build([name])
+                lib = self._loaded[name] = ctypes.CDLL(str(library_path(name)))
             return lib
 
-    def _build(self, name: str, out: Path) -> None:
+    def build(self, names: Sequence[str]) -> None:
+        """Build every named source that has no current build: one
+        ``nvcc`` per source, all started together."""
+        with self._lock:
+            self._build(names)
+
+    def _build(self, names: Sequence[str]) -> None:
+        todo = [(n, library_path(n)) for n in names]
+        todo = [(n, out) for n, out in todo if not out.exists()]
+        if not todo:
+            return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        compiler = nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC_DIR / f"{name}.cu")],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"CUDA kernel build of {name} failed: nvcc "
-                               f"exit {proc.returncode}\n{proc.stdout}")
-        os.replace(tmp, out)
-        self.build_log[name] = {"seconds": time.perf_counter() - t0,
-                                "ptxas": proc.stdout.strip()}
+        running = []
+        for name, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in running:
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"CUDA kernel build of {name} failed: nvcc "
+                              f"exit {proc.returncode}\n{report}")
+                continue
+            os.replace(tmp, out)
+            self.build_log[name] = {"seconds": time.perf_counter() - t0,
+                                    "ptxas": report.strip()}
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 #: the process's kernel libraries (one build and one load per source)

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
 def resolve(device: DeviceLike = None) -> torch.device:
@@ -30,6 +32,18 @@ def resolve(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(x: ArrayLike, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """A staged host array (numpy or tensor) of ``dtype`` on ``device``,
+    contiguous: one non-blocking copy (asynchronous from pinned memory).
+    Raises ValueError on another dtype."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    if x.dtype != dtype:
+        raise ValueError(f"expected {dtype}, got {x.dtype}")
+    return x.to(device, non_blocking=True).contiguous()
 
 
 def describe(device: torch.device) -> dict:

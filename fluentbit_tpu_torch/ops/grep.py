@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..regex.dfa import ACC, DFA, compile_dfa, compose_supersteps
 from . import cuda_build
-from .device import DeviceLike, resolve
+from .device import ArrayLike, DeviceLike, resolve, to_device
 
 # table budget for k-byte super-stepping (bytes); C^k columns * S rows * 4.
 # The reference package's TPU budget, kept so tables and decision() match
@@ -42,7 +42,6 @@ _PAIR_MAP_MAX_RULES = 32
 _RULE_SHARD_R = 64
 
 Tables = Dict[str, torch.Tensor]
-ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
 def choose_k(n_states: int, n_classes: int, budget: int = _TABLE_BUDGET) -> int:
@@ -355,20 +354,13 @@ class TorchGrepProgram:
             "kernel_resolved": self.kernel_resolved,
         }
 
-    def _to_device(self, x: ArrayLike, dtype: torch.dtype) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        if x.dtype != dtype:
-            raise ValueError(f"expected {dtype}, got {x.dtype}")
-        return x.to(self.device, non_blocking=True).contiguous()
-
     def dispatch(self, batch: ArrayLike, lengths: ArrayLike) -> torch.Tensor:
         """Move the staged batch to the device (one non-blocking copy
         each for bytes and lengths; pinned host memory makes it
         asynchronous) and launch; returns ``bool[R, B]`` on the device
         without waiting for it."""
-        b = self._to_device(batch, torch.uint8)
-        ln = self._to_device(lengths, torch.int32)
+        b = to_device(batch, torch.uint8, self.device)
+        ln = to_device(lengths, torch.int32, self.device)
         if self._children is not None:
             parts = [c.dispatch(b.index_select(0, ix), ln.index_select(0, ix))
                      for c, ix in zip(self._children, self._child_idxs)]

@@ -1,0 +1,405 @@
+"""Device sketches for log_to_metrics — the port of ``fluentbit_tpu/ops/sketch.py``.
+
+A HyperLogLog (``2^p`` int32 registers of max-rank) and a count-min
+sketch (``[d, w]`` counters, Kirsch-Mitzenmacher double hashing) whose
+state lives as tensors on one explicit torch device. A staged batch of
+field values (``[B, L] uint8`` rows with ``lengths`` int32; a negative
+length counts nothing) is hashed with FNV-1a 32 plus the murmur3 fmix32
+finaliser and scattered into the state:
+
+- HLL: register ``idx = h >> (32 - p)`` takes the max of itself and
+  ``rank = min(clz(h << p) + 1, 33 - p)``;
+- count-min: ``h1 = h``, ``h2 = fmix32(h1) | 1``, and depth row r adds
+  the row's weight at column ``(h1 + r * h2 mod 2^32) mod w``.
+
+On a CUDA tensor the update is the hand-written kernel
+``csrc/sketch.cu`` (``hll_update`` / ``cms_update``, K6 / K7 of the
+reference). On a CPU tensor it is the plain torch version below, which
+computes in int64 masked to 32 bits (CPU torch has no ``>>``, ``<<`` or
+``%`` on uint32). Values longer than the staged width take the host
+twins (``add_cpu``), bit-identical to both. There is no other path: a
+failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Iterable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .device import ArrayLike, DeviceLike, resolve, to_device
+
+FNV_OFFSET = 0x811C9DC5
+FNV_PRIME = 0x01000193
+MASK32 = 0xFFFFFFFF
+_FMIX_C1 = 0x85EBCA6B
+_FMIX_C2 = 0xC2B2AE35
+
+# ---------------------------------------------------------------------------
+# plain versions (torch ops on any device; the kernels' CPU path and their
+# reference on the card). Hashes are int64 tensors holding uint32 values.
+# ---------------------------------------------------------------------------
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2^32`` for uint32 values held in int64, split into
+    16-bit halves so that no product leaves int64's range."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def _mix_plain(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 (the reference's ``_mix``)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, _FMIX_C1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _FMIX_C2)
+    return h ^ (h >> 16)
+
+
+def fnv1a_mix_plain(batch: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """``fmix32(FNV-1a 32)`` over bytes ``[0, length)`` of each ``[B, L]``
+    row (``_fnv1a_scan``): int64 ``[B]`` in ``[0, 2^32)``. Pad positions
+    leave the hash unchanged, so a negative length hashes the empty
+    string."""
+    B, L = batch.shape
+    h = torch.full((B,), FNV_OFFSET, dtype=torch.int64, device=batch.device)
+    data = batch.to(torch.int64)
+    for pos in range(L):
+        nh = ((h ^ data[:, pos]) * FNV_PRIME) & MASK32
+        h = torch.where(pos < lengths, nh, h)
+    return _mix_plain(h)
+
+
+def _nlz32(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of 32-bit values in int64 (32 for 0): ``32 -
+    bit_length`` by a shift ladder (torch has no clz or popcount)."""
+    bits = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        bits = bits + torch.where(big, s, 0)
+        x = torch.where(big, x >> s, x)
+    return 32 - (bits + (x > 0).to(torch.int64))
+
+
+def hll_index_rank_plain(batch: torch.Tensor, lengths: torch.Tensor,
+                         p: int) -> tuple:
+    """Per-row register index (int64) and rank (int32; 0 for a negative
+    length) — ``hll_index_rank``."""
+    h = fnv1a_mix_plain(batch, lengths)
+    idx = h >> (32 - p)
+    rank = torch.clamp(_nlz32((h << p) & MASK32) + 1, max=32 - p + 1)
+    rank = torch.where(lengths >= 0, rank, 0)
+    return idx, rank.to(torch.int32)
+
+
+def hll_update_plain(registers: torch.Tensor, batch: torch.Tensor,
+                     lengths: torch.Tensor, p: int) -> None:
+    """``registers.at[idx].max(rank)`` in place (``_update_impl``)."""
+    idx, rank = hll_index_rank_plain(batch, lengths, p)
+    registers.scatter_reduce_(0, idx, rank, "amax", include_self=True)
+
+
+def cms_cols_plain(batch: torch.Tensor, lengths: torch.Tensor, d: int,
+                   w: int) -> torch.Tensor:
+    """Column of each row in each depth row, int64 ``[d, B]``
+    (``CountMin._hashes``): the uint32 wrap comes before the modulo."""
+    h1 = fnv1a_mix_plain(batch, lengths)
+    h2 = _mix_plain(h1) | 1
+    r = torch.arange(d, dtype=torch.int64, device=batch.device)[:, None]
+    return ((h1[None, :] + r * h2[None, :]) & MASK32) % w
+
+
+def cms_update_plain(table: torch.Tensor, batch: torch.Tensor,
+                     lengths: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> None:
+    """``table.at[r, cols[r]].add((lengths >= 0) * weight)`` for each
+    depth row, in place (``CountMin._update_impl``)."""
+    d, w = table.shape
+    cols = cms_cols_plain(batch, lengths, d, w)
+    valid = (lengths >= 0).to(table.dtype)
+    if weights is not None:
+        valid = valid * weights.to(table.dtype)
+    for r in range(d):
+        table[r].index_add_(0, cols[r], valid)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_rows(name: str, batch: torch.Tensor, lengths: torch.Tensor,
+                dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
+    if batch.dtype != torch.uint8 or batch.dim() != 2:
+        raise ValueError(f"{name}: batch must be uint8 [B, L]")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != batch.shape[:1]:
+        raise ValueError(f"{name}: lengths must be int32 [B]")
+    for arg, x in (("batch", batch), ("lengths", lengths)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {dev}")
+
+
+def _vec16(batch: torch.Tensor) -> int:
+    return int(batch.shape[1] % 16 == 0 and batch.data_ptr() % 16 == 0)
+
+
+class _SketchKernel:
+    """A ``csrc/sketch.cu`` launcher: built and bound at first use.
+    ``launches`` counts the launches made (a plain integer a caller may
+    reset)."""
+
+    symbol = ""
+    argtypes: list = []
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    def _launch(self, dev: torch.device, *args) -> None:
+        if self._fn is None:
+            fn = getattr(cuda_build.libraries.load("sketch"), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(dev):
+            rc = self._fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+        self.launches += 1
+
+
+class HllUpdateKernel(_SketchKernel):
+    """K6: ``registers`` int32 ``[2^p]`` takes the max rank of each row of
+    ``batch`` u8 ``[B, L]`` / ``lengths`` i32 ``[B]``, in place, on the
+    current stream."""
+
+    symbol = "hll_update_launch"
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def __call__(self, registers: torch.Tensor, batch: torch.Tensor,
+                 lengths: torch.Tensor, p: int) -> None:
+        dev = registers.device
+        _check_rows("hll_update", batch, lengths, dev)
+        if not 1 <= p <= 24:
+            raise ValueError(f"hll_update: unsupported precision p={p}")
+        if (registers.dtype != torch.int32
+                or tuple(registers.shape) != (1 << p,)
+                or not registers.is_contiguous()):
+            raise ValueError(f"hll_update: registers must be contiguous "
+                             f"int32 [{1 << p}]")
+        B, L = batch.shape
+        if B == 0:
+            return
+        self._launch(dev, batch.data_ptr(), lengths.data_ptr(),
+                     registers.data_ptr(), B, L, p, _vec16(batch))
+
+
+class CmsUpdateKernel(_SketchKernel):
+    """K7: ``table`` int32 or int64 ``[d, w]`` adds each row's weight
+    (``weights`` i32 ``[B]``, or 1) in every depth row, in place, on the
+    current stream."""
+
+    symbol = "cms_update_launch"
+    argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+    def __call__(self, table: torch.Tensor, batch: torch.Tensor,
+                 lengths: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None) -> None:
+        dev = table.device
+        _check_rows("cms_update", batch, lengths, dev)
+        if (table.dtype not in (torch.int32, torch.int64) or table.dim() != 2
+                or min(table.shape) < 1 or not table.is_contiguous()):
+            raise ValueError("cms_update: table must be a contiguous int32 "
+                             "or int64 [d, w] tensor")
+        if weights is not None and (
+                weights.dtype != torch.int32
+                or tuple(weights.shape) != tuple(lengths.shape)
+                or weights.device != dev or not weights.is_contiguous()):
+            raise ValueError(f"cms_update: weights must be contiguous int32 "
+                             f"[B] on {dev}")
+        B, L = batch.shape
+        if B == 0:
+            return
+        d, w = table.shape
+        self._launch(dev, batch.data_ptr(), lengths.data_ptr(),
+                     None if weights is None else weights.data_ptr(),
+                     table.data_ptr(), B, L, d, w,
+                     int(table.dtype == torch.int64), _vec16(batch))
+
+
+#: the process's sketch kernel wrappers (one build, one launch count each)
+hll_update = HllUpdateKernel()
+cms_update = CmsUpdateKernel()
+
+
+def hll_update_rows(registers: torch.Tensor, batch: torch.Tensor,
+                    lengths: torch.Tensor, p: int) -> None:
+    """The plain version for CPU tensors, the kernel for everything else
+    (which raises off CUDA)."""
+    if registers.device.type == "cpu":
+        hll_update_plain(registers, batch, lengths, p)
+    else:
+        hll_update(registers, batch, lengths, p)
+
+
+def cms_update_rows(table: torch.Tensor, batch: torch.Tensor,
+                    lengths: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None) -> None:
+    """The plain version for CPU tensors, the kernel for everything else
+    (which raises off CUDA)."""
+    if table.device.type == "cpu":
+        cms_update_plain(table, batch, lengths, weights)
+    else:
+        cms_update(table, batch, lengths, weights)
+
+
+# ---------------------------------------------------------------------------
+# host twins: one value at a time, bit-identical to the batch update
+# ---------------------------------------------------------------------------
+
+
+def _mix32(h: int) -> int:
+    """fmix32 on a Python int (the reference's ``_mix_np``)."""
+    h ^= h >> 16
+    h = (h * _FMIX_C1) & MASK32
+    h ^= h >> 13
+    h = (h * _FMIX_C2) & MASK32
+    return h ^ (h >> 16)
+
+
+def _hash32_cpu(value: bytes) -> int:
+    """fmix32(FNV-1a 32) of one value, as the batch update hashes it."""
+    h = FNV_OFFSET
+    for b in value:
+        h = ((h ^ b) * FNV_PRIME) & MASK32
+    return _mix32(h)
+
+
+# ---------------------------------------------------------------------------
+# the sketches
+# ---------------------------------------------------------------------------
+
+
+class HyperLogLog:
+    """HLL over 32-bit hashes; ``registers`` int32 ``[2^p]`` on ``device``."""
+
+    def __init__(self, p: int = 14, device: DeviceLike = None):
+        self.p = p
+        self.m = 1 << p
+        self.device = resolve(device)
+        self.registers = torch.zeros((self.m,), dtype=torch.int32,
+                                     device=self.device)
+
+    def update(self, batch: ArrayLike, lengths: ArrayLike) -> None:
+        """Absorb a staged ``[B, L]`` batch (rows with length < 0 count
+        nothing). Host arrays move with one non-blocking copy each."""
+        hll_update_rows(self.registers,
+                        to_device(batch, torch.uint8, self.device),
+                        to_device(lengths, torch.int32, self.device), self.p)
+
+    def add_cpu(self, value: bytes) -> None:
+        """One value hashed on the host (a row longer than the staged
+        width), applied to the registers where they live."""
+        h = _hash32_cpu(value)
+        idx = h >> (32 - self.p)
+        rest = (h << self.p) & MASK32
+        rank = min(32 - rest.bit_length() + 1, 32 - self.p + 1)
+        self.registers[idx:idx + 1].clamp_(min=rank)
+
+    def estimate(self) -> float:
+        """Standard HLL estimator with small/large range corrections (one
+        device→host copy of the registers)."""
+        regs = self.registers.cpu().numpy()
+        m = float(self.m)
+        alpha = 0.7213 / (1.0 + 1.079 / m)
+        e = alpha * m * m / np.sum(np.exp2(-regs.astype(np.float64)))
+        if e <= 2.5 * m:
+            v = int(np.sum(regs == 0))
+            if v > 0:
+                e = m * np.log(m / v)
+        elif e > (1 << 32) / 30.0:
+            e = -(2.0 ** 32) * np.log(1.0 - e / 2.0 ** 32)
+        return float(e)
+
+
+class CountMin:
+    """Count-min sketch ``table[d, w]`` on ``device``; point queries take
+    the row-min. The table is int32 unless ``dtype=torch.int64`` (the
+    reference's table under x64)."""
+
+    def __init__(self, depth: int = 4, width: int = 16384,
+                 device: DeviceLike = None, dtype: torch.dtype = torch.int32):
+        if dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"count-min table dtype must be int32 or int64, "
+                             f"got {dtype}")
+        self.depth = depth
+        self.width = width
+        self.device = resolve(device)
+        self.table = torch.zeros((depth, width), dtype=dtype,
+                                 device=self.device)
+
+    def update(self, batch: ArrayLike, lengths: ArrayLike,
+               weights: Optional[ArrayLike] = None) -> None:
+        """Absorb a staged ``[B, L]`` batch with int32 ``weights`` (1 when
+        absent); rows with length < 0 count nothing."""
+        cms_update_rows(
+            self.table, to_device(batch, torch.uint8, self.device),
+            to_device(lengths, torch.int32, self.device),
+            None if weights is None
+            else to_device(weights, torch.int32, self.device))
+
+    def _cols_cpu(self, value: bytes) -> List[int]:
+        """Column per depth row for one value (uint32 wrap before the
+        modulo, as in the batch update)."""
+        h1 = _hash32_cpu(value)
+        h2 = _mix32(h1) | 1
+        return [((h1 + r * h2) & MASK32) % self.width
+                for r in range(self.depth)]
+
+    def add_cpu(self, value: bytes, weight: int = 1) -> None:
+        """One value hashed on the host (a row longer than the staged
+        width), applied to the table where it lives."""
+        for r, c in enumerate(self._cols_cpu(value)):
+            self.table[r, c:c + 1].add_(weight)
+
+    def query_cols(self, cols: Sequence[Sequence[int]]) -> List[int]:
+        """Row-min estimates for precomputed ``_cols_cpu`` columns, with
+        one device→host copy of the table."""
+        if not len(cols):
+            return []
+        table = self.table.cpu().numpy()
+        c = np.asarray(cols, dtype=np.int64)
+        return table[np.arange(self.depth)[None, :], c].min(axis=1).tolist()
+
+    def query_many(self, values: Iterable[bytes]) -> List[int]:
+        """Point estimates for many values, one table copy."""
+        return self.query_cols([self._cols_cpu(v) for v in values])
+
+
+def from_jax_state(state: np.ndarray, device: DeviceLike = None):
+    """A sketch on ``device`` holding state carried across from the
+    reference package: ``registers`` int32 ``[2^p]`` gives a
+    :class:`HyperLogLog`, ``table`` int32 or int64 ``[d, w]`` a
+    :class:`CountMin` of the same dtype."""
+    state = np.ascontiguousarray(state)
+    if state.ndim == 1:
+        p = int(math.log2(state.shape[0]))
+        if 1 << p != state.shape[0] or state.dtype != np.int32:
+            raise ValueError("HLL registers must be int32 [2^p]")
+        sk = HyperLogLog(p, device)
+        sk.registers.copy_(torch.from_numpy(state))
+        return sk
+    if state.ndim == 2 and state.dtype in (np.int32, np.int64):
+        sk = CountMin(state.shape[0], state.shape[1], device,
+                      torch.int32 if state.dtype == np.int32 else torch.int64)
+        sk.table.copy_(torch.from_numpy(state))
+        return sk
+    raise ValueError(f"unrecognised sketch state {state.dtype} {state.shape}")

@@ -1,3 +1,10 @@
-"""Built-in plugins of this slice; importing registers them."""
+"""Built-in plugins of the port; importing registers them."""
 
-from . import filter_grep, inputs_basic, outputs_basic  # noqa: F401
+from . import (  # noqa: F401
+    filter_grep,
+    filter_log_to_metrics,
+    in_emitter,
+    inputs_basic,
+    net_http,
+    outputs_basic,
+)

@@ -1,10 +1,13 @@
-"""Basic outputs: stdout, lib.
+"""Basic outputs: stdout, lib, prometheus_exporter.
 
-The port's own copy of the ``stdout`` and ``lib`` outputs of
-``fluentbit_tpu/plugins/outputs_basic.py`` (reference: plugins/out_stdout,
-plugins/out_lib). stdout prints log records as ``json_lines`` (config 1)
-or in the classic ``print`` form; its other formats wait for a later
-slice.
+The port's own copy of the ``stdout``, ``lib`` and ``prometheus_exporter``
+outputs of ``fluentbit_tpu/plugins/outputs_basic.py`` (reference:
+plugins/out_stdout, plugins/out_lib, plugins/out_prometheus_exporter).
+stdout prints log records as ``json_lines`` (config 1) or in the classic
+``print`` form; its other formats wait for a later slice.
+prometheus_exporter keeps the latest snapshot of each metric and renders
+them as Prometheus text (config 4); serving that text over HTTP waits
+for the admin server's slice.
 """
 
 from __future__ import annotations
@@ -12,9 +15,11 @@ from __future__ import annotations
 import json
 import sys
 
+from ..codec.chunk import EVENT_TYPE_METRICS
 from ..codec.events import decode_events
-from ..codec.msgpack import EventTime
+from ..codec.msgpack import EventTime, Unpacker
 from ..core.config import ConfigMapEntry
+from ..core.metrics import is_metrics_payload, payload_to_prometheus
 from ..core.plugin import FlushResult, OutputPlugin, registry
 
 
@@ -76,3 +81,65 @@ class LibOutput(OutputPlugin):
         if self.callback is not None:
             self.callback(data, tag)
         return FlushResult.OK
+
+
+def _metrics_payloads(data: bytes) -> list:
+    """The metrics snapshots of a METRICS-type chunk (one per emitter
+    append); empty when the chunk holds anything else."""
+    out = []
+    try:
+        for obj in Unpacker(data):
+            if not is_metrics_payload(obj):
+                return []
+            out.append(obj)
+    except Exception:
+        return []  # not msgpack: the flush answers ERROR
+    return out
+
+
+@registry.register
+class PrometheusExporterOutput(OutputPlugin):
+    """plugins/out_prometheus_exporter: keeps the latest snapshot of each
+    metric from metrics-type chunks; ``render()`` gives the exposition
+    (BASELINE config 4's sink)."""
+
+    name = "prometheus_exporter"
+    event_types = (EVENT_TYPE_METRICS,)
+    config_map = [
+        ConfigMapEntry("add_label", "slist", multiple=True, slist_max_split=1),
+    ]
+
+    def init(self, instance, engine) -> None:
+        self._payloads = {}  # metric fqname -> latest metric entry
+        self._extra = []
+        for pair in self.add_label:
+            parts = pair if isinstance(pair, list) else pair.split(None, 1)
+            if len(parts) == 2:
+                self._extra.append((parts[0], parts[1]))
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        payloads = _metrics_payloads(data)
+        if not payloads:
+            return FlushResult.ERROR
+        # snapshots are cumulative per source registry, and a chunk may
+        # carry several filters' snapshots: the last of each metric wins
+        extra_keys = [k for k, _ in self._extra]
+        extra_vals = [v for _, v in self._extra]
+        for payload in payloads:
+            for m in payload.get("metrics", []):
+                entry = dict(m)
+                if self._extra:
+                    entry["labels"] = list(m.get("labels", [])) + extra_keys
+                    entry["values"] = [
+                        {"labels": list(s.get("labels", [])) + extra_vals,
+                         "value": s.get("value")}
+                        for s in m.get("values", [])]
+                    entry["hist"] = [
+                        {**h, "labels": list(h.get("labels", [])) + extra_vals}
+                        for h in m.get("hist", [])]
+                self._payloads[m.get("name", "")] = entry
+        return FlushResult.OK
+
+    def render(self) -> str:
+        return payload_to_prometheus(
+            {"meta": {}, "metrics": list(self._payloads.values())})

@@ -1,4 +1,8 @@
-"""The grep_dfa CUDA kernel against its plain torch version (needs a card).
+"""The port's CUDA kernels against their plain torch versions (needs a card).
+
+``grep_dfa`` (K1-K3) against ``match_plain``; ``hll_update`` (K6) and
+``cms_update`` (K7) against ``hll_update_plain`` / ``cms_update_plain``,
+registers and tables equal exactly (integer atomics are order-free).
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from fluentbit_tpu_torch.ops import grep as tg
+from fluentbit_tpu_torch.ops import sketch as tsk
 from fluentbit_tpu_torch.regex.dfa import compile_dfa
 
 APACHE2 = (
@@ -59,7 +64,7 @@ def full_tables(prog, device):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the grep_dfa kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -106,3 +111,104 @@ def test_cuda_kernel_unaligned_batch(cuda_device):
     got = tg.grep_dfa(prog.tables, view, lt, prog.k)
     plain = tg.match_plain(prog.tables, view, lt, prog.k)
     assert torch.equal(got, plain)
+
+
+def sketch_rows(seed, B, L):
+    """Seeded sketch rows: random bytes, lengths -2/-1/0/1/L and random,
+    all-0xFF rows, and a Zipf-like repeat of a few values so that
+    atomics collide."""
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 256, size=(B, L), dtype=np.uint8)
+    lengths = rng.integers(-2, L + 1, size=(B,)).astype(np.int32)
+    special = np.array([-2, -1, 0, min(1, L), L, L], dtype=np.int32)
+    lengths[: min(B, 6)] = special[: min(B, 6)]
+    batch[4:6] = 0xFF
+    hot = np.minimum(rng.zipf(1.3, size=B), min(B, 8)) - 1  # the first rows, repeated
+    pick = rng.random(B) < 0.5
+    batch[pick] = batch[hot[pick]]
+    lengths[pick] = lengths[hot[pick]]
+    return torch.from_numpy(batch), torch.from_numpy(lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, 10, 14])
+@pytest.mark.parametrize("B,L", [(1, 0), (17, 1), (300, 17), (4096, 256)])
+def test_hll_kernel_equals_plain(cuda_device, p, B, L):
+    batch, lengths = sketch_rows(p + B + L, B, L)
+    start = torch.randint(0, 34 - p, (1 << p,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(p))
+    start[: (1 << p) // 2] = 0
+    regs = start.to(cuda_device, copy=True)
+    before = tsk.hll_update.launches
+    tsk.hll_update(regs, batch.to(cuda_device), lengths.to(cuda_device), p)
+    assert tsk.hll_update.launches - before == 1
+    want = start.clone()
+    tsk.hll_update_plain(want, batch, lengths, p)
+    plain = start.to(cuda_device, copy=True)  # the plain version on the card
+    tsk.hll_update_plain(plain, batch.to(cuda_device),
+                         lengths.to(cuda_device), p)
+    torch.cuda.synchronize()
+    assert torch.equal(regs.cpu(), want)
+    assert torch.equal(plain.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,w,dtype", [(4, 512, torch.int32),
+                                       (4, 16384, torch.int32),
+                                       (4, 512, torch.int64),
+                                       (3, 1000, torch.int64)])
+@pytest.mark.parametrize("B,L", [(1, 0), (17, 1), (300, 17), (4096, 256)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cms_kernel_equals_plain(cuda_device, d, w, dtype, B, L, weighted):
+    batch, lengths = sketch_rows(d * w + B + L, B, L)
+    gen = torch.Generator().manual_seed(w + B)
+    start = torch.randint(0, 1 << 20, (d, w), generator=gen).to(dtype)
+    if dtype == torch.int64:
+        start += 1 << 40
+    weights = (torch.randint(-3, 1 << 24, (B,), dtype=torch.int32,
+                             generator=gen) if weighted else None)
+    table = start.to(cuda_device, copy=True)
+    before = tsk.cms_update.launches
+    tsk.cms_update(table, batch.to(cuda_device), lengths.to(cuda_device),
+                   None if weights is None else weights.to(cuda_device))
+    assert tsk.cms_update.launches - before == 1
+    want = start.clone()
+    tsk.cms_update_plain(want, batch, lengths, weights)
+    torch.cuda.synchronize()
+    assert torch.equal(table.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_sketch_kernels_unaligned_batch(cuda_device):
+    """A batch view at an odd offset takes the byte-load path."""
+    batch, lengths = sketch_rows(3, 200, 64)
+    flat = torch.zeros(1 + batch.numel(), dtype=torch.uint8,
+                       device=cuda_device)
+    view = flat[1:].view(200, 64)
+    view.copy_(batch)
+    lt = lengths.to(cuda_device)
+    regs = torch.zeros(1 << 10, dtype=torch.int32, device=cuda_device)
+    table = torch.zeros((4, 512), dtype=torch.int32, device=cuda_device)
+    tsk.hll_update(regs, view, lt, 10)
+    tsk.cms_update(table, view, lt)
+    want_regs = torch.zeros(1 << 10, dtype=torch.int32)
+    want_table = torch.zeros((4, 512), dtype=torch.int32)
+    tsk.hll_update_plain(want_regs, batch, lengths, 10)
+    tsk.cms_update_plain(want_table, batch, lengths)
+    assert torch.equal(regs.cpu(), want_regs)
+    assert torch.equal(table.cpu(), want_table)
+
+
+@pytest.mark.gpu
+def test_sketch_wrappers_reject_bad_tensors(cuda_device):
+    batch, lengths = sketch_rows(4, 8, 16)
+    b, ln = batch.to(cuda_device), lengths.to(cuda_device)
+    with pytest.raises(ValueError, match="registers"):
+        tsk.hll_update(torch.zeros(100, dtype=torch.int32,
+                                   device=cuda_device), b, ln, 10)
+    with pytest.raises(ValueError, match="table"):
+        tsk.cms_update(torch.zeros((4, 512), dtype=torch.float32,
+                                   device=cuda_device), b, ln)
+    with pytest.raises(ValueError, match="lengths"):
+        tsk.cms_update(torch.zeros((4, 512), dtype=torch.int32,
+                                   device=cuda_device), b, ln.long())
