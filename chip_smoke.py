@@ -34,7 +34,26 @@ Phases (any failure exits non-zero):
    and agree with a check computed here from Python ints (registers,
    the estimate within 3% of the exact distinct count, the exact top-10
    paths within count-min's error), and each sketch kernel must have
-   launched once per POST.
+   launched once per POST;
+7. flux kernels against plain: ``fused_absorb`` (K10) at the main path's
+   shape (4096 rows x 256 B, one distinct field plus composites, 200
+   groups, p = 12, count-min 4 x 16384 int32) and at 65536 rows with 512
+   groups, plus edge cases (all rows invalid, L = 0, an unaligned batch,
+   two fields), and ``segment_counts`` (K9) at 4096 and 65536 rows,
+   against their plain torch versions on the card, counts, stacks and
+   tables exactly equal, with CUDA-event times of both and of
+   ``torch.bincount`` beside K9;
+8. pipeline: the flux plane (FLUX.md's per-tenant example: lib input →
+   ``flux`` group_by tenant, distinct user, aggregate latency_ms, top-10
+   endpoint, tumbling 60 s → closed-window rows through the hidden
+   emitter → lib output), 64 appends of 4096 records plus one append of
+   600 tenants (the unfused route), under an injected clock that steps
+   15 s per append, on ``device="cuda"`` and then ``"cpu"``: rows, states
+   and the ``fluentbit_flux_*`` exposition must be equal between the
+   devices, agree with a check computed here from Python (window folds,
+   HLL registers, estimates within 3 sigma, top-k within count-min's
+   bound), and K10 must have launched once per append of <= 512 groups
+   and K6 once per group of the wide append.
 
 The card's name and power limit (as ``nvidia-smi`` gives them) come
 before the kernels JSON line, which is the line before the last; the last
@@ -523,6 +542,13 @@ def phase_sketch_kernels(np, torch, tsk, seed: int) -> list:
     return results
 
 
+def zipf_choice(np, rng, n_items: int, s: float, size: int):
+    """``size`` draws of an item index in [0, n_items), Zipf(s) by rank."""
+    ranks = np.arange(1, n_items + 1, dtype=np.float64)
+    prob = ranks ** -s
+    return rng.choice(n_items, size=size, p=prob / prob.sum())
+
+
 def make_posts(np, seed: int) -> tuple:
     """64 JSON-array bodies of 4096 records from a seed: ``user`` drawn
     from 120k ids, ``path`` Zipf(1.1) over 10k paths, ~2% of each value
@@ -532,9 +558,7 @@ def make_posts(np, seed: int) -> tuple:
     rng = np.random.default_rng(seed)
     n = APPENDS * RECORDS
     users = rng.integers(0, USER_IDS, size=n)
-    ranks = np.arange(1, PATHS + 1, dtype=np.float64)
-    prob = ranks ** -PATH_ZIPF_S
-    paths = rng.choice(PATHS, size=n, p=prob / prob.sum())
+    paths = zipf_choice(np, rng, PATHS, PATH_ZIPF_S, n)
     long_user = rng.random(n) < 0.02
     long_path = rng.random(n) < 0.02
     no_user = rng.random(n) < 0.03
@@ -683,6 +707,466 @@ def phase_config4(np, torch, tsk, flb, seed: int, card: str,
     return res
 
 
+# the flux plane (FLUX.md "Worked per-tenant example"), filter defaults
+FLUX_PROPS = dict(match="app.*", group_by="tenant", distinct_field="user",
+                  aggregate_field="latency_ms", topk_field="endpoint",
+                  topk="10", window="tumbling 60", tag="flux.tenants",
+                  tick_interval_sec="3600")
+FLUX_P = 12        # sketch_precision
+FLUX_L = 256       # max_field_len
+FLUX_TENANTS = 200
+FLUX_WIDE = 600    # tenants of the extra append: above the 512-group cap
+ENDPOINTS = 10_000
+WINDOW_S, STEP_S = 60.0, 15.0  # one window closes every 4 appends
+CLOCK0 = 1_000_000.0
+
+
+def flux_case(np, torch, seed: int, B: int, G: int, F: int, comp: bool,
+              L: int = FLUX_L, invalid: bool = False,
+              unaligned: bool = False) -> dict:
+    """Flux absorb inputs on the card from a seed: segment ids Zipf(1.1)
+    over G groups, F fields and the composites of ``sketch_rows`` (cut to
+    width L), register stacks starting at zero."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    seg = zipf_choice(np, rng, G, 1.1, B).astype(np.int32)
+
+    def rows(k):
+        batch, lengths = sketch_rows(np, seed + k, B)
+        if invalid:
+            lengths[:] = -1
+        b = torch.from_numpy(np.ascontiguousarray(batch[:, :L])).to(dev)
+        if unaligned:
+            flat = torch.zeros(1 + b.numel(), dtype=torch.uint8, device=dev)
+            view = flat[1:].view(b.shape)
+            view.copy_(b)
+            b = view
+        return b, torch.from_numpy(lengths).to(dev)
+
+    fields = [rows(f + 1) for f in range(F)]
+    c = cl = table = None
+    if comp:
+        c, cl = rows(99)
+        table = torch.zeros((CMS_D, CMS_W), dtype=torch.int32, device=dev)
+    return {"seg": torch.from_numpy(seg).to(dev),
+            "valid": torch.ones(B, dtype=torch.int32, device=dev),
+            "fields": fields, "G": G, "comp": c, "comp_len": cl,
+            "table": table,
+            "stacks": [torch.zeros((G, 1 << FLUX_P), dtype=torch.int32,
+                                   device=dev) for _ in range(F)]}
+
+
+def flux_call(fn, case: dict, stacks, table):
+    return fn(case["seg"], case["valid"], case["fields"], stacks,
+              case["comp"], case["comp_len"], table, hll_p=FLUX_P,
+              n_seg=case["G"])
+
+
+def flux_bound_ms(torch, tsk, case: dict) -> tuple:
+    """Least time for one fused absorb of these rows. Bytes: each field
+    and composite row's bytes before its length, every length, ``seg`` and
+    ``valid`` once, the counts written once, and each register and table
+    word the rows touch read once and written once. Operations: per byte
+    an xor and a multiply; per valid field row the finaliser and index and
+    rank (13); per valid composite row the finaliser, the second hash and
+    per depth row a multiply, an add and a modulo (17 + 3d); one add per
+    counted row. The larger bounds it."""
+    seg = case["seg"].long()
+    B = seg.numel()
+    nbytes = 8 * B + 4 * case["G"]
+    ops = int((case["valid"] != 0).sum())
+    for b, ln in case["fields"]:
+        ok = ln >= 0
+        used = ln.clamp(min=0, max=b.shape[1]).long()
+        idx, _ = tsk.hll_index_rank_plain(b, ln, FLUX_P)
+        words = int(torch.unique((seg << FLUX_P)[ok] + idx[ok]).numel())
+        nbytes += int(used.sum()) + 4 * B + 2 * 4 * words
+        ops += 2 * int(used.sum()) + 13 * int(ok.sum())
+    if case["comp"] is not None:
+        c, cl = case["comp"], case["comp_len"]
+        ok = cl >= 0
+        used = cl.clamp(min=0, max=c.shape[1]).long()
+        cols = tsk.cms_cols_plain(c, cl, CMS_D, CMS_W)
+        flat = cols + (torch.arange(CMS_D, device=c.device) * CMS_W)[:, None]
+        words = int(torch.unique(flat[:, ok]).numel())
+        nbytes += int(used.sum()) + 4 * cl.numel() + 2 * 4 * words
+        ops += 2 * int(used.sum()) + (17 + 3 * CMS_D) * int(ok.sum())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_flux_kernels(np, torch, tsk, tfk, seed: int) -> list:
+    cases = [("main", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True)),
+             ("wide", dict(B=65536, G=512, F=1, comp=True)),
+             ("all_invalid", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True,
+                                  invalid=True)),
+             ("L0", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True, L=0)),
+             ("unaligned", dict(B=RECORDS - 3, G=FLUX_TENANTS, F=1,
+                                comp=True, unaligned=True)),
+             ("two_fields", dict(B=RECORDS, G=FLUX_TENANTS, F=2, comp=True))]
+    results = []
+    for i, (label, cfg) in enumerate(cases):
+        case = flux_case(np, torch, seed + 7 * i, **cfg)
+        got_st = [s.clone() for s in case["stacks"]]
+        want_st = [s.clone() for s in case["stacks"]]
+        got_tb, want_tb = case["table"].clone(), case["table"].clone()
+        before = tfk.fused_absorb.launches
+        got = flux_call(tfk.fused_absorb, case, got_st, got_tb)
+        launches = tfk.fused_absorb.launches - before
+        want = flux_call(tfk.fused_absorb_plain, case, want_st, want_tb)
+        torch.cuda.synchronize()
+        err = max([int((got - want).abs().max())]
+                  + [int((a - b).abs().max()) for a, b in zip(got_st, want_st)]
+                  + [int((got_tb - want_tb).abs().max())])
+        res = {"kernel": "fused_absorb", "case": label,
+               "shape": [cfg["B"], cfg.get("L", FLUX_L)], "groups": cfg["G"],
+               "fields": cfg["F"], "launches": launches, "max_abs_err": err,
+               "rows_counted": int(want.sum()),
+               "registers_set": sum(int((s != 0).sum()) for s in want_st),
+               "table_total": int(want_tb.sum())}
+        if label in ("main", "wide"):
+            st, tb = [s.clone() for s in case["stacks"]], case["table"].clone()
+            res["ms"] = cuda_ms(torch, lambda: flux_call(
+                tfk.fused_absorb, case, st, tb), 200)
+            res["host_enqueue_ms"] = host_ms(torch, lambda: flux_call(
+                tfk.fused_absorb, case, st, tb), 200)
+            res["plain_ms"] = cuda_ms(torch, lambda: flux_call(
+                tfk.fused_absorb_plain, case, st, tb), 3)
+            res["bound_ms"], res["bound_by"] = flux_bound_ms(torch, tsk, case)
+        log("flux-vs-plain: " + json.dumps(res))
+        if err != 0 or launches != 1:
+            raise SystemExit(f"fused_absorb disagrees with its plain version "
+                             f"or did not launch once: {res}")
+        if not cfg.get("invalid") and (res["registers_set"] == 0
+                                       or res["table_total"] == 0):
+            raise SystemExit(f"fused_absorb: empty state: {res}")
+        results.append(res)
+    for i, B in enumerate((RECORDS, 65536)):
+        case = flux_case(np, torch, seed + 100 + i, B, 512 if i else
+                         FLUX_TENANTS, 0, False)
+        seg, valid, n = case["seg"], case["valid"], case["G"]
+        valid[: B // 4] = 0
+        before = tfk.segment_counts.launches
+        got = tfk.segment_counts(seg, valid, n)
+        launches = tfk.segment_counts.launches - before
+        want = tfk.segment_counts_plain(seg, valid, n)
+        valid_f = valid.to(torch.float32)
+        lib = torch.bincount(seg, weights=valid_f, minlength=n)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        lib_err = int((lib.to(torch.int64) - want.long()).abs().max())
+        used = 8 * B + 4 * n
+        bytes_ms = used / PEAK_BYTES_PER_S * 1e3
+        ops_ms = int((valid != 0).sum()) / PEAK_INT32_OPS_PER_S * 1e3
+        res = {"kernel": "segment_counts", "shape": [B], "groups": n,
+               "launches": launches, "max_abs_err": err,
+               "library_max_abs_err": lib_err,
+               "ms": cuda_ms(torch, lambda: tfk.segment_counts(seg, valid, n),
+                             200),
+               "host_enqueue_ms": host_ms(
+                   torch, lambda: tfk.segment_counts(seg, valid, n), 200),
+               "plain_ms": cuda_ms(torch, lambda: tfk.segment_counts_plain(
+                   seg, valid, n), 20),
+               "library_ms": cuda_ms(torch, lambda: torch.bincount(
+                   seg, weights=valid_f, minlength=n), 20),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        log("flux-vs-plain: " + json.dumps(res))
+        if err != 0 or lib_err != 0 or launches != 1:
+            raise SystemExit(f"segment_counts disagrees: {res}")
+        results.append(res)
+    return results
+
+
+def make_flux_appends(np, seed: int) -> list:
+    """64 appends of 4096 [ts, body] records from a seed, then one of 4096
+    records over 600 tenants. ``tenant`` Zipf(1.1) over 200 tenants,
+    ``user`` from 120k ids, ``endpoint`` Zipf(1.1) over 10k paths,
+    ``latency_ms`` ~78% ints, ~20% floats, ~2% non-numeric; ~3% of records
+    lack each field, ~2% of users and endpoints are longer than 256 B."""
+    rng = np.random.default_rng(seed + 3)
+    n = (APPENDS + 1) * RECORDS
+    tenants = zipf_choice(np, rng, FLUX_TENANTS, 1.1, n)
+    tenants[APPENDS * RECORDS:] = FLUX_TENANTS + np.arange(RECORDS) % FLUX_WIDE
+    users = rng.integers(0, USER_IDS, size=n)
+    endpoints = zipf_choice(np, rng, ENDPOINTS, 1.1, n)
+    lat_kind = rng.random(n)
+    lat_int = rng.integers(0, 5000, size=n)
+    lat_float = rng.random(n) * 1000.0
+    missing = rng.random((4, n)) < 0.03
+    missing[0, APPENDS * RECORDS:] = False  # every wide record has a tenant
+    long_user = rng.random(n) < 0.02
+    long_endpoint = rng.random(n) < 0.02
+    appends = []
+    for a in range(APPENDS + 1):
+        recs = []
+        for i in range(a * RECORDS, (a + 1) * RECORDS):
+            body = {}
+            if not missing[0, i]:
+                body["tenant"] = (f"tenant-{tenants[i]:03d}"
+                                  if tenants[i] < FLUX_TENANTS
+                                  else f"wide-{tenants[i] - FLUX_TENANTS:03d}")
+            if not missing[1, i]:
+                body["user"] = f"user-{users[i]:06d}" + (
+                    "-" + "u" * 300 if long_user[i] else "")
+            if not missing[2, i]:
+                body["endpoint"] = f"/api/v1/items/{endpoints[i]}" + (
+                    "/" + "p" * 300 + f"/{i}" if long_endpoint[i] else "")
+            if not missing[3, i]:
+                x = lat_kind[i]
+                body["latency_ms"] = (int(lat_int[i]) if x < 0.78 else
+                                      float(lat_float[i]) if x < 0.98
+                                      else "n/a")
+            recs.append([1700000000 + i * 0.001, body])
+        appends.append([recs, json.dumps(recs)])
+    return appends
+
+
+def flux_snapshot_print(np, snap: dict) -> tuple:
+    """A flux snapshot in comparable form (registers and table as bytes)."""
+    def pane(items):
+        return [(it["key"], it["count"], it["cols"],
+                 {f: np.asarray(r).tobytes() for f, r in it["hlls"].items()})
+                for it in items]
+    return (pane(snap["groups"]), [pane(p) for p in snap["panes"]],
+            np.asarray(snap["cms"]).tobytes(), snap["candidates"],
+            snap["counters"], snap["window_start"])
+
+
+def run_flux(np, torch, flb, device: str, appends: list) -> dict:
+    """The flux pipeline on ``device``. Before append k the injected window
+    clock reads CLOCK0 + 15 s * k and the filter's own tick runs (the tick
+    collector waits an hour); the open window's state is snapshotted
+    before each tick that closes it."""
+    out = []
+    ctx = flb.create(device=device, flush="50ms", grace="2")
+    in_ffd = ctx.input("lib", tag="app.web")
+    ctx.filter("flux", **FLUX_PROPS)
+    ctx.output("lib", match="*", callback=lambda data, tag: out.append(
+        (tag, data)))
+    ctx.start()
+    engine = ctx.engine
+    plug = engine.filters[0].plugin
+    clock = [CLOCK0]
+    with engine._ingest_lock:
+        plug.state._now = lambda: clock[0]
+        plug.state._window_start = CLOCK0
+    snaps, close_s = [], []
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        for k, (recs, text) in enumerate(appends):
+            clock[0] = CLOCK0 + STEP_S * k
+            closes = k and k % int(WINDOW_S / STEP_S) == 0
+            if closes:
+                with engine._ingest_lock:
+                    snaps.append(plug.state.snapshot())
+            t1 = time.perf_counter()
+            plug._on_tick(engine)
+            if closes:  # render + emit of the closed window's rows
+                close_s.append(time.perf_counter() - t1)
+            if ctx.push(in_ffd, text) != len(recs):
+                raise SystemExit(f"flux on {device}: append {k} dropped "
+                                 f"records")
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+        plug.exporter.refresh()
+        text = engine.metrics.to_prometheus()
+        with engine._ingest_lock:
+            snaps.append(plug.state.snapshot())
+    finally:
+        ctx.stop()
+    drained = [c.get_bytes() for c in plug._emitter_ins.pool.drain()]
+    return {"out": out, "drained": drained, "wall": wall, "snaps": snaps,
+            "close": close_s,
+            "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20
+                                if device == "cuda" else None),
+            "exposition": [ln for ln in text.splitlines()
+                           if "fluentbit_flux_" in ln],
+            "steps": list(plug.state.step_seconds),
+            "refresh": list(plug.refresh_seconds)}
+
+
+def hll_registers_python(np, values) -> "np.ndarray":
+    regs = np.zeros(1 << FLUX_P, dtype=np.int32)
+    for v in values:
+        h = fnv1a_mix(v)
+        rest = (h << FLUX_P) & 0xFFFFFFFF
+        i = h >> (32 - FLUX_P)
+        regs[i] = max(regs[i], min(32 - rest.bit_length() + 1, 33 - FLUX_P))
+    return regs
+
+
+def flux_independent_check(np, appends: list, windows: list, snaps: list
+                           ) -> dict:
+    """Each closed window's rows against plain Python folds of its records
+    in record order (count, latency sum/min/max per tenant); the 5 largest
+    tenants' registers against a from-scratch HLL and their estimates
+    within 3 sigma of the exact distinct count; every listed top-k
+    estimate between the exact cumulative count and that plus e*N/w."""
+    per = int(WINDOW_S / STEP_S)
+    sigma = 1.04 / math.sqrt(1 << FLUX_P)
+    pair_counts: collections.Counter = collections.Counter()
+    n_comp = 0
+    bad, worst_z, topk_checked, fold_checked = [], 0.0, 0, 0
+    for w, rows in enumerate(windows):
+        recs = [body for recs, _ in appends[w * per:(w + 1) * per]
+                for _ts, body in recs]
+        fold: dict = {}
+        users: dict = collections.defaultdict(set)
+        for body in recs:
+            t = body.get("tenant")
+            f = fold.setdefault(t, {"count": 0, "has": False, "sum": 0.0,
+                                    "min": None, "max": None})
+            f["count"] += 1
+            v = body.get("latency_ms")
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                if not f["has"]:
+                    f["has"], f["sum"], f["min"], f["max"] = True, 0.0 + v, v, v
+                else:
+                    f["sum"] += v
+                    f["min"] = v if v < f["min"] else f["min"]
+                    f["max"] = v if v > f["max"] else f["max"]
+            u = body.get("user")
+            if isinstance(u, str) and len(u.encode()) <= FLUX_L:
+                users[t].add(u.encode())
+            e = body.get("endpoint")
+            if isinstance(e, str) and len(e.encode()) <= FLUX_L:
+                prefix = (b"\x00" if t is None else t.encode()) + b"\x1f"
+                if len(prefix) + len(e.encode()) <= FLUX_L:
+                    pair_counts[(t, e)] += 1
+                    n_comp += 1
+        got = {r["tenant"]: r for r in rows}
+        if set(got) != set(fold):
+            bad.append(f"window {w}: tenants differ")
+            continue
+        for t, f in fold.items():
+            r = got[t]
+            want = (f["count"], f["sum"] if f["has"] else 0.0, f["min"],
+                    f["max"])
+            have = (r["count"], r["latency_ms_sum"], r["latency_ms_min"],
+                    r["latency_ms_max"])
+            if want != have or [type(x) for x in want] != [type(x) for x in
+                                                           have]:
+                bad.append(f"window {w} tenant {t}: {have} != {want}")
+            fold_checked += 1
+        top5 = sorted(fold, key=lambda t: -fold[t]["count"])[:5]
+        regs = {it["key"]: it["hlls"]["user"] for it in snaps[w]["groups"]}
+        for t in top5:
+            key = (None if t is None else t.encode(),)
+            if not np.array_equal(regs[key], hll_registers_python(np, users[t])):
+                bad.append(f"window {w} tenant {t}: registers differ")
+            exact = len(users[t])
+            z = abs(got[t]["user_distinct"] - exact) / (sigma * exact)
+            worst_z = max(worst_z, z)
+            if z > 3:
+                bad.append(f"window {w} tenant {t}: estimate "
+                           f"{got[t]['user_distinct']} vs {exact} distinct")
+        slack = math.e * n_comp / CMS_W
+        for t, r in got.items():
+            for item in r["topk"]:
+                exact = pair_counts[(t, item["value"])]
+                topk_checked += 1
+                if not exact <= item["estimate"] <= exact + slack:
+                    bad.append(f"window {w} tenant {t} {item}: exact {exact}")
+    return {"windows_checked": len(windows), "groups_folded": fold_checked,
+            "topk_checked": topk_checked, "worst_top5_z": worst_z,
+            "failures": bad[:10], "n_failures": len(bad)}
+
+
+def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
+               card: str, kernel_results: list, sketch_results: list) -> dict:
+    appends = make_flux_appends(np, seed)
+    n_records = sum(len(r) for r, _ in appends)
+    tfk.fused_absorb.launches = tfk.segment_counts.launches = 0
+    tsk.hll_update.launches = tsk.cms_update.launches = 0
+    gpu = run_flux(np, torch, flb, "cuda", appends)
+    launches = {"flux_absorb": tfk.fused_absorb.launches,
+                "segment_counts": tfk.segment_counts.launches,
+                "hll_update": tsk.hll_update.launches,
+                "cms_update": tsk.cms_update.launches}
+    cpu = run_flux(np, torch, flb, "cpu", appends)
+
+    def rows(run, drained=False):
+        chunks = run["drained"] if drained else [
+            d for t, d in run["out"] if t == "flux.tenants"]
+        return [ev.body for d in chunks for ev in decode_events(d)]
+
+    gpu_rows = rows(gpu)
+    per = int(WINDOW_S / STEP_S)
+    windows, i = [], 0
+    for w in range(APPENDS // per):  # closed windows, in emission order
+        n = len({b.get("tenant") for recs, _ in appends[w * per:(w + 1) * per]
+                 for _ts, b in recs})
+        windows.append(gpu_rows[i:i + n])
+        i += n
+    drained = rows(gpu, True)
+    windows.append(drained)
+    check = flux_independent_check(np, appends, windows, gpu["snaps"])
+    wide_groups = len({b["tenant"] for _ts, b in appends[-1][0]})
+
+    def p50(run) -> dict:
+        keys = ("columns", "grouping", "composites", "stage", "launch",
+                "commit", "numeric")
+        out = {k: statistics.median(s.get(k, 0.0) for s in run["steps"]) * 1e3
+               for k in keys}
+        ref = run["refresh"]
+        out["exporter_refresh"] = statistics.median(ref) * 1e3
+        out["exporter_refresh_max"] = max(ref) * 1e3
+        out["exporter_refreshes"] = len(ref)
+        out["window_close_tick"] = statistics.median(run["close"]) * 1e3
+        return out
+
+    main_k10 = next(r for r in kernel_results if r.get("case") == "main")
+    main_k6 = next(r for r in sketch_results if r["kernel"] == "hll_update"
+                   and r["shape"][0] == RECORDS and r.get("p") == 10)
+    main_k7 = next(r for r in sketch_results if r["kernel"] == "cms_update"
+                   and r["shape"][0] == RECORDS and r.get("w") == CMS_W
+                   and not r.get("weighted"))
+    busy_ms = (main_k10["ms"] * launches["flux_absorb"]
+               + main_k6["ms"] * launches["hll_update"]
+               + main_k7["ms"] * launches["cms_update"])
+    snaps_equal = (len(gpu["snaps"]) == len(cpu["snaps"]) and all(
+        flux_snapshot_print(np, a) == flux_snapshot_print(np, b)
+        for a, b in zip(gpu["snaps"], cpu["snaps"])))
+    res = {"records": n_records, "appends": len(appends),
+           "windows_closed": len(windows) - 1,
+           "rows": len(gpu_rows), "drained_rows": len(drained),
+           "rows_equal_cpu": gpu_rows == rows(cpu),
+           "drained_equal_cpu": drained == rows(cpu, True),
+           "states_equal_cpu": snaps_equal,
+           "exposition_equal_cpu": gpu["exposition"] == cpu["exposition"],
+           "exposition_lines": len(gpu["exposition"]),
+           "launches": launches,
+           "expected_launches": {"flux_absorb": APPENDS,
+                                 "hll_update": wide_groups, "cms_update": 1},
+           **check,
+           "lines_per_s": n_records / gpu["wall"],
+           "cpu_lines_per_s": n_records / cpu["wall"],
+           "p50_ms": p50(gpu), "cpu_p50_ms": p50(cpu),
+           "peak_device_mib": gpu["peak_device_mib"],
+           # K6's 600 launches of ~7 rows each are charged at its
+           # 4096-row time: an upper bound
+           "device_busy_share": busy_ms / (gpu["wall"] * 1e3),
+           "k10_busy_share": (main_k10["ms"] * launches["flux_absorb"]
+                              / (gpu["wall"] * 1e3)), "card": card}
+    log("flux: " + json.dumps(res))
+    failed = [k for k in ("rows_equal_cpu", "drained_equal_cpu",
+                          "states_equal_cpu", "exposition_equal_cpu")
+              if not res[k]]
+    if check["n_failures"]:
+        failed.append("independent_check")
+    if (launches["flux_absorb"] != APPENDS
+            or launches["hll_update"] != wide_groups
+            or launches["cms_update"] != 1 or wide_groups <= 512):
+        failed.append("launches")
+    if failed:
+        raise SystemExit(f"flux failed {failed}: {res}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -698,6 +1182,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fluentbit_tpu_torch as flb
     from fluentbit_tpu_torch.codec.events import decode_events
+    from fluentbit_tpu_torch.flux import kernels as tfk
     from fluentbit_tpu_torch.ops import cuda_build
     from fluentbit_tpu_torch.ops import grep as tg
     from fluentbit_tpu_torch.ops import sketch as tsk
@@ -726,6 +1211,9 @@ def main() -> int:
     sketches = phase_sketch_kernels(np, torch, tsk, args.seed)
     config4 = phase_config4(np, torch, tsk, flb, args.seed, env["card"],
                             sketches)
+    flux_kernels = phase_flux_kernels(np, torch, tsk, tfk, args.seed)
+    flux = phase_flux(np, torch, tsk, tfk, flb, decode_events, args.seed,
+                      env["card"], flux_kernels, sketches)
 
     main_shape = next(v for v in variants
                       if v["program"] == "apache2" and v["shape"][1] == 4096)
@@ -766,6 +1254,34 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "variants": cases})
+    k10 = [r for r in flux_kernels if r["kernel"] == "fused_absorb"]
+    k9 = [r for r in flux_kernels if r["kernel"] == "segment_counts"]
+    main_k10 = next(r for r in k10 if r["case"] == "main")
+    kernels["kernels"].append({
+        "name": "flux_absorb", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/sketch.cu",
+        "replaces": "fluentbit_tpu/flux/kernels.py:189",
+        "fuses": ["fluentbit_tpu/flux/kernels.py:80",
+                  "fluentbit_tpu/ops/sketch.py:76",
+                  "fluentbit_tpu/ops/sketch.py:267"],
+        "launches": flux["launches"]["flux_absorb"],
+        "max_abs_err": max(r["max_abs_err"] for r in k10),
+        "ms": main_k10["ms"], "plain_ms": main_k10["plain_ms"],
+        "bound_ms": main_k10["bound_ms"], "bound_by": main_k10["bound_by"],
+        "library_ms": None, "shape": main_k10["shape"], "variants": k10})
+    # K9 is K10's counts-only launch: the flux path counts inside K10, so
+    # its own launch has no caller on the main path
+    kernels["kernels"].append({
+        "name": "segment_counts", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/sketch.cu",
+        "replaces": "fluentbit_tpu/flux/kernels.py:80",
+        "on_main_path": False,
+        "launches": flux["launches"]["segment_counts"],
+        "max_abs_err": max(r["max_abs_err"] for r in k9),
+        "ms": k9[0]["ms"], "plain_ms": k9[0]["plain_ms"],
+        "bound_ms": k9[0]["bound_ms"], "bound_by": k9[0]["bound_by"],
+        "library_ms": k9[0]["library_ms"], "shape": k9[0]["shape"],
+        "variants": k9})
     log(f"total_seconds: {time.perf_counter() - t_all:.1f}")
     log(env["card"])
     log(json.dumps(kernels))

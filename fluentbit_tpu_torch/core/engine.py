@@ -3,11 +3,14 @@
 The port's counterpart of ``fluentbit_tpu/core/engine.py``, trimmed to the
 decoded path: ``input_log_append`` → decode → filter chain → chunk pool,
 typed appends (``input_event_append``: metrics snapshots, no filter
-chain), hidden inputs (the emitter that log_to_metrics feeds), server
-inputs listening on the engine's loop, and a flush timer that drains the
-pools to the outputs, with the grace window at stop. Storage, qos,
-guard, failpoints, the admin HTTP server, flux, the stream processor,
-multiline, retries and the raw chunk path wait for later slices.
+chain), hidden inputs (the emitters that log_to_metrics and flux feed),
+server inputs listening on the engine's loop, and a flush timer that
+drains the pools to the outputs, with the grace window at stop. The
+engine's ``metrics`` registry holds the flux families, and
+``_ingest_src`` names the input whose append the filter chain is running
+(flux skips its own emitter's rows by it). Storage, qos, guard,
+failpoints, the admin HTTP server, the stream processor, multiline,
+retries and the raw chunk path wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
@@ -30,6 +33,7 @@ import torch
 from ..codec.chunk import Chunk
 from ..codec.events import LogEvent, decode_events, reencode_event
 from .config import ServiceConfig
+from .metrics import MetricsRegistry
 from .plugin import (
     FilterInstance,
     FilterResult,
@@ -53,6 +57,8 @@ class Engine:
         self.inputs: List[InputInstance] = []
         self.filters: List[FilterInstance] = []
         self.outputs: List[OutputInstance] = []
+        self.metrics = MetricsRegistry()
+        self._ingest_src: Optional[InputInstance] = None  # under the lock
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
@@ -224,7 +230,14 @@ class Engine:
         silent pass-through (the reference package logs and continues)."""
         tag = tag or ins.tag or ins.plugin.name
         with self._ingest_lock:
-            events = self._run_filters(decode_events(data), tag)
+            # saved and restored: an emitter re-enters this method from
+            # inside the chain, and the outer chain's remaining filters
+            # must see the outer append's source again
+            prev_src, self._ingest_src = self._ingest_src, ins
+            try:
+                events = self._run_filters(decode_events(data), tag)
+            finally:
+                self._ingest_src = prev_src
             if not events:
                 return 0
             payload = b"".join(

@@ -1,11 +1,11 @@
 """Metrics — the cmetrics equivalent that log_to_metrics fills.
 
 The port's own copy of ``fluentbit_tpu/core/metrics.py``, trimmed to
-what filter_log_to_metrics and prometheus_exporter need: counters,
-gauges and histograms in a registry, the registry as a msgpack-ready
-payload (metrics flow *as data* through the pipeline), and that payload
-rendered as Prometheus text, character for character as the reference
-package renders it.
+what filter_log_to_metrics, prometheus_exporter and the flux exporter
+need: counters, gauges and histograms in a registry, the registry as a
+msgpack-ready payload (metrics flow *as data* through the pipeline), and
+that payload rendered as Prometheus text, character for character as
+the reference package renders it.
 
 Reference: lib/cmetrics (cmt_counter/cmt_gauge/cmt_histogram) and the
 Prometheus text encoder of out_prometheus_exporter.
@@ -56,6 +56,18 @@ class _Metric:
         """Drop every labeled series (frequency-mode top-k refresh)."""
         with self._lock:
             self._values.clear()
+
+    def remove_matching(self, label_key: str, value: str) -> None:
+        """Drop only the series whose ``label_key`` equals ``value``: the
+        refresh of one publisher in a family that several share (the
+        flux exporters all write ``fluentbit_flux_*``)."""
+        with self._lock:
+            try:
+                i = self.label_keys.index(label_key)
+            except ValueError:
+                return
+            for k in [k for k in self._values if k[i] == value]:
+                del self._values[k]
 
 
 class Counter(_Metric):
@@ -142,6 +154,10 @@ class MetricsRegistry:
     def metrics(self) -> Iterable[_Metric]:
         with self._lock:
             return list(self._metrics.values())
+
+    def to_prometheus(self) -> str:
+        """The registry as Prometheus text."""
+        return payload_to_prometheus(self.to_msgpack_obj())
 
     def to_msgpack_obj(self) -> dict:
         """The registry as a plain structure for the metrics pipeline."""

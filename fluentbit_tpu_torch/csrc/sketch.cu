@@ -1,13 +1,21 @@
-// sketch.cu — HyperLogLog and count-min updates for filter_log_to_metrics.
+// sketch.cu — HyperLogLog and count-min updates for filter_log_to_metrics,
+// and the flux plane's fused absorb.
 //
-// Replaces two device programs of the reference package
-// (fluentbit_tpu/ops/sketch.py):
-//   K6 HyperLogLog._update_impl (:137) with _fnv1a_scan (:40), _mix (:66)
-//      and hll_index_rank (:76): registers.at[idx].max(rank)
-//   K7 CountMin._update_impl (:267) with CountMin._hashes (:260):
-//      table.at[r, cols[r]].add((lengths >= 0) * weight) for each depth row
+// Replaces four device programs of the reference package:
+//   K6 HyperLogLog._update_impl (ops/sketch.py:137) with _fnv1a_scan (:40),
+//      _mix (:66) and hll_index_rank (:76): registers.at[idx].max(rank)
+//   K7 CountMin._update_impl (ops/sketch.py:267) with CountMin._hashes
+//      (:260): table.at[r, cols[r]].add((lengths >= 0) * weight) for each
+//      depth row
+//   K10 build_fused_absorb (flux/kernels.py:189): K9's group counts, K6's
+//      index and rank scatter-maxed into a per-group register stack for
+//      each distinct field, and K7's weight-1 update of the composites, in
+//      one launch
+//   K9 _counts_impl (flux/kernels.py:80): K10's counts-only launch
 // and updates the sketch state in place, which is the reference's
-// functional result committed.
+// functional result committed. (The flux caller hands K10 freshly
+// assembled stacks and a copy of the table, and commits after it
+// returns: snapshot in, commit on finish.)
 //
 // One thread per staged row. The thread hashes bytes [0, length) of its
 // row (FNV-1a 32 then the murmur3 fmix32 finaliser, in native uint32
@@ -27,6 +35,12 @@
 // that stop at the row's length, the hash in registers) and makes one
 // atomic per row and depth. Privatised registers in shared memory and a
 // warp-cooperative hash are later levers.
+//
+// K10 is the same per-row work laid out as a 2-D grid: y picks counts,
+// one distinct field or the composites, so a flux append (4096 rows, one
+// field plus composites) runs 3 x 16 blocks in one launch, latency-bound
+// like K6/K7. Its stack (200 groups x 2^12 registers, 3.2 MiB) and table
+// (256 KiB) stay in L2; a row touches one register and d counters.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,6 +128,68 @@ cms_update_kernel(const uint8_t* __restrict__ batch,
   }
 }
 
+// One distinct field of the flux absorb: its staged rows and the register
+// stack [n_seg, 2^p] they scatter into.
+struct FluxField {
+  const uint8_t* batch;     // u8 [B, L]
+  const int32_t* lengths;   // i32 [B]
+  int32_t* stack;           // i32 [n_seg, 2^p]
+};
+
+// K10: the flux plane's fused absorb (reference flux/kernels.py:189
+// build_fused_absorb). blockIdx.y picks the task, each thread one row:
+//   y = 0        group counts, counts[seg[i]] += valid[i] (K9, :80)
+//   y = 1..F     distinct field y-1: stack[seg[i], idx] max= rank (K6's
+//                index and rank; a negative length is rank 0, a no-op)
+//   y = F + 1    the composites' weight-1 count-min update (K7's columns)
+// A segment id outside [0, n_seg) changes nothing (the reference's
+// scatter drops out-of-range updates). With F = 0 and no composites this
+// is K9's counts-only launch.
+__global__ void __launch_bounds__(kThreads)
+flux_absorb_kernel(const int32_t* __restrict__ seg,
+                   const int32_t* __restrict__ valid, int B, int n_seg,
+                   int32_t* __restrict__ counts,
+                   const FluxField* __restrict__ fields, int F, int L, int p,
+                   int vec16, const uint8_t* __restrict__ comp,
+                   const int32_t* __restrict__ comp_len, int Bc, int W,
+                   int comp_vec16, int32_t* __restrict__ table, int d,
+                   int w) {
+  const int task = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (task == 0) {
+    if (i >= B) return;
+    const int s = seg[i];
+    const int v = valid[i];
+    if (v != 0 && static_cast<unsigned>(s) < static_cast<unsigned>(n_seg)) {
+      atomicAdd(counts + s, v);
+    }
+    return;
+  }
+  if (task <= F) {
+    if (i >= B) return;
+    const FluxField f = fields[task - 1];
+    const int length = f.lengths[i];
+    if (length < 0) return;
+    const int s = seg[i];
+    if (static_cast<unsigned>(s) >= static_cast<unsigned>(n_seg)) return;
+    const uint32_t h = row_hash(f.batch + (long long)i * L, length, L, vec16);
+    const uint32_t idx = h >> (32 - p);
+    const int rank = min(__clz(h << p) + 1, 33 - p);
+    atomicMax(f.stack + ((long long)s << p) + idx, rank);
+    return;
+  }
+  if (i >= Bc) return;
+  const int length = comp_len[i];
+  if (length < 0) return;
+  const uint32_t h1 = row_hash(comp + (long long)i * W, length, W, comp_vec16);
+  const uint32_t h2 = fmix32(h1) | 1u;
+  for (int r = 0; r < d; ++r) {
+    const uint32_t col = (h1 + static_cast<uint32_t>(r) * h2) %
+                         static_cast<uint32_t>(w);
+    atomicAdd(table + (long long)r * w + col, 1);
+  }
+}
+
 int grid_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -152,5 +228,28 @@ extern "C" int cms_update_launch(const void* batch, const void* lengths,
     cms_update_kernel<int><<<grid_for(B), kThreads, 0, s>>>(
         bt, ln, wt, static_cast<int*>(table), B, L, d, w, vec16);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 / K9. seg, valid i32 [B]; counts i32 [n_seg], zeroed by the caller;
+// fields: a device array of F FluxField (null when F = 0), each batch
+// u8 [B, L]; comp u8 [Bc, W] and comp_len i32 [Bc] (null and Bc = 0 for
+// no composites); table i32 [d, w]. Every output is updated in place.
+// Nothing is launched when B and Bc are both 0.
+extern "C" int flux_absorb_launch(const void* seg, const void* valid, int B,
+                                  int n_seg, void* counts, const void* fields,
+                                  int F, int L, int p, int vec16,
+                                  const void* comp, const void* comp_len,
+                                  int Bc, int W, int comp_vec16, void* table,
+                                  int d, int w, void* stream) {
+  const int rows = B > Bc ? B : Bc;
+  if (rows <= 0) return 0;
+  const dim3 grid(grid_for(rows), F + (Bc > 0 ? 2 : 1));
+  flux_absorb_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(seg), static_cast<const int32_t*>(valid), B,
+      n_seg, static_cast<int32_t*>(counts),
+      static_cast<const FluxField*>(fields), F, L, p, vec16,
+      static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_len),
+      Bc, W, comp_vec16, static_cast<int32_t*>(table), d, w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,212 @@
+"""Device kernels of the flux plane — the port of ``fluentbit_tpu/flux/kernels.py``.
+
+Two functions, each with a plain torch version and a hand-written CUDA
+kernel in ``csrc/sketch.cu``:
+
+- ``segment_counts`` (K9, the reference's ``_counts_impl``): group
+  counts ``out[seg] += valid`` into int32 ``[n_seg]``;
+- ``fused_absorb`` (K10, ``build_fused_absorb``): in one launch, K9's
+  counts, for each distinct field K6's register index and rank
+  scatter-maxed into a per-group register stack ``stack[seg, idx] max=
+  rank``, and K7's weight-1 count-min update of the top-k composites.
+
+The wrappers take the plain version for CPU tensors and launch the
+kernel for CUDA tensors (anything else raises); a failed build or launch
+raises. Each wrapper counts its launches in ``launches``.
+
+``fused_absorb`` updates the stacks and the table it is given in place.
+The caller (``FluxState._fused_absorb``) hands it freshly assembled
+stacks and a copy of the table and commits them after the launch has
+returned — the reference's snapshot-in / commit-on-finish contract
+(``_fused_call``). Integer scatters (add, max) make every route give the
+same state bit for bit.
+
+The reference's jit buckets (``_pad_segments``, ``_pad_rows_to``) exist
+for XLA's shape cache and are not carried over: pad rows are no-ops, and
+results cover ``[:n_seg]`` only. The mesh programs (``flux_mesh``,
+``build_sharded_counts``, ``sharded_*``) and ``guarded_segment_counts``
+wait for multi-GPU and the fault domain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.sketch import (_SketchKernel, _check_rows, _vec16,
+                          cms_update_plain, hll_index_rank_plain)
+
+__all__ = ["host_segment_counts", "segment_counts_plain",
+           "fused_absorb_plain", "segment_counts", "fused_absorb"]
+
+Rows = Tuple[torch.Tensor, torch.Tensor]
+
+
+def host_segment_counts(seg: np.ndarray, valid: np.ndarray,
+                        n_seg: int) -> np.ndarray:
+    """Host twin: rows-per-segment over valid rows (int64 → int32-safe
+    counts; a chunk has < 2^31 rows by construction)."""
+    if n_seg <= 0:
+        return np.zeros((0,), dtype=np.int32)
+    return np.bincount(
+        seg[valid.astype(bool)], minlength=n_seg
+    ).astype(np.int32)[:n_seg]
+
+
+# ---------------------------------------------------------------------------
+# plain versions (torch ops on any device)
+# ---------------------------------------------------------------------------
+
+
+def segment_counts_plain(seg: torch.Tensor, valid: torch.Tensor,
+                         n_seg: int) -> torch.Tensor:
+    """``zeros(n_seg).at[seg].add(valid)`` in int32 (``_counts_impl``);
+    ``seg`` must lie in ``[0, n_seg)``."""
+    out = torch.zeros((n_seg,), dtype=torch.int32, device=seg.device)
+    return out.index_add_(0, seg.long(), valid.to(torch.int32))
+
+
+def fused_absorb_plain(seg: torch.Tensor, valid: torch.Tensor,
+                       fields: Sequence[Rows], stacks: Sequence[torch.Tensor],
+                       comp: Optional[torch.Tensor] = None,
+                       comp_len: Optional[torch.Tensor] = None,
+                       table: Optional[torch.Tensor] = None, *, hll_p: int,
+                       n_seg: int) -> torch.Tensor:
+    """The fused absorb in torch ops: returns the counts, and updates each
+    field's ``stack`` [n_seg, 2^p] (scatter-max of the rows' ranks at
+    ``seg * 2^p + idx``) and ``table`` (weight-1 count-min update of the
+    composites) in place. A row with a negative length has rank 0, a
+    no-op under max, so pad rows may carry any segment id."""
+    counts = segment_counts_plain(seg, valid, n_seg)
+    seg64 = seg.long() << hll_p
+    for (batch, lengths), stack in zip(fields, stacks):
+        idx, rank = hll_index_rank_plain(batch, lengths, hll_p)
+        stack.view(-1).scatter_reduce_(0, seg64 + idx, rank, "amax")
+    if comp is not None and table is not None:
+        cms_update_plain(table, comp, comp_len)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_i32(name: str, arg: str, x: torch.Tensor, shape: tuple,
+               dev: torch.device) -> None:
+    if (x.dtype != torch.int32 or tuple(x.shape) != shape
+            or x.device != dev or not x.is_contiguous()):
+        raise ValueError(f"{name}: {arg} must be contiguous int32 "
+                         f"{list(shape)} on {dev}")
+
+
+class _FluxLaunch(_SketchKernel):
+    """``flux_absorb_launch`` of ``csrc/sketch.cu``, built and bound at
+    first use."""
+
+    symbol = "flux_absorb_launch"
+    argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+    def _run(self, name: str, seg: torch.Tensor, valid: torch.Tensor,
+             fields: Sequence[Rows], stacks: Sequence[torch.Tensor],
+             comp: Optional[torch.Tensor], comp_len: Optional[torch.Tensor],
+             table: Optional[torch.Tensor], hll_p: int,
+             n_seg: int) -> torch.Tensor:
+        dev = seg.device
+        if dev.type != "cuda":
+            raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
+        B = seg.shape[0] if seg.dim() == 1 else -1
+        _check_i32(name, "seg", seg, (B,), dev)
+        _check_i32(name, "valid", valid, (B,), dev)
+        if n_seg < 0:
+            raise ValueError(f"{name}: n_seg must be >= 0")
+        if len(stacks) != len(fields):
+            raise ValueError(f"{name}: one register stack per field")
+        if fields and not 1 <= hll_p <= 24:
+            raise ValueError(f"{name}: unsupported precision p={hll_p}")
+        L = fields[0][0].shape[1] if fields else 0
+        for (batch, lengths), stack in zip(fields, stacks):
+            _check_rows(name, batch, lengths, dev)
+            if tuple(batch.shape) != (B, L):
+                raise ValueError(f"{name}: every field must be uint8 "
+                                 f"[{B}, {L}]")
+            _check_i32(name, "stack", stack, (n_seg, 1 << hll_p), dev)
+        Bc = W = d = w = 0
+        comp_vec16 = 0
+        if comp is not None:
+            if comp_len is None or table is None:
+                raise ValueError(f"{name}: composites need comp_len and "
+                                 f"the table")
+            _check_rows(name, comp, comp_len, dev)
+            if (table.dtype != torch.int32 or table.dim() != 2
+                    or min(table.shape) < 1 or table.device != dev
+                    or not table.is_contiguous()):
+                raise ValueError(f"{name}: table must be a contiguous "
+                                 f"int32 [d, w] tensor on {dev}")
+            Bc, W = comp.shape
+            d, w = table.shape
+            comp_vec16 = _vec16(comp)
+        counts = torch.zeros((n_seg,), dtype=torch.int32, device=dev)
+        ptrs = None
+        if fields:
+            # FluxField {batch, lengths, stack} per field, as a device array
+            # (pinned, so the copy is asynchronous on the launch's stream)
+            ptrs = torch.tensor(
+                [[b.data_ptr(), ln.data_ptr(), st.data_ptr()]
+                 for (b, ln), st in zip(fields, stacks)],
+                dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+        vec16 = int(all(_vec16(b) for b, _ in fields))
+        if max(B, Bc) == 0:
+            return counts
+        self._launch(dev, seg.data_ptr(), valid.data_ptr(), B, n_seg,
+                     counts.data_ptr(),
+                     None if ptrs is None else ptrs.data_ptr(), len(fields),
+                     L, hll_p, vec16,
+                     None if comp is None else comp.data_ptr(),
+                     None if comp_len is None else comp_len.data_ptr(),
+                     Bc, W, comp_vec16,
+                     None if table is None else table.data_ptr(), d, w)
+        return counts
+
+
+class FusedAbsorb(_FluxLaunch):
+    """K10, the flux absorb: see :func:`fused_absorb_plain` for what it
+    computes. CPU tensors take the plain version (not counted in
+    ``launches``); CUDA tensors launch the kernel on the current stream;
+    anything else raises."""
+
+    def __call__(self, seg: torch.Tensor, valid: torch.Tensor,
+                 fields: Sequence[Rows], stacks: Sequence[torch.Tensor],
+                 comp: Optional[torch.Tensor] = None,
+                 comp_len: Optional[torch.Tensor] = None,
+                 table: Optional[torch.Tensor] = None, *, hll_p: int,
+                 n_seg: int) -> torch.Tensor:
+        if seg.device.type == "cpu":
+            return fused_absorb_plain(seg, valid, fields, stacks, comp,
+                                      comp_len, table, hll_p=hll_p,
+                                      n_seg=n_seg)
+        return self._run("fused_absorb", seg, valid, fields, stacks, comp,
+                         comp_len, table, hll_p, n_seg)
+
+
+class SegmentCounts(_FluxLaunch):
+    """K9, group counts (K10's counts-only launch): CPU tensors take
+    :func:`segment_counts_plain`, CUDA tensors the kernel."""
+
+    def __call__(self, seg: torch.Tensor, valid: torch.Tensor,
+                 n_seg: int) -> torch.Tensor:
+        if seg.device.type == "cpu":
+            return segment_counts_plain(seg, valid, n_seg)
+        return self._run("segment_counts", seg, valid, (), (), None, None,
+                         None, 0, n_seg)
+
+
+#: the process's flux kernel wrappers (one build, one launch count each)
+fused_absorb = FusedAbsorb()
+segment_counts = SegmentCounts()

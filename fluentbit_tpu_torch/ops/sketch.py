@@ -1,4 +1,4 @@
-"""Device sketches for log_to_metrics — the port of ``fluentbit_tpu/ops/sketch.py``.
+"""Device sketches for log_to_metrics and flux — the port of ``fluentbit_tpu/ops/sketch.py``.
 
 A HyperLogLog (``2^p`` int32 registers of max-rank) and a count-min
 sketch (``[d, w]`` counters, Kirsch-Mitzenmacher double hashing) whose
@@ -18,7 +18,8 @@ reference). On a CPU tensor it is the plain torch version below, which
 computes in int64 masked to 32 bits (CPU torch has no ``>>``, ``<<`` or
 ``%`` on uint32). Values longer than the staged width take the host
 twins (``add_cpu``), bit-identical to both. There is no other path: a
-failed build or launch raises.
+failed build or launch raises. The flux plane's fused absorb
+(``flux/kernels.py``) reuses the plain hashes and the launcher base.
 """
 
 from __future__ import annotations
@@ -314,20 +315,31 @@ class HyperLogLog:
         rank = min(32 - rest.bit_length() + 1, 32 - self.p + 1)
         self.registers[idx:idx + 1].clamp_(min=rank)
 
+    def merge_registers(self, other: torch.Tensor) -> None:
+        """Union with another sketch of the same precision: the
+        elementwise max, in place (the reference's ``merge_registers``)."""
+        torch.maximum(self.registers, other.to(self.device),
+                      out=self.registers)
+
     def estimate(self) -> float:
         """Standard HLL estimator with small/large range corrections (one
         device→host copy of the registers)."""
-        regs = self.registers.cpu().numpy()
-        m = float(self.m)
-        alpha = 0.7213 / (1.0 + 1.079 / m)
-        e = alpha * m * m / np.sum(np.exp2(-regs.astype(np.float64)))
-        if e <= 2.5 * m:
-            v = int(np.sum(regs == 0))
-            if v > 0:
-                e = m * np.log(m / v)
-        elif e > (1 << 32) / 30.0:
-            e = -(2.0 ** 32) * np.log(1.0 - e / 2.0 ** 32)
-        return float(e)
+        return estimate_registers(self.registers.cpu().numpy())
+
+
+def estimate_registers(regs: np.ndarray) -> float:
+    """The HLL estimate of host registers int32 ``[2^p]`` (the reference's
+    ``HyperLogLog.estimate``, operation for operation)."""
+    m = float(regs.shape[0])
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    e = alpha * m * m / np.sum(np.exp2(-regs.astype(np.float64)))
+    if e <= 2.5 * m:
+        v = int(np.sum(regs == 0))
+        if v > 0:
+            e = m * np.log(m / v)
+    elif e > (1 << 32) / 30.0:
+        e = -(2.0 ** 32) * np.log(1.0 - e / 2.0 ** 32)
+    return float(e)
 
 
 class CountMin:
@@ -370,18 +382,23 @@ class CountMin:
         for r, c in enumerate(self._cols_cpu(value)):
             self.table[r, c:c + 1].add_(weight)
 
-    def query_cols(self, cols: Sequence[Sequence[int]]) -> List[int]:
+    def query_cols(self, cols: Sequence[Sequence[int]],
+                   table: Optional[np.ndarray] = None) -> List[int]:
         """Row-min estimates for precomputed ``_cols_cpu`` columns, with
-        one device→host copy of the table."""
+        one device→host copy of the table (none when the caller passes a
+        host copy as ``table``)."""
         if not len(cols):
             return []
-        table = self.table.cpu().numpy()
+        if table is None:
+            table = self.table.cpu().numpy()
         c = np.asarray(cols, dtype=np.int64)
         return table[np.arange(self.depth)[None, :], c].min(axis=1).tolist()
 
-    def query_many(self, values: Iterable[bytes]) -> List[int]:
-        """Point estimates for many values, one table copy."""
-        return self.query_cols([self._cols_cpu(v) for v in values])
+    def query_many(self, values: Iterable[bytes],
+                   table: Optional[np.ndarray] = None) -> List[int]:
+        """Point estimates for many values, one table copy (or none, from
+        a host copy passed as ``table``)."""
+        return self.query_cols([self._cols_cpu(v) for v in values], table)
 
 
 def from_jax_state(state: np.ndarray, device: DeviceLike = None):

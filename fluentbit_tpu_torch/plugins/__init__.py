@@ -1,5 +1,6 @@
 """Built-in plugins of the port; importing registers them."""
 
+from ..flux import plugin as _flux_plugin  # noqa: F401  (filter_flux)
 from . import (  # noqa: F401
     filter_grep,
     filter_log_to_metrics,

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain torch versions (needs a card).
 
 ``grep_dfa`` (K1-K3) against ``match_plain``; ``hll_update`` (K6) and
-``cms_update`` (K7) against ``hll_update_plain`` / ``cms_update_plain``,
-registers and tables equal exactly (integer atomics are order-free).
+``cms_update`` (K7) against ``hll_update_plain`` / ``cms_update_plain``;
+the flux plane's ``fused_absorb`` (K10) and ``segment_counts`` (K9)
+against ``fused_absorb_plain`` / ``segment_counts_plain``, and K10's
+launch count across a pipeline append. Registers, stacks, tables and
+counts equal exactly (integer atomics are order-free).
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -19,6 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import json
+
+import fluentbit_tpu_torch
+from fluentbit_tpu_torch.flux import kernels as tfk
 from fluentbit_tpu_torch.ops import grep as tg
 from fluentbit_tpu_torch.ops import sketch as tsk
 from fluentbit_tpu_torch.regex.dfa import compile_dfa
@@ -212,3 +219,144 @@ def test_sketch_wrappers_reject_bad_tensors(cuda_device):
     with pytest.raises(ValueError, match="lengths"):
         tsk.cms_update(torch.zeros((4, 512), dtype=torch.int32,
                                    device=cuda_device), b, ln.long())
+
+
+def flux_case(seed, F, G, comp, B, L, invalid=False):
+    """Seeded flux absorb inputs on the CPU: segment ids with pad rows
+    (segment 0, valid 0, length -1), F fields of sketch rows, register
+    stacks with random starts, composites and a table."""
+    rng = np.random.default_rng(seed)
+    seg = torch.from_numpy(rng.integers(0, G, size=B).astype(np.int32))
+    valid = torch.ones(B, dtype=torch.int32)
+    pad = min(B, 5)
+    seg[B - pad:] = 0
+    valid[B - pad:] = 0
+    fields = []
+    for f in range(F):
+        batch, lengths = sketch_rows(seed + f, B, L)
+        lengths[B - pad:] = -1
+        if invalid:
+            lengths[:] = -1
+        fields.append((batch, lengths))
+    stacks = [torch.from_numpy(rng.integers(0, 4, size=(G, 1 << 12))
+                               .astype(np.int32)) for _ in range(F)]
+    c = cl = table = None
+    if comp:
+        c, cl = sketch_rows(seed + 99, B + 3, L)
+        if invalid:
+            cl[:] = -1
+        table = torch.from_numpy(rng.integers(0, 1 << 20, size=(4, 16384))
+                                 .astype(np.int32))
+    return seg, valid, fields, stacks, c, cl, table
+
+
+def to(dev, x):
+    return None if x is None else x.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,G,comp,B,L,invalid", [
+    (1, 200, True, 4096, 256, False),   # the main path's shape
+    (1, 512, True, 65536, 256, False),
+    (2, 7, True, 300, 64, False),
+    (1, 7, True, 300, 0, False),        # L = 0
+    (1, 7, True, 300, 64, True),        # all rows invalid
+    (0, 7, True, 17, 16, False),        # composites and counts only
+    (1, 1, False, 1, 16, False)])
+def test_fused_absorb_kernel_equals_plain(cuda_device, F, G, comp, B, L,
+                                          invalid):
+    seg, valid, fields, stacks, c, cl, table = flux_case(
+        F * 7 + G + B + L, F, G, comp, B, L, invalid)
+    want_stacks = [s.clone() for s in stacks]
+    want_table = None if table is None else table.clone()
+    want = tfk.fused_absorb_plain(seg, valid, fields, want_stacks, c, cl,
+                                  want_table, hll_p=12, n_seg=G)
+    got_stacks = [s.to(cuda_device) for s in stacks]
+    got_table = to(cuda_device, table)
+    before = tfk.fused_absorb.launches
+    got = tfk.fused_absorb(
+        seg.to(cuda_device), valid.to(cuda_device),
+        [(b.to(cuda_device), ln.to(cuda_device)) for b, ln in fields],
+        got_stacks, to(cuda_device, c), to(cuda_device, cl), got_table,
+        hll_p=12, n_seg=G)
+    assert tfk.fused_absorb.launches - before == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for g, w in zip(got_stacks, want_stacks):
+        assert torch.equal(g.cpu(), w)
+    if table is not None:
+        assert torch.equal(got_table.cpu(), want_table)
+
+
+@pytest.mark.gpu
+def test_fused_absorb_kernel_unaligned_batch(cuda_device):
+    """Field and composite views at an odd offset take the byte-load
+    path."""
+    seg, valid, fields, stacks, c, cl, table = flux_case(5, 1, 9, True,
+                                                         200, 64)
+    views = []
+    for x in (fields[0][0], c):
+        flat = torch.zeros(1 + x.numel(), dtype=torch.uint8,
+                           device=cuda_device)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        views.append(view)
+    want_stacks = [s.clone() for s in stacks]
+    want_table = table.clone()
+    want = tfk.fused_absorb_plain(seg, valid, fields, want_stacks, c, cl,
+                                  want_table, hll_p=12, n_seg=9)
+    got_stacks = [s.to(cuda_device) for s in stacks]
+    got_table = table.to(cuda_device)
+    got = tfk.fused_absorb(seg.to(cuda_device), valid.to(cuda_device),
+                           [(views[0], fields[0][1].to(cuda_device))],
+                           got_stacks, views[1], cl.to(cuda_device),
+                           got_table, hll_p=12, n_seg=9)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_stacks[0].cpu(), want_stacks[0])
+    assert torch.equal(got_table.cpu(), want_table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_seg", [(1, 1), (4096, 200), (65536, 512)])
+def test_segment_counts_kernel_equals_plain(cuda_device, B, n_seg):
+    seg, valid, *_ = flux_case(B, 0, n_seg, False, B, 0)
+    valid[: B // 3] = torch.arange(B // 3, dtype=torch.int32) % 5 - 2
+    before = tfk.segment_counts.launches
+    got = tfk.segment_counts(seg.to(cuda_device), valid.to(cuda_device),
+                             n_seg)
+    assert tfk.segment_counts.launches - before == 1
+    assert torch.equal(got.cpu(), tfk.segment_counts_plain(seg, valid,
+                                                           n_seg))
+
+
+@pytest.mark.gpu
+def test_flux_pipeline_append_launches_the_kernel_once(cuda_device):
+    """One append through create(device="cuda") is one K10 launch, and
+    the state equals the same append on the CPU."""
+    recs = [{"tenant": f"t{i % 13}", "user": f"u{i % 97}",
+             "endpoint": f"/e/{i % 7}", "latency_ms": i % 50}
+            for i in range(500)]
+    states = []
+    for device in ("cuda", "cpu"):
+        ctx = fluentbit_tpu_torch.create(device=device, flush="50ms",
+                                         grace="1")
+        in_ffd = ctx.input("lib", tag="app.web")
+        ctx.filter("flux", match="app.*", group_by="tenant",
+                   distinct_field="user", aggregate_field="latency_ms",
+                   topk_field="endpoint", window="tumbling 60")
+        ctx.start()
+        before = tfk.fused_absorb.launches
+        try:
+            assert ctx.push(in_ffd, json.dumps(recs)) == 500
+        finally:
+            ctx.stop()
+        launches = tfk.fused_absorb.launches - before
+        assert launches == (1 if device == "cuda" else 0)
+        states.append(ctx.engine.filters[0].plugin.state.snapshot())
+    gpu, cpu = states
+    assert gpu["counters"] == cpu["counters"]
+    assert np.array_equal(gpu["cms"], cpu["cms"])
+    for a, b in zip(gpu["groups"], cpu["groups"]):
+        assert a["key"] == b["key"] and a["count"] == b["count"]
+        assert a["cols"] == b["cols"]
+        assert np.array_equal(a["hlls"]["user"], b["hlls"]["user"])

@@ -134,6 +134,8 @@ PORT_MODULES = (
     "ops/grep.py", "plugins/filter_grep.py",  # config 1
     "core/metrics.py", "ops/sketch.py", "plugins/in_emitter.py",
     "plugins/filter_log_to_metrics.py", "plugins/net_http.py",  # config 4
+    "flux/kernels.py", "flux/state.py", "flux/exporter.py",
+    "flux/plugin.py",  # the flux plane
 )
 
 
