@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
 1. environment: torch/CUDA/nvcc/triton versions, the card's name and power
    limit;
 2. build: every kernel of ``fluentbit_tpu_torch/csrc`` (``grep_dfa``,
-   ``sketch``), one ``nvcc`` each, started together, with ptxas' report;
+   ``grep_assoc``, ``sketch``), one ``nvcc`` each, started together,
+   with ptxas' report;
 3. kernel against plain: the ``grep_dfa`` kernel against its plain torch
    version on the card, bool for bool, on three programs (apache2 k=3, an
    even-k literal set, a mixed-k 3-rule set) at [R, 65536, 512] and the
@@ -53,7 +54,27 @@ Phases (any failure exits non-zero):
    devices, agree with a check computed here from Python (window folds,
    HLL registers, estimates within 3 sigma, top-k within count-min's
    bound), and K10 must have launched once per append of <= 512 groups
-   and K6 once per group of the wide append.
+   and K6 once per group of the wide append;
+9. K4 against plain: ``grep_assoc`` against ``match_assoc_plain`` and
+   against K3 (``kernel="scan"``) on the card, bool for bool: config 3's
+   three child programs at [8, 512, 512], the staged bucket of one tail
+   read [8, 1024, 512] and [8, 65536, 512], segments 2, 8, 32 and 1024;
+   the GET/DENY and Exclude programs at [R, 4096, 512]; a program whose
+   rules differ widely in states and classes (the out-of-row case); an
+   L = 0 batch and an unaligned view; with CUDA-event times of K4, its
+   plain version and K3 on the same rows;
+10. pipeline: BASELINE config 3 (tail ``read_from_head`` → rewrite_tag
+   with the conf's 8 rules → null, plus lib to capture the records) over
+   a 262,144-line syslog corpus made from the seed, on ``device="cuda"``
+   and then ``"cpu"``: every tag's bodies must be equal between the
+   devices and to a Python ``re`` first-match routing of the file's
+   lines, the emit counter must count the rerouted lines, K4 must have
+   launched 3 times per tail append of >= 64 records and the scan never.
+
+Phases 3 and 4 pin K3: phase 3 builds its programs with
+``kernel="scan"``; in phase 4 config 1's Exclude rule (16 states) takes
+K4 under ``"auto"``, as in the reference, and each kernel's launches are
+counted.
 
 The card's name and power limit (as ``nvidia-smi`` gives them) come
 before the kernels JSON line, which is the line before the last; the last
@@ -107,6 +128,21 @@ PATH_ZIPF_S = 1.1
 
 EVEN_K = ["GET", "DENY"]             # literal rules: k = 6, pair tables
 MIXED_K = [APACHE2, "GET", r"^\d+ GET"]  # k = 3, 6, 5: three child programs
+
+# config 3 (conf/baseline3-rewrite.conf): the eight rewrite_tag rules, in
+# order, and their Python twins for the independent routing check (ASCII
+# \d, as the DFA's byte classes)
+CONFIG3_RULES = [("sshd", "sec.ssh"), ("kernel:", "sys.kernel"),
+                 (r"systemd\[1\]", "sys.init"), ("ERROR", "app.error"),
+                 ("WARN", "app.warn"), ("nginx", "web.nginx"),
+                 (r"cron\[\d+\]", "sys.cron"), (r".*OOM.*", "sys.oom")]
+CONFIG3 = [p for p, _ in CONFIG3_RULES]  # k = 6, 5, 4: three child programs
+CONFIG3_PY = [re.compile(p, re.ASCII) for p in CONFIG3]
+# a k = 6 program whose rules differ widely in states and classes: walking
+# WARN over all 12 states would pass the end of its trans_flat row
+OUT_OF_ROW = ["a{10}", "WARN", r"x[0-9]+y"]
+SYSLOG_LINES = 262_144  # the conf names a 1M-line corpus; cut to fit the run
+TAIL_BUCKET = 1024      # staged rows of one 64 KiB tail read (~360 lines)
 
 L = 512
 APPENDS = 64     # the main path: 64 appends of 4096 records
@@ -299,7 +335,10 @@ def phase_kernels(np, torch, tg, compile_dfa, seed: int) -> list:
     programs = [("apache2", [APACHE2]), ("even_k_literals", EVEN_K),
                 ("mixed_k", MIXED_K)]
     for name, patterns in programs:
-        prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, dev)
+        # these cases hold K3 against its plain version: "auto" would take
+        # K4 on the card for the literal and mixed programs
+        prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, dev,
+                                   kernel="scan")
         tables = plain_tables(torch, tg, prog)
         for B in (65536, 4096):
             R = len(patterns)
@@ -402,6 +441,16 @@ def expected_bodies(appends: list, exclude: bool) -> list:
     return kept
 
 
+def launches_per_dispatch(prog) -> dict:
+    """Launches of each grep kernel that one dispatch of ``prog`` makes:
+    one per k-group, by the kernel that group resolved to."""
+    count = {"grep_dfa": 0, "grep_assoc": 0}
+    for leaf in prog._children or [prog]:
+        count["grep_assoc" if leaf.kernel_resolved == "assoc"
+              else "grep_dfa"] += 1
+    return count
+
+
 def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
     appends = make_appends(seed, APPENDS, RECORDS)
     n_records = APPENDS * RECORDS
@@ -409,18 +458,22 @@ def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
     report = {}
     for exclude in (False, True):
         label = "regex+exclude" if exclude else "regex"
-        tg.grep_dfa.launches = 0
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
         got, wall, match_s, prog = run_pipeline(flb, "cuda", appends, exclude)
-        launches = tg.grep_dfa.launches
-        k_groups = len(prog.decision()["k_groups"])
+        # apache2 (690 states) takes the scan; the Exclude rule (16
+        # states) resolves to K4 on the card, as the reference's "auto"
+        launches = {"grep_dfa": tg.grep_dfa.launches,
+                    "grep_assoc": tg.grep_assoc.launches}
+        expected = {name: device_appends * n for name, n in
+                    launches_per_dispatch(prog).items()}
         ref, cpu_wall, _, _ = run_pipeline(flb, "cpu", appends, exclude)
         bodies = [ev.body for ev in decode_events(got)]
         want = expected_bodies(appends, exclude)
         res = {"rules": label, "records": n_records, "appends": len(appends),
                "kept": len(bodies), "bytes_equal_cpu": got == ref,
                "kept_equals_python_re": bodies == want,
-               "launches": launches, "expected_launches":
-                   device_appends * k_groups,
+               "kernel_resolved": prog.decision()["kernel_resolved"],
+               "launches": launches, "expected_launches": expected,
                "lines_per_s": n_records / wall,
                "p50_append_match_ms": statistics.median(match_s) * 1e3,
                "cpu_lines_per_s": n_records / cpu_wall, "card": card}
@@ -430,9 +483,9 @@ def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
         if not res["kept_equals_python_re"]:
             raise SystemExit(f"{label}: kept records differ from Python re "
                              f"({len(bodies)} vs {len(want)})")
-        if launches != res["expected_launches"] or launches == 0:
+        if launches != expected or launches["grep_dfa"] == 0:
             raise SystemExit(f"{label}: {launches} kernel launches, expected "
-                             f"{res['expected_launches']}")
+                             f"{expected}")
         report[label] = res
     return report
 
@@ -1167,6 +1220,364 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: K4 and config 3
+# ---------------------------------------------------------------------------
+
+MONTHS = ["Jan", "Feb", "Mar", "Apr", "May", "Jun", "Jul", "Aug", "Sep",
+          "Oct", "Nov", "Dec"]
+# programs and messages that no config 3 rule matches (CRON and
+# systemd-logind are near misses of the cron[N] and systemd[1] rules)
+QUIET = [("dhclient", "DHCPACK from 10.0.{a}.{b} (xid=0x{x:08x})"),
+         ("postfix/qmgr", "{x:X}: from=<u{a}@example.org>, size={b}, "
+                          "nrcpt=1 (queue active)"),
+         ("systemd-logind", "New session {a} of user u{b}."),
+         ("CRON", "pam_unix(cron:session): session opened for user root"),
+         ("dbus-daemon", "[system] Successfully activated service "
+                         "'org.freedesktop.u{a}'"),
+         ("rsyslogd", "action 'action-{a}' resumed (module "
+                      "'builtin:omfwd')")]
+# (share, program, message): the rules' traffic, then lines two rules
+# match (the first rule in order wins)
+LOUD = [(0.12, "sshd", "Accepted publickey for u{a} from 10.1.{b}.7 port "
+                       "{x} ssh2"),
+        (0.10, "kernel", "[{x}.{a:03d}] eth{b}: link up"),
+        (0.08, "systemd", "Started Session {a} of user u{b}."),
+        (0.05, "app", "ERROR request {x} failed: upstream reset"),
+        (0.06, "app", "WARN slow request {x} took {a} ms"),
+        (0.10, "nginx", "10.2.{a}.{b} GET /api/v{b}/items/{x} 200"),
+        (0.06, "cron", "(root) CMD (run-parts /etc/cron.hourly)"),
+        (0.01, "oomd", "memory pressure: OOM score of {x} adjusted"),
+        (0.005, "sshd", "error: ERROR reading from socket {x}"),
+        (0.005, "nginx", "WARN upstream 10.3.{a}.{b} timed out"),
+        (0.005, "kernel", "Out of memory: OOM killer took pid {x}"),
+        (0.005, "cron", "ERROR job {x} exited 1")]
+
+
+def syslog_line(rng: random.Random, i: int) -> bytes:
+    """``Mon dd HH:MM:SS host prog[pid]: msg``, 60-300 B (~1% longer than
+    512 B), ~0.5% with invalid UTF-8, ~3% ending in CR (a CRLF file)."""
+    x = rng.random()
+    prog, msg = None, None
+    for share, p, m in LOUD:
+        if x < share:
+            prog, msg = p, m
+            break
+        x -= share
+    if prog is None:
+        prog, msg = rng.choice(QUIET)
+    a, b, big = rng.randrange(1000), rng.randrange(256), rng.randrange(1 << 31)
+    msg = msg.format(a=a, b=b, x=big)
+    tag = {"systemd": "systemd[1]", "kernel": "kernel"}.get(
+        prog, f"{prog}[{rng.randrange(2, 65536)}]")
+    line = (f"{MONTHS[i // 22000 % 12]} {1 + i // 1000 % 28:2d} "
+            f"{i // 3600 % 24:02d}:{i // 60 % 60:02d}:{i % 60:02d} "
+            f"host{rng.randrange(40):02d} {tag}: {msg}").encode()
+    target = (rng.randrange(520, 900) if rng.random() < 0.01
+              else rng.randrange(60, 301))
+    while len(line) < target:
+        line += f" k{rng.randrange(100)}=v{rng.randrange(10 ** 6)}".encode()
+    if rng.random() < 0.005:
+        cut = rng.randrange(40, len(line))
+        line = line[:cut] + rng.choice([b"\xff\xfe", b"\xc3", b"\xed\xa0\x80"]) \
+            + line[cut:]
+    if rng.random() < 0.03:
+        line += b"\r"
+    return line
+
+
+def syslog_corpus(seed: int, n: int) -> bytes:
+    rng = random.Random(seed)
+    return b"\n".join(syslog_line(rng, i) for i in range(n)) + b"\n"
+
+
+def tail_texts(data: bytes) -> list:
+    """The record texts in_tail makes of a file: lines without CR,
+    UTF-8 decoded with replacement, empty lines skipped."""
+    out = []
+    for raw in data.split(b"\n"):
+        text = raw.rstrip(b"\r").decode("utf-8", "replace")
+        if text:
+            out.append(text)
+    return out
+
+
+def tail_append_sizes(data: bytes) -> list:
+    """Records of each in_tail append of this file read from the head:
+    one append per 64 KiB read, of the lines that read completes."""
+    sizes, pending = [], b""
+    for off in range(0, len(data), 65536):
+        lines = (pending + data[off:off + 65536]).split(b"\n")
+        pending = lines.pop()
+        n = sum(1 for ln in lines if ln.rstrip(b"\r"))
+        if n:
+            sizes.append(n)
+    return sizes
+
+
+def config3_routing(texts: list) -> dict:
+    """tag -> bodies: each line under the tag of the first rule whose
+    Python regex finds it, else under ``syslog``, in file order."""
+    out: dict = {}
+    for text in texts:
+        tag = next((t for (_, t), rx in zip(CONFIG3_RULES, CONFIG3_PY)
+                    if rx.search(text)), "syslog")
+        out.setdefault(tag, []).append({"log": text})
+    return out
+
+
+def syslog_rows(np, seed: int, R: int, B: int, width: int = L):
+    """[R, B, width] rows of syslog lines as rewrite_tag stages them (the
+    same field for every rule), with every length class (-1, -2, 0,
+    width) at the front and scattered."""
+    rng = random.Random(seed)
+    batch = np.zeros((B, width), dtype=np.uint8)
+    lengths = np.zeros(B, dtype=np.int32)
+    for b in range(B):
+        text = tail_texts(syslog_line(rng, b))[0].encode()
+        if len(text) > width:
+            lengths[b] = -2
+            continue
+        batch[b, :len(text)] = np.frombuffer(text, np.uint8)
+        lengths[b] = len(text)
+    special = np.array([-1, -2, 0, width], dtype=np.int32)
+    lengths[:len(special)] = special[:B]
+    lengths[100::997] = -1
+    lengths[101::997] = 0
+    if width >= 16:
+        batch[3, :width] = np.frombuffer((b"sshd WARN " * width)[:width],
+                                         np.uint8)
+    return np.stack([batch] * R), np.stack([lengths] * R)
+
+
+def leaf_calls(tg, prog, b, ln, kernel: str) -> list:
+    """One call per k-group of ``prog`` on its own rows: K4's wrapper,
+    K3's wrapper on the same tables, or K4's plain version."""
+    calls = []
+    for leaf, bb, ll in leaves(prog, b, ln):
+        if kernel == "assoc":
+            calls.append(lambda lf=leaf, bb=bb, ll=ll: tg.grep_assoc(
+                lf.tables, bb, ll, lf.k, lf.max_states, lf.segment))
+        elif kernel == "scan":
+            calls.append(lambda lf=leaf, bb=bb, ll=ll: tg.grep_dfa(
+                lf.tables, bb, ll, lf.k))
+        else:
+            calls.append(lambda lf=leaf, bb=bb, ll=ll: tg.match_assoc_plain(
+                lf.tables, bb, ll, lf.k, lf.max_states, lf.segment))
+    return calls
+
+
+def merged(torch, prog, parts):
+    if prog._children is None:
+        return parts[0]
+    return torch.cat(parts, dim=0).index_select(0, prog._inv_perm)
+
+
+def phase_assoc_kernels(np, torch, tg, compile_dfa, seed: int) -> list:
+    """K4 against its plain version and K3 on the card: config 3's three
+    child programs at one tail read ([8, 512, 512] and the staged bucket
+    [8, 1024, 512]) and at [8, 65536, 512], segments 2, 8, 32 and 1024;
+    the GET/DENY and Exclude programs; the out-of-row program; an L = 0
+    batch and an unaligned view."""
+    dev = torch.device("cuda")
+    cases = [("config3", CONFIG3, 512, L, 32),
+             ("config3", CONFIG3, TAIL_BUCKET, L, 32),
+             ("config3", CONFIG3, 65536, L, 32),
+             ("config3", CONFIG3, TAIL_BUCKET, L, 2),
+             ("config3", CONFIG3, TAIL_BUCKET, L, 8),
+             ("config3", CONFIG3, TAIL_BUCKET, L, 1024),
+             ("even_k_literals", EVEN_K, RECORDS, L, 32),
+             ("exclude", [EXCLUDE], RECORDS, L, 32),
+             ("out_of_row", OUT_OF_ROW, RECORDS, L, 32),
+             ("config3_L0", CONFIG3, 300, 0, 32),
+             ("config3_unaligned", CONFIG3, 300, L, 8)]
+    results = []
+    for name, patterns, B, width, segment in cases:
+        dfas = [compile_dfa(p) for p in patterns]
+        R = len(patterns)
+        prog = tg.TorchGrepProgram(dfas, width, dev, kernel="assoc",
+                                   segment=segment)
+        scan = tg.TorchGrepProgram(dfas, width, dev, kernel="scan")
+        if patterns in (EVEN_K, [EXCLUDE]):
+            batch, lengths = make_rows(np, seed + B + R, R, B)
+        else:
+            batch, lengths = syslog_rows(np, seed + B + segment, R, B, width)
+        if name == "out_of_row":
+            for i, text in enumerate([b"aaaaaaaaaaaa x12y", b"xWARN",
+                                      b"x7y aaaaaaaaa"] * 20):
+                batch[:, 200 + i] = 0
+                batch[:, 200 + i, :len(text)] = np.frombuffer(text, np.uint8)
+                lengths[:, 200 + i] = len(text)
+        b = torch.from_numpy(batch).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        if name == "config3_unaligned":
+            flat = torch.zeros(1 + b.numel(), dtype=torch.uint8, device=dev)
+            b = flat[1:].view(b.shape)
+            b.copy_(torch.from_numpy(batch))
+        before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
+        got = prog.dispatch(b, ln)
+        launches = tg.grep_assoc.launches - before[0]
+        scan_launches = tg.grep_dfa.launches - before[1]
+        plain = merged(torch, prog,
+                       [c() for c in leaf_calls(tg, prog, b, ln, "plain")])
+        k3 = scan.dispatch(b, ln)
+        torch.cuda.synchronize()
+        mism = int((got != plain).sum())
+        err = int((got.int() - plain.int()).abs().max()) if got.numel() else 0
+        k3_mism = int((got != k3).sum())
+        k4 = leaf_calls(tg, prog, b, ln, "assoc")
+        k3c = leaf_calls(tg, scan, b, ln, "scan")
+        pl = leaf_calls(tg, prog, b, ln, "plain")
+        iters = 5 if B >= 65536 else 30
+        res = {"program": name, "shape": [R, B, width], "segment": segment,
+               "k_groups": prog.decision()["k_groups"],
+               "max_states": [leaf.max_states for leaf in
+                              prog._children or [prog]],
+               "launches": launches, "scan_launches": scan_launches,
+               "mismatches": mism, "max_abs_err": err,
+               "k3_mismatches": k3_mism, "matched_rows": int(got.sum())}
+        if name in ("config3_L0",):
+            res.update(ms=None, host_enqueue_ms=None, plain_ms=None,
+                       k3_ms=None, bound_ms=None, bound_by=None)
+        else:
+            res["ms"] = cuda_ms(torch, lambda: [c() for c in k4], iters)
+            res["host_enqueue_ms"] = host_ms(torch, lambda: [c() for c in k4],
+                                             iters)
+            res["plain_ms"] = cuda_ms(torch, lambda: [c() for c in pl], 2)
+            res["k3_ms"] = cuda_ms(torch, lambda: [c() for c in k3c], iters)
+            res["bound_ms"], res["bound_by"] = bound_ms(
+                torch, prog, b, ln, table_bytes_read(torch, tg, prog, b, ln))
+        log("assoc-vs-plain: " + json.dumps(res))
+        if mism or k3_mism:
+            raise SystemExit(f"grep_assoc disagrees on {name} {[R, B, width]}"
+                             f" segment {segment}: {mism} rows vs plain, "
+                             f"{k3_mism} vs the scan")
+        if launches != len(res["k_groups"]) or scan_launches:
+            raise SystemExit(f"{name}: {launches} K4 and {scan_launches} K3 "
+                             f"launches for {len(res['k_groups'])} k-groups")
+        if width and not 0 < res["matched_rows"] < R * B:
+            raise SystemExit(f"degenerate verdicts on {name}: {res}")
+        results.append(res)
+    return results
+
+
+def run_config3(flb, device: str, path: str) -> dict:
+    """Config 3's pipeline over ``path``: tail (read_from_head) →
+    rewrite_tag with the conf's eight rules → null, plus lib to capture
+    the records. Waits until the tail's offset reaches the file's size
+    with nothing pending, then flushes and stops."""
+    chunks = []
+    ctx = flb.create(device=device, flush="50ms", grace="2")
+    ctx.input("tail", tag="syslog", path=path, read_from_head="true")
+    f = ctx.filter("rewrite_tag", match="syslog")
+    for pattern, tag in CONFIG3_RULES:
+        ctx.set(f, rule=f"$log {pattern} {tag} false")
+    ctx.output("null", match="*")
+    ctx.output("lib", match="*",
+               callback=lambda data, tag: chunks.append((tag, data)))
+    size = os.path.getsize(path)
+    tail = ctx.engine.inputs[0].plugin
+    t0 = time.perf_counter()
+    ctx.start()
+    try:
+        while True:
+            tf = tail._files.get(path)
+            if tf is not None and tf.offset == size and not tf.pending:
+                break
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit(f"config 3 ({device}): the tail did not "
+                                 f"reach the end of the file")
+            time.sleep(0.01)
+        # runs on the engine loop after the collect that read the last
+        # bytes has returned, so every append is in the pools
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.stop()
+    rt = ctx.engine.filters[0].plugin
+    return {"chunks": chunks, "wall": wall, "steps": list(rt.step_seconds),
+            "program": rt._program,
+            "emitted": ctx.engine.metrics.to_prometheus()}
+
+
+def emit_count(exposition: str) -> int:
+    """``fluentbit_filter_emit_records_total`` of rewrite_tag.0."""
+    m = re.search(r'^fluentbit_filter_emit_records_total\{name="rewrite_tag'
+                  r'\.0"\} (\d+)', exposition, re.M)
+    return int(m.group(1)) if m else 0
+
+
+def phase_config3(tg, flb, decode_events, seed: int, card: str,
+                  assoc_results: list) -> dict:
+    import tempfile
+
+    data = syslog_corpus(seed, SYSLOG_LINES)
+    texts = tail_texts(data)
+    want = config3_routing(texts)
+    sizes = tail_append_sizes(data)
+    device_appends = sum(n >= 64 for n in sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "syslog_corpus.log")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        tg.grep_assoc.launches = tg.grep_dfa.launches = 0
+        gpu = run_config3(flb, "cuda", path)
+        launches = {"grep_assoc": tg.grep_assoc.launches,
+                    "grep_dfa": tg.grep_dfa.launches}
+        cpu = run_config3(flb, "cpu", path)
+
+    def routed(run) -> dict:
+        out: dict = {}
+        for tag, chunk in run["chunks"]:
+            out.setdefault(tag, []).extend(ev.body
+                                           for ev in decode_events(chunk))
+        return out
+
+    got, ref = routed(gpu), routed(cpu)
+    per_dispatch = launches_per_dispatch(gpu["program"])
+
+    def p50(run) -> dict:
+        steps = run["steps"]
+        return {k: statistics.median(s[i] for s in steps) * 1e3
+                for i, k in enumerate(("staging", "launch_readback",
+                                       "overflow_regex",
+                                       "captures_render_emit"))}
+
+    main = next(r for r in assoc_results if r["program"] == "config3"
+                and r["shape"][1] == TAIL_BUCKET and r["segment"] == 32)
+    res = {"lines": len(texts), "file_bytes": len(data),
+           "appends": len(sizes), "device_appends": device_appends,
+           "filter_device_appends": len(gpu["steps"]),
+           "kernel_resolved": gpu["program"].decision()["kernel_resolved"],
+           "k_groups": gpu["program"].decision()["k_groups"],
+           "tags": {t: len(v) for t, v in sorted(got.items())},
+           "tags_equal_cpu": got == ref,
+           "tags_equal_python_re": got == want,
+           "launches": launches,
+           "expected_launches": {
+               "grep_assoc": per_dispatch["grep_assoc"] * device_appends,
+               "grep_dfa": 0},
+           "emit_counter": emit_count(gpu["emitted"]),
+           "rerouted": sum(len(v) for t, v in want.items() if t != "syslog"),
+           "lines_per_s": len(texts) / gpu["wall"],
+           "cpu_lines_per_s": len(texts) / cpu["wall"],
+           "p50_ms": p50(gpu), "cpu_p50_ms": p50(cpu),
+           "k4_busy_share": main["ms"] * device_appends / (gpu["wall"] * 1e3),
+           "card": card}
+    log("config3: " + json.dumps(res))
+    failed = [k for k in ("tags_equal_cpu", "tags_equal_python_re")
+              if not res[k]]
+    if res["emit_counter"] != res["rerouted"]:
+        failed.append("emit_counter")
+    if (launches != res["expected_launches"] or device_appends == 0
+            or res["filter_device_appends"] != device_appends
+            or per_dispatch != {"grep_assoc": 3, "grep_dfa": 0}):
+        failed.append("launches")
+    if failed:
+        raise SystemExit(f"config 3 failed {failed}: {res}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1196,8 +1607,9 @@ def main() -> int:
     # fresh build from the sources in this checkout
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    cuda_build.libraries.build(["grep_dfa", "sketch"])
-    for name in ("grep_dfa", "sketch"):
+    sources = ["grep_dfa", "grep_assoc", "sketch"]
+    cuda_build.libraries.build(sources)
+    for name in sources:
         cuda_build.libraries.load(name)
     build = {"seconds": time.perf_counter() - t0,
              "kernels": {n: {"nvcc_seconds": v["seconds"],
@@ -1214,6 +1626,9 @@ def main() -> int:
     flux_kernels = phase_flux_kernels(np, torch, tsk, tfk, args.seed)
     flux = phase_flux(np, torch, tsk, tfk, flb, decode_events, args.seed,
                       env["card"], flux_kernels, sketches)
+    assoc = phase_assoc_kernels(np, torch, tg, compile_dfa, args.seed)
+    config3 = phase_config3(tg, flb, decode_events, args.seed, env["card"],
+                            assoc)
 
     main_shape = next(v for v in variants
                       if v["program"] == "apache2" and v["shape"][1] == 4096)
@@ -1224,7 +1639,7 @@ def main() -> int:
         "replaces": "fluentbit_tpu/ops/grep.py:394",
         "fuses": ["fluentbit_tpu/ops/grep.py:314",
                   "fluentbit_tpu/ops/grep.py:343"],
-        "launches": pipeline["regex"]["launches"],
+        "launches": pipeline["regex"]["launches"]["grep_dfa"],
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1282,6 +1697,18 @@ def main() -> int:
         "bound_ms": k9[0]["bound_ms"], "bound_by": k9[0]["bound_by"],
         "library_ms": k9[0]["library_ms"], "shape": k9[0]["shape"],
         "variants": k9})
+    main_k4 = next(r for r in assoc if r["program"] == "config3"
+                   and r["shape"][1] == TAIL_BUCKET and r["segment"] == 32)
+    kernels["kernels"].append({
+        "name": "grep_assoc", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/grep_assoc.cu",
+        "replaces": "fluentbit_tpu/ops/grep.py:413",
+        "launches": config3["launches"]["grep_assoc"],
+        "max_abs_err": max(r["max_abs_err"] for r in assoc),
+        "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
+        "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
+        "library_ms": None, "k3_ms": main_k4["k3_ms"],
+        "shape": main_k4["shape"], "variants": assoc})
     log(f"total_seconds: {time.perf_counter() - t_all:.1f}")
     log(env["card"])
     log(json.dumps(kernels))

@@ -57,6 +57,14 @@ def parse_time(v: Any) -> float:
     return float(m.group(1)) * _TIME_MULT[m.group(2)]
 
 
+def split_clist(v: Any, sep: str = ",") -> List[str]:
+    """Comma-separated list (config_map CLIST): parts stripped, empty
+    parts dropped (in_tail's path globs)."""
+    if isinstance(v, (list, tuple)):
+        return [str(x) for x in v]
+    return [part.strip() for part in str(v).split(sep) if part.strip()]
+
+
 def split_slist(v: Any, max_split: int = -1) -> List[str]:
     """Space-separated list (config_map SLIST): respects max_split so the
     trailing element may contain spaces (grep's 'Regex key pattern with
@@ -74,6 +82,7 @@ _COERCERS = {
     "size": parse_size,
     "time": parse_time,
     "slist": split_slist,
+    "clist": split_clist,
 }
 
 
@@ -82,7 +91,7 @@ class ConfigMapEntry:
     """One declarative plugin option."""
 
     name: str
-    type: str = "str"  # raw|str|int|bool|size|time|slist
+    type: str = "str"  # raw|str|int|bool|size|time|slist|clist
     default: Any = None
     multiple: bool = False  # option may appear multiple times (e.g. grep rules)
     slist_max_split: int = -1

@@ -1,7 +1,8 @@
 """Record accessor — the ``$key['nested'][0]`` path language.
 
 The port's own copy of ``fluentbit_tpu/core/record_accessor.py``, trimmed
-to field lookup (templates and updates wait for rewrite_tag's slice).
+to field lookup and rewrite_tag's tag ``Template`` (updates and deletes
+wait for the slices that need them).
 
 Reference: src/flb_record_accessor.c + flex/bison grammar
 src/record_accessor/ra.l, ra.y. Paths address fields inside a record's body
@@ -17,7 +18,7 @@ Grammar supported here:
 from __future__ import annotations
 
 import re
-from typing import Any, List
+from typing import Any, List, Optional, Tuple
 
 _PATH_TOKEN = re.compile(
     r"""\[(?:'(?P<sq>[^']*)'|"(?P<dq>[^"]*)"|(?P<idx>-?\d+))\]|\.(?P<dot>[A-Za-z0-9_\-]+)"""
@@ -74,3 +75,73 @@ class RecordAccessor:
     def exists(self, record: dict) -> bool:
         sentinel = object()
         return self.get(record, sentinel) is not sentinel
+
+
+# In templates only the bracket trail form is taken ($k['a'][0]); dotted
+# shorthand would be ambiguous with literal '.' separators in tag templates.
+_TEMPLATE_VAR = re.compile(
+    r"""\$(?P<num>\d)|\$(?P<name>[A-Za-z_][A-Za-z0-9_\-]*)(?P<trail>(?:\[(?:'[^']*'|"[^"]*"|-?\d+)\])*)"""
+)
+
+
+class Template:
+    """Template string with embedded accessors — rewrite_tag's new-tag
+    composer (flb_ra_translate, reference src/flb_record_accessor.c).
+
+    Variables: $TAG, $TAG[n], $0..$9 (regex captures), $field paths.
+    """
+
+    def __init__(self, text: str):
+        self.text = text
+        self._parts: List[Tuple[str, Any]] = []  # (kind, payload)
+        pos = 0
+        for m in _TEMPLATE_VAR.finditer(text):
+            if m.start() > pos:
+                self._parts.append(("lit", text[pos : m.start()]))
+            if m.group("num") is not None:
+                self._parts.append(("cap", int(m.group("num"))))
+            else:
+                name = m.group("name")
+                trail = m.group("trail") or ""
+                if name == "TAG":
+                    if trail and re.fullmatch(r"\[\d+\]", trail):
+                        self._parts.append(("tagpart", int(trail[1:-1])))
+                    else:
+                        self._parts.append(("tag", None))
+                else:
+                    self._parts.append(("ra", RecordAccessor("$" + name + trail)))
+            pos = m.end()
+        if pos < len(text):
+            self._parts.append(("lit", text[pos:]))
+
+    def render(
+        self,
+        record: Optional[dict] = None,
+        tag: str = "",
+        captures: Optional[Tuple[str, ...]] = None,
+    ) -> str:
+        out: List[str] = []
+        tag_parts = tag.split(".")
+        for kind, payload in self._parts:
+            if kind == "lit":
+                out.append(payload)
+            elif kind == "tag":
+                out.append(tag)
+            elif kind == "tagpart":
+                out.append(tag_parts[payload] if payload < len(tag_parts) else "")
+            elif kind == "cap":
+                if captures and payload < len(captures) and captures[payload] is not None:
+                    out.append(str(captures[payload]))
+            else:  # ra
+                val = payload.get(record or {})
+                if val is not None:
+                    out.append(val if isinstance(val, str) else _stringify(val))
+        return "".join(out)
+
+
+def _stringify(v: Any) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return str(v)

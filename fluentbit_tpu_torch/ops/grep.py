@@ -8,12 +8,18 @@ super-step tables ``trans_flat[R, max_flat]`` pre-composed to ``C^k``
 columns, per-rule class maps with the EOL class at index 256, and for
 even k the byte-pair class tables.
 
-On a CUDA tensor the verdict comes from the hand-written kernel
-``csrc/grep_dfa.cu`` (the reference's K1/K2 super-symbol prepass fused
-with the K3 walk), through ``grep_dfa``. On a CPU tensor it comes from
-the plain torch versions below, which transcribe the reference's jnp
-programs step for step. There is no other path: a failed build or launch
-raises.
+Two kernels compute the verdict, chosen per program as the reference's
+``_resolve_kernel`` chooses: the sequential scan (K3) and the
+parallel-in-time walk (K4, "assoc"), which walks segments of the line
+over all S states and composes the segment functions in a log-depth
+tree. ``kernel="auto"`` takes scan on the CPU and assoc on CUDA when the
+program has at most 64 states. On a CUDA tensor the verdict comes from
+the hand-written kernel, ``csrc/grep_dfa.cu`` (the K1/K2 super-symbol
+prepass fused with the K3 walk, through ``grep_dfa``) or
+``csrc/grep_assoc.cu`` (K4, through ``grep_assoc``). On a CPU tensor it
+comes from the plain torch versions below, which transcribe the
+reference's jnp programs step for step. There is no other path: a failed
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -41,6 +47,9 @@ _PAIR_MAP_MAX_RULES = 32
 #: rule-sharded mesh regime) instead of splitting per-k child programs
 _RULE_SHARD_R = 64
 
+#: "auto" takes the assoc kernel on an accelerator up to this many states
+_ASSOC_MAX_STATES = 64
+
 Tables = Dict[str, torch.Tensor]
 
 
@@ -59,7 +68,8 @@ def choose_k(n_states: int, n_classes: int, budget: int = _TABLE_BUDGET) -> int:
 def build_tables(dfas: Sequence[DFA], k: int) -> Dict[str, np.ndarray]:
     """The numpy table set of R DFAs at stride k — the same arrays as the
     reference's ``GrepProgram._np`` (``pair_maps`` only for even k and
-    R <= 32, where the reference has None)."""
+    R <= 32, where the reference has None), plus ``n_states`` [R], each
+    rule's state count, which K4 reads."""
     R = len(dfas)
     tables = [compose_supersteps(d.trans, k) for d in dfas]
     max_flat = max(t.shape[0] * t.shape[1] for t in tables)
@@ -76,6 +86,8 @@ def build_tables(dfas: Sequence[DFA], k: int) -> Dict[str, np.ndarray]:
         "class_maps": cmaps,
         "eol_cls": np.asarray([d.eol_class for d in dfas], dtype=np.int32),
         "starts": np.asarray([d.start for d in dfas], dtype=np.int32),
+        # the assoc kernel walks each rule over its own states only
+        "n_states": np.asarray([d.n_states for d in dfas], dtype=np.int32),
     }
     if k % 2 == 0 and R <= _PAIR_MAP_MAX_RULES:
         pair_maps = np.zeros((R, 65536), dtype=np.int32)
@@ -159,16 +171,22 @@ def super_symbols_pairs_plain(t: Tables, batch: torch.Tensor,
     return comb
 
 
+def _symbols(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """K2's symbols where the pair tables exist, else K1's (the
+    reference's ``_super_symbols`` dispatch)."""
+    if "pair_maps" in t:
+        return super_symbols_pairs_plain(t, batch, lengths, k)
+    return super_symbols_plain(t, batch, lengths, k)
+
+
 def match_plain(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
                 k: int) -> torch.Tensor:
     """K3 (``GrepProgram._match_impl``) over K1/K2's symbols: the scan
     ``state ← trans_flat[r, state·Ck[r] + sym]`` as a loop of gathers;
     ``(final == ACC) & (lengths >= 0)``."""
     R, B, _ = batch.shape
-    if "pair_maps" in t:
-        comb = super_symbols_pairs_plain(t, batch, lengths, k)
-    else:
-        comb = super_symbols_plain(t, batch, lengths, k)
+    comb = _symbols(t, batch, lengths, k)
     state = t["starts"][:, None].expand(R, B)
     Ck = t["Ck"][:, None]
     for step in range(comb.shape[2]):
@@ -177,19 +195,113 @@ def match_plain(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
     return (state == ACC) & (lengths >= 0)
 
 
+def segment_grid(Lk: int, segment: int) -> Tuple[int, int]:
+    """(G, G2): the segments of ``segment`` super-symbols that cover Lk,
+    and G rounded up to a power of two (the composition tree's width)."""
+    G = -(-Lk // segment)
+    G2 = 1
+    while G2 < G:
+        G2 *= 2
+    return G, G2
+
+
+def match_assoc_plain(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
+                      k: int, S: int, segment: int) -> torch.Tensor:
+    """K4 (``GrepProgram._match_assoc_impl``): the line's symbols as
+    transition functions. Each segment of ``segment`` super-symbols is
+    walked from all S states (``[R, B, G2, S]``), the segments compose
+    in a log2(G2)-deep tree ``(f∘g)[s] = g[f[s]]``, and the whole-line
+    function is read at ``starts``; ``& (lengths >= 0)``.
+
+    States ``s >= n_states[r]`` of a rule with fewer states than S index
+    past its ``trans_flat`` row; the index is clamped into the row as
+    JAX clamps an out-of-range gather. Those states are unreachable from
+    ``starts[r]``, so the verdict does not depend on what they read."""
+    R, B, _ = batch.shape
+    m = segment
+    comb = _symbols(t, batch, lengths, k)  # [R, B, Lk]
+    Lk = comb.shape[2]
+    _, G2 = segment_grid(Lk, m)
+    pad = G2 * m - Lk
+    if pad:
+        # super-symbol of k EOL classes: eol * (C^{k-1}+...+C+1)
+        radix = torch.ones_like(t["C"])
+        eol_super = torch.zeros_like(t["eol_cls"])
+        for _ in range(k):
+            eol_super = eol_super + t["eol_cls"] * radix
+            radix = radix * t["C"]
+        comb = torch.cat([comb, eol_super[:, None, None].expand(R, B, pad)],
+                         dim=2)
+    comb = comb.reshape(R, B, G2, m)
+    tf = t["trans_flat"]
+    last = tf.shape[1] - 1
+    Ck = t["Ck"][:, None, None, None]
+
+    def step(F: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        idx = (F * Ck + c[..., None]).clamp(max=last).long()
+        return torch.gather(tf, 1, idx.reshape(R, -1)).reshape(idx.shape)
+
+    states = torch.arange(S, dtype=torch.int32, device=batch.device)
+    F = states[None, None, None, :].expand(R, B, G2, S)
+    for j in range(m):
+        F = step(F, comb[..., j])
+    while F.shape[2] > 1:  # the tree: the width halves each round
+        f, g = F[:, :, 0::2], F[:, :, 1::2]
+        F = torch.gather(g, 3, f.long())
+    start = t["starts"][:, None, None].expand(R, B, 1).long()
+    final = torch.gather(F[:, :, 0, :], 2, start)[..., 0]
+    return (final == ACC) & (lengths >= 0)
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
-#: the tables the kernel reads, with their ranks (pair_maps it does not)
+#: the tables the kernels read, with their ranks — what a CUDA program
+#: uploads (pair_maps neither kernel reads; n_states only K4 does)
 _TABLE_DIMS = {"trans_flat": 2, "class_maps": 2, "C": 1, "Ck": 1,
-               "eol_cls": 1, "starts": 1}
+               "eol_cls": 1, "starts": 1, "n_states": 1}
+_SCAN_TABLES = tuple(n for n in _TABLE_DIMS if n != "n_states")
+
+#: shared memory a block may take on Hopper (227 KB)
+_MAX_SMEM = 232448
 
 
-class GrepDfaKernel:
-    """Wrapper of ``csrc/grep_dfa.cu``: checks the tensors, allocates the
-    output, launches on the current stream. ``launches`` counts the
-    launches made (a plain integer a caller may reset)."""
+def _check_launch(kernel: str, t: Tables, batch: torch.Tensor,
+                  lengths: torch.Tensor, k: int, names: Sequence[str]):
+    """Raise ValueError unless the tensors are what the kernels take:
+    contiguous, on one CUDA device, of the right types and shapes."""
+    dev = batch.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
+    if batch.dtype != torch.uint8 or batch.dim() != 3:
+        raise ValueError(f"{kernel}: batch must be uint8 [R, B, L]")
+    R, B, _ = batch.shape
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (R, B):
+        raise ValueError(f"{kernel}: lengths must be int32 [R, B]")
+    if not 1 <= k <= 6 or R > 65535:
+        raise ValueError(f"{kernel}: unsupported k={k} or R={R}")
+    for name in names:
+        x = t[name]
+        if (x.dtype != torch.int32 or x.device != dev
+                or x.dim() != _TABLE_DIMS[name] or x.shape[0] != R
+                or not x.is_contiguous()):
+            raise ValueError(f"{kernel}: table {name} must be a "
+                             f"contiguous int32 [{R}, ...] tensor on {dev}")
+    if t["class_maps"].shape[1] != 257:
+        raise ValueError(f"{kernel}: class_maps must be [R, 257]")
+    for name, x in (("batch", batch), ("lengths", lengths)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous on {dev}")
+
+
+class _Kernel:
+    """A ctypes-bound launcher of ``csrc/<source>.cu`` with a launch
+    count (a plain integer a caller may reset)."""
+
+    source = ""
+    symbol = ""
+    argtypes: list = []
 
     def __init__(self) -> None:
         self.launches = 0
@@ -197,67 +309,117 @@ class GrepDfaKernel:
 
     def _launcher(self):
         if self._fn is None:
-            fn = cuda_build.libraries.load("grep_dfa").grep_dfa_launch
-            fn.argtypes = ([ctypes.c_void_p] * 9
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+            lib = cuda_build.libraries.load(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
+    def _launch(self, dev: torch.device, *args) -> None:
+        """Launch on ``dev``'s current stream; raise on a CUDA error."""
+        fn = self._launcher()
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+        self.launches += 1
+
+
+class GrepDfaKernel(_Kernel):
+    """Wrapper of ``csrc/grep_dfa.cu`` (K1–K3): checks the tensors,
+    allocates the output, launches on the current stream."""
+
+    source, symbol = "grep_dfa", "grep_dfa_launch"
+    argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
     def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
                  k: int) -> torch.Tensor:
-        dev = batch.device
-        if dev.type != "cuda":
-            raise ValueError(f"grep_dfa runs on CUDA tensors, got {dev}")
-        if batch.dtype != torch.uint8 or batch.dim() != 3:
-            raise ValueError("grep_dfa: batch must be uint8 [R, B, L]")
+        _check_launch("grep_dfa", t, batch, lengths, k, _SCAN_TABLES)
         R, B, L = batch.shape
-        if lengths.dtype != torch.int32 or tuple(lengths.shape) != (R, B):
-            raise ValueError("grep_dfa: lengths must be int32 [R, B]")
-        if not 1 <= k <= 6 or R > 65535:
-            raise ValueError(f"grep_dfa: unsupported k={k} or R={R}")
-        for name, dims in _TABLE_DIMS.items():
-            x = t[name]
-            if (x.dtype != torch.int32 or x.device != dev
-                    or x.dim() != dims or x.shape[0] != R
-                    or not x.is_contiguous()):
-                raise ValueError(f"grep_dfa: table {name} must be a "
-                                 f"contiguous int32 [{R}, ...] tensor on {dev}")
-        if t["class_maps"].shape[1] != 257:
-            raise ValueError("grep_dfa: class_maps must be [R, 257]")
-        for name, x in (("batch", batch), ("lengths", lengths)):
-            if x.device != dev or not x.is_contiguous():
-                raise ValueError(f"grep_dfa: {name} must be contiguous on {dev}")
-        out = torch.empty((R, B), dtype=torch.bool, device=dev)
+        out = torch.empty((R, B), dtype=torch.bool, device=batch.device)
         if R * B == 0:
             return out
-        fn = self._launcher()
         vec16 = int(L % 16 == 0 and batch.data_ptr() % 16 == 0)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(batch.data_ptr(), lengths.data_ptr(),
-                    t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
-                    t["C"].data_ptr(), t["Ck"].data_ptr(),
-                    t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
-                    out.data_ptr(), R, B, L, k, t["trans_flat"].shape[1],
-                    vec16, stream)
-        if rc != 0:
-            raise RuntimeError(f"grep_dfa launch failed: CUDA error {rc}")
-        self.launches += 1
+        self._launch(batch.device, batch.data_ptr(), lengths.data_ptr(),
+                     t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
+                     t["C"].data_ptr(), t["Ck"].data_ptr(),
+                     t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
+                     out.data_ptr(), R, B, L, k, t["trans_flat"].shape[1],
+                     vec16)
         return out
 
 
-#: the process's grep_dfa kernel wrapper (one build, one launch count)
+def assoc_launch_shape(L: int, k: int, S: int,
+                       segment: int) -> Tuple[int, int, int, int]:
+    """(Lk, G2, threads, shared bytes) of one K4 block over rows of
+    width L: the super-symbols with the reference's EOL tail, the
+    composition tree's width, one thread per (segment, state) pair up to
+    1024, and the row bytes, class map, symbols and two uint16 function
+    buffers ``[G2, S]`` in shared memory."""
+    Lk = (L + (k - L % k) % k + k) // k
+    _, G2 = segment_grid(Lk, segment)
+    threads = min(1024, max(32, -(-G2 * S // 32) * 32))
+    smem = (-(-L // 16) * 16 + 1040 + -(-Lk // 4) * 16
+            + 2 * 2 * G2 * S)
+    return Lk, G2, threads, smem
+
+
+class GrepAssocKernel(_Kernel):
+    """Wrapper of ``csrc/grep_assoc.cu`` (K4, the parallel-in-time walk):
+    one block per (rule, row); checks the tensors, allocates the output,
+    launches on the current stream."""
+
+    source, symbol = "grep_assoc", "grep_assoc_launch"
+    argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                + [ctypes.c_void_p])
+
+    def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
+                 k: int, S: int, segment: int) -> torch.Tensor:
+        _check_launch("grep_assoc", t, batch, lengths, k, tuple(_TABLE_DIMS))
+        R, B, L = batch.shape
+        if not 1 <= S <= 65535 or segment < 2:
+            raise ValueError(f"grep_assoc: unsupported S={S} or "
+                             f"segment={segment}")
+        Lk, G2, threads, smem = assoc_launch_shape(L, k, S, segment)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"grep_assoc: {smem} B of shared memory for "
+                             f"L={L}, k={k}, S={S}, segment={segment} "
+                             f"(at most {_MAX_SMEM})")
+        out = torch.empty((R, B), dtype=torch.bool, device=batch.device)
+        if R * B == 0:
+            return out
+        vec16 = int(L % 16 == 0 and batch.data_ptr() % 16 == 0)
+        self._launch(batch.device, batch.data_ptr(), lengths.data_ptr(),
+                     t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
+                     t["C"].data_ptr(), t["Ck"].data_ptr(),
+                     t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
+                     t["n_states"].data_ptr(), out.data_ptr(), R, B, L, k,
+                     t["trans_flat"].shape[1], S, segment, Lk, G2, threads,
+                     smem, vec16)
+        return out
+
+
+#: the process's kernel wrappers (one build, one launch count each)
 grep_dfa = GrepDfaKernel()
+grep_assoc = GrepAssocKernel()
 
 
-def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
-               k: int) -> torch.Tensor:
-    """``bool[R, B]`` verdicts: the plain version for CPU tensors, the
-    CUDA kernel for everything else (which raises off CUDA)."""
+def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor, k: int,
+               kernel: str = "scan", S: int = 0,
+               segment: int = 32) -> torch.Tensor:
+    """``bool[R, B]`` verdicts by ``kernel`` ("scan": K3, "assoc": K4
+    over S states in segments of ``segment``): the plain version for CPU
+    tensors, the CUDA kernel for everything else (which raises off
+    CUDA)."""
     if batch.device.type == "cpu":
+        if kernel == "assoc":
+            return match_assoc_plain(t, batch, lengths, k, S, segment)
         return match_plain(t, batch, lengths, k)
+    if kernel == "assoc":
+        return grep_assoc(t, batch, lengths, k, S, segment)
     return grep_dfa(t, batch, lengths, k)
 
 
@@ -266,27 +428,37 @@ def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def kernel_for(kernel: str, device: torch.device, max_states: int) -> str:
+    """The reference's ``_resolve_kernel`` on a torch device: an
+    explicit kernel stays; "auto" is the scan on the CPU (where the
+    tree's S× extra work is pure overhead) and assoc on CUDA when the
+    program has at most 64 states, else the scan."""
+    if kernel != "auto":
+        return kernel
+    if device.type == "cpu":
+        return "scan"
+    return "assoc" if max_states <= _ASSOC_MAX_STATES else "scan"
+
+
 class TorchGrepProgram:
     """R compiled DFAs fused into one device program on ``device``.
 
     ``match(batch_u8[R,B,L], lengths[R,B]) -> bool[R,B]`` (numpy), with
     the surface of the reference's ``GrepProgram``: ``dispatch``,
-    ``decision()``, the per-k child split when rules disagree on k.
+    ``decision()``, the per-k child split when rules disagree on k, and
+    the scan/assoc choice (``kernel``, ``segment``).
     """
 
     def __init__(self, dfas: Sequence[DFA], max_len: int = 512,
-                 device: DeviceLike = None, kernel: str = "auto"):
+                 device: DeviceLike = None, kernel: str = "auto",
+                 segment: int = 32):
         if kernel not in ("scan", "assoc", "auto"):
             raise ValueError(f"unknown grep kernel {kernel!r}")
-        if kernel == "assoc":
-            raise NotImplementedError(
-                "the parallel-in-time assoc kernel (K4) is not ported yet")
         self.dfas = list(dfas)
         self.max_len = max_len
         self.device = resolve(device)
         self.kernel = kernel
-        # "auto" resolves to the scan kernel until K4 has a counterpart
-        self.kernel_resolved = "scan"
+        self.segment = max(2, int(segment))
         R = len(self.dfas)
         self.k_by_rule = [choose_k(d.n_states, d.n_classes) for d in self.dfas]
         self.max_states = max(d.n_states for d in self.dfas)
@@ -297,13 +469,14 @@ class TorchGrepProgram:
         distinct_ks = sorted(set(self.k_by_rule))
         if len(distinct_ks) > 1 and R < _RULE_SHARD_R:
             # rules disagree on k: one homogeneous child program per k,
-            # merged back to rule order with the inverse permutation
+            # merged back to rule order with the inverse permutation;
+            # each child resolves its own kernel from its own states
             idxs = [np.asarray([i for i, kk in enumerate(self.k_by_rule)
                                 if kk == k], dtype=np.int64)
                     for k in distinct_ks]
             self._children = [
                 TorchGrepProgram([self.dfas[int(i)] for i in ix], max_len,
-                                 self.device, kernel)
+                                 self.device, kernel, self.segment)
                 for ix in idxs
             ]
             self._child_idxs = [torch.from_numpy(ix).to(self.device)
@@ -311,13 +484,17 @@ class TorchGrepProgram:
             self._inv_perm = torch.from_numpy(
                 np.argsort(np.concatenate(idxs))).to(self.device)
             self.k = distinct_ks[0]
+            resolved = {c.kernel_resolved for c in self._children}
+            self.kernel_resolved = (resolved.pop() if len(resolved) == 1
+                                    else "mixed")
             return
         self.k = min(self.k_by_rule)
+        self.kernel_resolved = kernel_for(kernel, self.device, self.max_states)
         self._set_tables(build_tables(self.dfas, self.k))
 
     def _set_tables(self, np_tables: Dict[str, Optional[np.ndarray]]) -> None:
         """Upload the tables this device's route reads: all of them for
-        the CPU plain versions, the kernel's (no ``pair_maps``) on CUDA."""
+        the CPU plain versions, the kernels' (no ``pair_maps``) on CUDA."""
         cpu = self.device.type == "cpu"
         self.tables = {
             name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -327,8 +504,9 @@ class TorchGrepProgram:
 
     def decision(self) -> dict:
         """The resolved compile/kernel decisions, per rule — the same
-        dict as the reference's ``GrepProgram.decision()``, except that
-        ``kernel_resolved`` is known at construction ("scan")."""
+        dict as the reference's ``GrepProgram.decision()``; the port
+        resolves ``kernel_resolved`` at construction (the reference at
+        materialization), "mixed" when the children differ."""
         rules = []
         for r, d in enumerate(self.dfas):
             st = d.shrink
@@ -349,7 +527,7 @@ class TorchGrepProgram:
             "k": int(self.k),
             "k_groups": k_groups,
             "max_states": int(self.max_states),
-            "assoc_eligible": self.max_states <= 64,
+            "assoc_eligible": self.max_states <= _ASSOC_MAX_STATES,
             "kernel": self.kernel,
             "kernel_resolved": self.kernel_resolved,
         }
@@ -365,7 +543,8 @@ class TorchGrepProgram:
             parts = [c.dispatch(b.index_select(0, ix), ln.index_select(0, ix))
                      for c, ix in zip(self._children, self._child_idxs)]
             return torch.cat(parts, dim=0).index_select(0, self._inv_perm)
-        return match_rows(self.tables, b, ln, self.k)
+        return match_rows(self.tables, b, ln, self.k, self.kernel_resolved,
+                          self.max_states, self.segment)
 
     def match(self, batch: ArrayLike, lengths: ArrayLike) -> np.ndarray:
         """Run the program; returns bool [R, B] (numpy)."""
@@ -374,22 +553,36 @@ class TorchGrepProgram:
 
 def from_jax_tables(np_tables: Dict[str, Optional[np.ndarray]], k: int,
                     max_len: int = 512, device: DeviceLike = None,
-                    dfas: Sequence[DFA] = ()) -> TorchGrepProgram:
+                    dfas: Sequence[DFA] = (), kernel: str = "auto",
+                    segment: int = 32) -> TorchGrepProgram:
     """A single-k program over a table set carried across from the
     reference package (``GrepProgram._np``: trans_flat, C, Ck,
     class_maps, eol_cls, starts, pair_maps or None). Read ``_np`` before
     the reference program materializes: materializing frees it.
-    ``dfas`` only feeds ``decision()``."""
+    ``dfas`` feeds ``decision()`` and the per-rule state counts that K4
+    needs; without them the program takes the scan."""
+    if kernel not in ("scan", "assoc", "auto"):
+        raise ValueError(f"unknown grep kernel {kernel!r}")
     prog = TorchGrepProgram.__new__(TorchGrepProgram)
     prog.dfas = list(dfas)
     prog.max_len = max_len
     prog.device = resolve(device)
-    prog.kernel = "auto"
-    prog.kernel_resolved = "scan"
+    prog.kernel = kernel
+    prog.segment = max(2, int(segment))
     prog.k = int(k)
     prog.k_by_rule = [prog.k] * int(np_tables["starts"].shape[0])
     prog.max_states = max((d.n_states for d in prog.dfas), default=0)
     prog._children = prog._child_idxs = prog._inv_perm = None
+    if prog.dfas:
+        np_tables = dict(np_tables, n_states=np.asarray(
+            [d.n_states for d in prog.dfas], dtype=np.int32))
+        prog.kernel_resolved = kernel_for(kernel, prog.device,
+                                          prog.max_states)
+    elif kernel == "assoc":
+        raise ValueError("the assoc kernel needs each rule's state count: "
+                         "pass dfas")
+    else:
+        prog.kernel_resolved = "scan"
     prog._set_tables(np_tables)
     return prog
 

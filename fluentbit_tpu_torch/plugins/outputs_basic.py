@@ -1,8 +1,9 @@
-"""Basic outputs: stdout, lib, prometheus_exporter.
+"""Basic outputs: stdout, null, lib, prometheus_exporter.
 
-The port's own copy of the ``stdout``, ``lib`` and ``prometheus_exporter``
-outputs of ``fluentbit_tpu/plugins/outputs_basic.py`` (reference:
-plugins/out_stdout, plugins/out_lib, plugins/out_prometheus_exporter).
+The port's own copy of the ``stdout``, ``null``, ``lib`` and
+``prometheus_exporter`` outputs of ``fluentbit_tpu/plugins/outputs_basic.py``
+(reference: plugins/out_stdout, plugins/out_null, plugins/out_lib,
+plugins/out_prometheus_exporter).
 stdout prints log records as ``json_lines`` (config 1) or in the classic
 ``print`` form; its other formats wait for a later slice.
 prometheus_exporter keeps the latest snapshot of each metric and renders
@@ -15,7 +16,7 @@ from __future__ import annotations
 import json
 import sys
 
-from ..codec.chunk import EVENT_TYPE_METRICS
+from ..codec.chunk import EVENT_TYPE_LOGS, EVENT_TYPE_METRICS
 from ..codec.events import decode_events
 from ..codec.msgpack import EventTime, Unpacker
 from ..core.config import ConfigMapEntry
@@ -62,6 +63,17 @@ class StdoutOutput(OutputPlugin):
                 body = json.dumps(ev.body, default=_json_default)
                 out.write(f"[{i}] {tag}: [{ev.ts_float:.9f}, {body}]\n")
         out.flush()
+        return FlushResult.OK
+
+
+@registry.register
+class NullOutput(OutputPlugin):
+    """plugins/out_null: discard everything (config 3's sink)."""
+
+    name = "null"
+    event_types = (EVENT_TYPE_LOGS, EVENT_TYPE_METRICS)
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
         return FlushResult.OK
 
 

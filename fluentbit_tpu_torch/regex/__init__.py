@@ -7,8 +7,10 @@ Two execution tiers, same semantics (ONIG_SYNTAX_RUBY, UTF-8 bytes):
   (fluentbit_tpu_torch.ops.grep) and the CPU reference matcher.
 - ``FlbRegex`` → the user-facing wrapper (flb_regex_create/match
   equivalent, src/flb_regex.c): DFA when possible, Python ``re`` for
-  patterns with backrefs/lookaround (translated to Ruby semantics).
-  Named-capture extraction (the parser path) waits for a later slice.
+  patterns with backrefs/lookaround (translated to Ruby semantics), and
+  the capture tuple rewrite_tag's tag templates read
+  (``search_captures``). Named-capture extraction into a record (the
+  parser path) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -184,3 +186,23 @@ class FlbRegex:
         if self.dfa is not None:
             return self.dfa.match_bytes(data)
         return self._py().search(data.decode("utf-8", "surrogateescape")) is not None
+
+    def search_captures(self, text):
+        """Search returning the capture tuple ``($0, $1, ...)`` — group 0
+        is the whole match (flb_ra_regex_match's flb_regex_search result,
+        consumed by rewrite_tag tag templates). None when no match.
+
+        Ruby capture numbering: when a pattern contains named groups,
+        unnamed groups do not capture — $1.. are the named groups in
+        order of appearance (ONIG_SYNTAX_RUBY behavior).
+        """
+        if isinstance(text, bytes):
+            text = text.decode("utf-8", "surrogateescape")
+        py = self._py()
+        m = py.search(text)
+        if m is None:
+            return None
+        if py.groupindex:
+            ordered = sorted(py.groupindex.items(), key=lambda kv: kv[1])
+            return (m.group(0),) + tuple(m.group(i) for _, i in ordered)
+        return (m.group(0),) + m.groups()

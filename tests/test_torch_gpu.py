@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain torch versions (needs a card).
 
-``grep_dfa`` (K1-K3) against ``match_plain``; ``hll_update`` (K6) and
+``grep_dfa`` (K1-K3) against ``match_plain``; ``grep_assoc`` (K4)
+against ``match_assoc_plain`` and the scan, and its launches across a
+config 3 append (the own-emitter re-entry adds none); ``hll_update`` (K6) and
 ``cms_update`` (K7) against ``hll_update_plain`` / ``cms_update_plain``;
 the flux plane's ``fused_absorb`` (K10) and ``segment_counts`` (K9)
 against ``fused_absorb_plain`` / ``segment_counts_plain``, and K10's
@@ -25,6 +27,7 @@ import torch
 import json
 
 import fluentbit_tpu_torch
+from fluentbit_tpu_torch.codec.events import decode_events
 from fluentbit_tpu_torch.flux import kernels as tfk
 from fluentbit_tpu_torch.ops import grep as tg
 from fluentbit_tpu_torch.ops import sketch as tsk
@@ -37,6 +40,11 @@ APACHE2 = (
     r'(?: "(?<referer>[^\"]*)" "(?<agent>.*)")?$'
 )
 MIXED_K = [APACHE2, "GET", r"^\d+ GET"]  # k = 3, 6, 5: three children
+#: conf/baseline3-rewrite.conf's rule patterns: k = 4, 5, 6 children
+CONFIG3 = ["sshd", "kernel:", r"systemd\[1\]", "ERROR", "WARN", "nginx",
+           r"cron\[\d+\]", ".*OOM.*"]
+#: one k = 6 program where walking all 12 states passes WARN's row end
+OUT_OF_ROW = ["a{10}", "WARN", "x[0-9]+y"]
 
 
 def make_lines(n, seed):
@@ -82,7 +90,7 @@ def cuda_device():
 @pytest.mark.parametrize("B", [1, 17, 300])
 def test_cuda_kernel_equals_plain(cuda_device, patterns, L, B):
     prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L,
-                               cuda_device)
+                               cuda_device, kernel="scan")
     batch, lengths = random_rows(np.random.default_rng(B + L), len(patterns),
                                  B, L)
     lines = make_lines(min(B, 40), seed=B)
@@ -94,7 +102,8 @@ def test_cuda_kernel_equals_plain(cuda_device, patterns, L, B):
     before = tg.grep_dfa.launches
     got = prog.match(batch, lengths)
     assert tg.grep_dfa.launches - before == len(prog.decision()["k_groups"])
-    cpu = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, "cpu")
+    cpu = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, "cpu",
+                              kernel="scan")
     np.testing.assert_array_equal(got, cpu.match(batch, lengths))
     if prog.tables is not None:  # plain version on the card, same inputs
         # the device program holds only the kernel's tables; the plain
@@ -118,6 +127,156 @@ def test_cuda_kernel_unaligned_batch(cuda_device):
     got = tg.grep_dfa(prog.tables, view, lt, prog.k)
     plain = tg.match_plain(prog.tables, view, lt, prog.k)
     assert torch.equal(got, plain)
+
+
+def syslog_rows(R, B, L, seed):
+    """Random rows with every length class, the first 60 replaced by
+    syslog lines that config 3's rules match and miss."""
+    batch, lengths = random_rows(np.random.default_rng(seed), R, B, L)
+    progs = ["sshd[22]: Accepted", "kernel: eth0 up", "systemd[1]: Started",
+             "app: ERROR boom", "app: WARN slow", "nginx: GET / 200",
+             "cron[811]: job", "oom: OOM killer", "cron[x]: job", "plain"]
+    lines = [f"Oct 17 11:00:{i % 60:02d} h {progs[i % 10]} x{i}".encode()
+             for i in range(6, min(B, 66))]
+    # and a line for each of the other programs
+    lines += [b'x "GET /a HTTP/1.1" 500 7', b"GET /a DENY", b"xWARN"]
+    for i, line in enumerate(lines[: max(0, B - 6)], start=6):
+        if len(line) <= L:
+            batch[:, i, :] = 0
+            batch[:, i, : len(line)] = np.frombuffer(line, np.uint8)
+            lengths[:, i] = len(line)
+    return batch, lengths
+
+
+def assoc_plain_on_card(prog, b, ln):
+    """``prog.dispatch`` with ``match_assoc_plain`` in place of K4."""
+    leaves = ([(prog, b, ln)] if prog._children is None else
+              [(c, b.index_select(0, ix), ln.index_select(0, ix))
+               for c, ix in zip(prog._children, prog._child_idxs)])
+    parts = [tg.match_assoc_plain(leaf.tables, bb, ll, leaf.k,
+                                  leaf.max_states, leaf.segment)
+             for leaf, bb, ll in leaves]
+    if prog._children is None:
+        return parts[0]
+    return torch.cat(parts, dim=0).index_select(0, prog._inv_perm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segment", [2, 32, 1024])
+@pytest.mark.parametrize("patterns,L,B", [
+    (CONFIG3, 512, 300), (CONFIG3, 512, 1), (CONFIG3, 0, 17),
+    (OUT_OF_ROW, 64, 300), (["GET", "DENY"], 64, 300),
+    ([r'HTTP/1\.1" 500 '], 45, 300)])
+def test_assoc_kernel_equals_plain(cuda_device, patterns, L, B, segment):
+    dfas = [compile_dfa(p) for p in patterns]
+    prog = tg.TorchGrepProgram(dfas, L, cuda_device, kernel="assoc",
+                               segment=segment)
+    batch, lengths = syslog_rows(len(patterns), B, L, seed=B + L + segment)
+    if patterns == OUT_OF_ROW:
+        for i, s in enumerate([b"aaaaaaaaaaaa", b"xWARN", b"x12y"]):
+            batch[:, 6 + i, :] = 0
+            batch[:, 6 + i, : len(s)] = np.frombuffer(s, np.uint8)
+            lengths[:, 6 + i] = len(s)
+    groups = len(prog.decision()["k_groups"])
+    before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
+    got = prog.match(batch, lengths)
+    assert (tg.grep_assoc.launches - before[0],
+            tg.grep_dfa.launches - before[1]) == (groups, 0)
+    b = torch.from_numpy(batch).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    np.testing.assert_array_equal(
+        got, assoc_plain_on_card(prog, b, ln).cpu().numpy())
+    cpu = tg.TorchGrepProgram(dfas, L, "cpu", kernel="assoc",
+                              segment=segment)
+    np.testing.assert_array_equal(got, cpu.match(batch, lengths))
+    scan = tg.TorchGrepProgram(dfas, L, cuda_device, kernel="scan")
+    np.testing.assert_array_equal(got, scan.match(batch, lengths))
+    if B > 60 and L:
+        assert 0 < got.sum() < got.size
+
+
+@pytest.mark.gpu
+def test_assoc_kernel_unaligned_batch(cuda_device):
+    """A batch view at an odd offset takes the byte-load path."""
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in ["GET", "DENY"]], 64,
+                               cuda_device, kernel="assoc", segment=8)
+    batch, lengths = syslog_rows(2, 70, 64, seed=5)
+    flat = torch.zeros(1 + batch.size, dtype=torch.uint8, device=cuda_device)
+    view = flat[1:].view(2, 70, 64)
+    view.copy_(torch.from_numpy(batch))
+    lt = torch.from_numpy(lengths).cuda()
+    got = tg.grep_assoc(prog.tables, view, lt, prog.k, prog.max_states, 8)
+    want = tg.match_assoc_plain(prog.tables, view, lt, prog.k,
+                                prog.max_states, 8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_auto_takes_assoc_on_the_card(cuda_device):
+    """"auto" resolves as the reference's _resolve_kernel: assoc up to
+    64 states, the scan above, "mixed" across children."""
+    def resolved(patterns):
+        return tg.TorchGrepProgram([compile_dfa(p) for p in patterns], 64,
+                                   cuda_device).decision()["kernel_resolved"]
+
+    assert resolved(CONFIG3) == "assoc"
+    assert resolved([APACHE2]) == "scan"
+    assert resolved(MIXED_K) == "mixed"
+
+
+@pytest.mark.gpu
+def test_assoc_wrapper_rejects_bad_tensors(cuda_device):
+    prog = tg.TorchGrepProgram([compile_dfa("GET")], 32, cuda_device,
+                               kernel="assoc")
+    batch, lengths = random_rows(np.random.default_rng(0), 1, 4, 32)
+    b, ln = torch.from_numpy(batch), torch.from_numpy(lengths)
+    with pytest.raises(ValueError, match="CUDA"):
+        tg.grep_assoc(prog.tables, b, ln, prog.k, prog.max_states, 32)
+    with pytest.raises(ValueError, match="lengths"):
+        tg.grep_assoc(prog.tables, b.cuda(), ln.cuda().long(), prog.k,
+                      prog.max_states, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        tg.grep_assoc(prog.tables, b.cuda(), ln.cuda(), prog.k, 60000, 2)
+
+
+@pytest.mark.gpu
+def test_config3_append_launches_k4_per_k_group(cuda_device):
+    """One config 3 append through create(device="cuda") is 3 K4
+    launches (one per k-group, none for the re-emitted records that pass
+    the own-emitter guard under Match *) and no scan launch; the tags and
+    bodies equal the same append on the CPU."""
+    rules = [f"$log {p} {t} false" for p, t in zip(CONFIG3, [
+        "sec.ssh", "sys.kernel", "sys.init", "app.error", "app.warn",
+        "web.nginx", "sys.cron", "sys.oom"])]
+    recs = [{"log": line.decode()} for line in
+            (f"h{i} {p} msg".encode() for i, p in enumerate(
+                ["sshd[1]:", "kernel:", "systemd[1]:", "ERROR", "WARN",
+                 "nginx", "cron[5]", "OOM", "quiet", "sshd ERROR"] * 30))]
+    out = {}
+    for device in ("cuda", "cpu"):
+        got = out[device] = {}
+        ctx = fluentbit_tpu_torch.create(device=device, flush="50ms",
+                                         grace="1")
+        in_ffd = ctx.input("lib", tag="syslog")
+        f = ctx.filter("rewrite_tag", match="*")
+        for r in rules:
+            ctx.set(f, rule=r)
+        ctx.output("null", match="*")
+        ctx.output("lib", match="*", callback=lambda d, t, got=got:
+                   got.setdefault(t, []).extend(
+                       ev.body for ev in decode_events(d)))
+        ctx.start()
+        before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
+        try:
+            assert ctx.push(in_ffd, json.dumps(recs)) == 30
+            ctx.flush_now()
+        finally:
+            ctx.stop()
+        launches = (tg.grep_assoc.launches - before[0],
+                    tg.grep_dfa.launches - before[1])
+        assert launches == ((3, 0) if device == "cuda" else (0, 0))
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cuda"]["sec.ssh"]) == 60
 
 
 def sketch_rows(seed, B, L):

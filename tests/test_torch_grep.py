@@ -200,13 +200,22 @@ def test_mixed_k_child_split():
 def test_from_jax_tables(patterns):
     L = 96
     ref, np_t = jax_tables(patterns, L)
-    own = tg.build_tables([compile_dfa(p) for p in patterns], ref.k)
-    assert set(own) == {k for k, v in np_t.items() if v is not None}
+    dfas = [compile_dfa(p) for p in patterns]
+    own = tg.build_tables(dfas, ref.k)
+    # the reference's tables, plus the per-rule state counts K4 reads
+    assert set(own) == {k for k, v in np_t.items() if v is not None} | {
+        "n_states"}
+    np.testing.assert_array_equal(own.pop("n_states"),
+                                  [d.n_states for d in dfas])
     for name, arr in own.items():
         assert arr.dtype == np_t[name].dtype, name
         np.testing.assert_array_equal(arr, np_t[name], err_msg=name)
-    carried = tg.from_jax_tables(np_t, ref.k, L, device="cpu")
-    native = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, "cpu")
+    # without the DFAs there are no state counts: the scan serves
+    bare = tg.from_jax_tables(np_t, ref.k, L, device="cpu")
+    assert "n_states" not in bare.tables
+    assert bare.decision()["kernel_resolved"] == "scan"
+    carried = tg.from_jax_tables(np_t, ref.k, L, device="cpu", dfas=dfas)
+    native = tg.TorchGrepProgram(dfas, L, "cpu")
     for name, arr in native.tables.items():
         np.testing.assert_array_equal(carried.tables[name].numpy(),
                                       arr.numpy(), err_msg=name)
@@ -231,8 +240,9 @@ def test_decision_matches_reference(patterns):
 
 
 def test_kernel_choice_is_explicit():
-    with pytest.raises(NotImplementedError):
-        tg.TorchGrepProgram([compile_dfa("GET")], 64, "cpu", kernel="assoc")
+    prog = tg.TorchGrepProgram([compile_dfa("GET")], 64, "cpu",
+                               kernel="assoc")
+    assert prog.decision()["kernel_resolved"] == "assoc"
     with pytest.raises(ValueError):
         tg.TorchGrepProgram([compile_dfa("GET")], 64, "cpu", kernel="bogus")
 

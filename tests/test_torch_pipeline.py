@@ -136,6 +136,8 @@ PORT_MODULES = (
     "plugins/filter_log_to_metrics.py", "plugins/net_http.py",  # config 4
     "flux/kernels.py", "flux/state.py", "flux/exporter.py",
     "flux/plugin.py",  # the flux plane
+    "plugins/filter_rewrite_tag.py", "plugins/in_tail.py",
+    "core/record_accessor.py", "regex/__init__.py",  # config 3
 )
 
 
