@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. environment: torch/CUDA/nvcc/triton versions, the card's name and power
    limit;
 2. build: every kernel of ``fluentbit_tpu_torch/csrc`` (``grep_dfa``,
-   ``grep_assoc``, ``sketch``), one ``nvcc`` each, started together,
-   with ptxas' report;
+   ``grep_assoc``, ``sketch``, ``utf8``), one ``nvcc`` each, started
+   together, with ptxas' report;
 3. kernel against plain: the ``grep_dfa`` kernel against its plain torch
    version on the card, bool for bool, on three programs (apache2 k=3, an
    even-k literal set, a mixed-k 3-rule set) at [R, 65536, 512] and the
@@ -69,7 +69,28 @@ Phases (any failure exits non-zero):
    and then ``"cpu"``: every tag's bodies must be equal between the
    devices and to a Python ``re`` first-match routing of the file's
    lines, the emit counter must count the rerouted lines, K4 must have
-   launched 3 times per tail append of >= 64 records and the scan never.
+   launched 3 times per tail append of >= 64 records and the scan never;
+11. K11 against plain: ``utf8_validate`` against ``utf8_validate_plain``
+   on the card, verdict for verdict, over config 2's raw lines at the
+   main path's [4096, 512] and at [65536, 512], and the edge cases (L =
+   0, every row at -1 / -2, full 512-byte ASCII rows, rows invalid at
+   byte 0, an unaligned view), with CUDA-event times of both;
+12. pipeline: BASELINE config 2 (``conf/baseline2-parser.yaml``: tail
+   ``read_from_head`` over an NDJSON file → parser json with
+   reserve_data → null, plus lib) over 262,144 lines made from the seed,
+   on ``device="cuda"`` and then ``"cpu"``: the records (bodies, and the
+   times the parser set) must be equal between the devices and to a
+   Python fold (``json``, ``datetime.strptime``); then K11 through
+   ``Utf8Validator("cuda")`` over the file's raw lines staged at
+   [4096, 512] (64 launches) must equal plain and strict
+   ``bytes.decode("utf-8")``;
+13. pipeline: config 2r, the same filter with parsers.conf's apache2
+   parser over a 131,072-line access log, on ``device="cuda"`` and then
+   ``"cpu"``: records equal between the devices and to Python ``re``
+   with the apache2 pattern, ``datetime.strptime`` and the integer
+   casts; K3 (apache2 has > 64 states, so "auto" takes the scan) must
+   have launched once per tail append of >= 64 records and K4 never;
+   K3 is timed at one tail read, [1, 1024, 512], against plain.
 
 Phases 3 and 4 pin K3: phase 3 builds its programs with
 ``kernel="scan"``; in phase 4 config 1's Exclude rule (16 states) takes
@@ -87,6 +108,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import logging
 import math
 import os
 import random
@@ -1578,6 +1600,511 @@ def phase_config3(tg, flb, decode_events, seed: int, card: str,
     return res
 
 
+# config 2 (conf/baseline2-parser.yaml: tail NDJSON → parser json with
+# reserve_data → null) and its regex form, config 2r (the same filter
+# with conf/parsers.conf's apache2); both parsers as parsers.conf has them
+TIME_FORMAT = "%d/%b/%Y:%H:%M:%S %z"
+PARSERS_CONF = {
+    "json": dict(Format="json", Time_Key="time", Time_Format=TIME_FORMAT),
+    "apache2": dict(Format="regex", Regex=APACHE2, Time_Key="time",
+                    Time_Format=TIME_FORMAT,
+                    Types="code:integer size:integer"),
+}
+CONFIG2_LINES = 262_144   # as config 3's file; Fluent Bit's own
+# utf8_surrogate_bench corpus is not in the repo. Config 2r is cut to half
+# that to keep the whole smoke near 400 s (it ran 411 s at 262,144)
+CONFIG2R_LINES = 131_072
+UTF8_B = 4096             # K11's staged rows per launch: 64 over the file
+MSG_WORDS = {  # the msg text of a config 2 line, by kind
+    "ascii": ["request", "served", "from", "cache", "in", "ms", "user",
+              "login", "ok", "retry"],
+    "utf8_23": ["héllo", "wörld", "naïve", "Ωμέγα", "данные", "日本語",
+                "テキスト", "한국어", "ü", "€"],
+    "utf8_4": ["🎉", "🚀", "😀", "𝄞", "🐍", "𠜎", "🇩🇪", "👍🏽"],
+}
+INVALID_UTF8 = [b"\xc0\xaf", b"\xed\xa0\x80", b"\xf4\x90\x80\x80",
+                b"\xe6\x97", b"\x80"]
+
+
+def ndjson_line(rng: random.Random, i: int) -> bytes:
+    """One line of config 2's file, 80-400 B (~1% over 512 B): a JSON
+    object with ``time`` in parsers.conf's format (~70%), malformed
+    (~5%, the parser drops the field) or absent, ``level``, ``user``,
+    ``msg`` and a nested object (~10%). The msg is ASCII (~40%), raw
+    2/3-byte UTF-8 (~25%), raw 4-byte UTF-8 (~15%), paired surrogate
+    escapes (~10%), BMP escapes (~5%) or a raw mix. Besides: malformed
+    JSON (~2%) and top-level non-objects (~1%), both passed through
+    untouched; raw invalid UTF-8 inside the msg string (~1%: in_tail
+    decodes it to U+FFFD, K11 sees it raw); CRLF (~3%). Lone surrogate
+    escapes stay out: ``json.loads`` yields a lone surrogate that the
+    msgpack encoder refuses, and the raise would stop the tail's collect
+    (the reference package's behaviour, in both packages)."""
+    x = rng.random()
+    if x < 0.02:
+        line = rng.choice(['{"level": "info", "msg": "cut short #',
+                           '{"a": #,}', "not json { #", '{"k" "v#"}'])
+        line = line.replace("#", str(i)).encode()
+    elif x < 0.03:
+        line = rng.choice(['[#, 2, "x"]', '"a string #"', "#", "null",
+                           "true"]).replace("#", str(i)).encode()
+    else:
+        head = []
+        t = rng.random()
+        if t < 0.70:
+            head.append('"time": "{:02d}/{}/20{:02d}:{:02d}:{:02d}:{:02d} '
+                        '{}"'.format(rng.randrange(1, 29), rng.choice(MONTHS),
+                                     rng.randrange(10, 30), rng.randrange(24),
+                                     rng.randrange(60), rng.randrange(60),
+                                     rng.choice(["+0000", "-0700", "+0530",
+                                                 "+0100"])))
+        elif t < 0.75:
+            head.append('"time": ' + json.dumps(rng.choice(
+                ["2026-10-17T15:12:32Z", "32/Oct/2026:10:00:00 +0000",
+                 "17/Foo/2026:10:00:00 +0000", "yesterday", ""])))
+        head.append('"level": ' + json.dumps(rng.choice(
+            ["debug", "info", "warn", "error"])))
+        head.append(f'"user": "u{rng.randrange(100000)}"')
+        m = rng.random()
+        kind, escape = (("ascii", False) if m < 0.40 else
+                        ("utf8_23", False) if m < 0.65 else
+                        ("utf8_4", False) if m < 0.80 else
+                        ("utf8_4", True) if m < 0.90 else
+                        ("utf8_23", True) if m < 0.95 else ("mix", False))
+        words = (MSG_WORDS["ascii"] + MSG_WORDS["utf8_23"]
+                 + MSG_WORDS["utf8_4"] if kind == "mix" else MSG_WORDS[kind])
+        tail = ""
+        if rng.random() < 0.10:
+            tail = (', "ctx": {"req": {"id": %d, "tags": ["a", "b"]}, '
+                    '"ok": true, "ratio": %s}' % (i, rng.randrange(100) / 8))
+        target = (rng.randrange(520, 900) if rng.random() < 0.01
+                  else rng.randrange(80, 401))
+        msg = f"#{i}"
+        while True:
+            body = ("{" + ", ".join(head) + ', "msg": '
+                    + json.dumps(msg, ensure_ascii=escape) + tail + "}")
+            if len(body.encode()) >= target:
+                break
+            msg += " " + rng.choice(words)
+        line = body.encode()
+        if rng.random() < 0.01:  # raw invalid bytes before the msg's quote
+            at = line.rindex(b'"', 0, len(line) - len(tail.encode()) - 1)
+            line = line[:at] + rng.choice(INVALID_UTF8) + line[at:]
+    if rng.random() < 0.03:
+        line += b"\r"
+    return line
+
+
+def ndjson_corpus(seed: int, n: int) -> bytes:
+    rng = random.Random(seed)
+    return b"\n".join(ndjson_line(rng, i) for i in range(n)) + b"\n"
+
+
+def config2r_corpus(seed: int, n: int) -> bytes:
+    """Config 2r's access log: ~70% apache lines (``apache_line`` with
+    the time varied, ~3% of them malformed), the rest ``bad_line``,
+    and ~1% of lines over 512 B."""
+    rng = random.Random(seed)
+    lines = []
+    for i in range(n):
+        if rng.random() < 0.70:
+            stamp = ("99/Oct/2000:13:55:36 -0700" if rng.random() < 0.03
+                     else "{:02d}/{}/20{:02d}:{:02d}:{:02d}:{:02d} {}".format(
+                         rng.randrange(1, 29), rng.choice(MONTHS),
+                         rng.randrange(10, 30), rng.randrange(24),
+                         rng.randrange(60), rng.randrange(60),
+                         rng.choice(["+0000", "-0700", "+0530"])))
+            line = apache_line(rng, i).replace("10/Oct/2000:13:55:36 -0700",
+                                               stamp)
+        else:
+            line = bad_line(rng, i)
+        if rng.random() < 0.01:
+            line += ' "' + "z" * rng.randrange(520, 700) + '"'
+        lines.append(line.encode())
+    return b"\n".join(lines) + b"\n"
+
+
+def strptime_epoch(value: str):
+    """parsers.conf's Time_Format through Python's ``datetime``; None
+    where it does not parse."""
+    from datetime import datetime
+
+    try:
+        return datetime.strptime(value, TIME_FORMAT).timestamp()
+    except ValueError:
+        return None
+
+
+def config2_fold(texts: list) -> list:
+    """(parsed time or None, body as JSON text) per line, from Python's
+    ``json`` and ``datetime``: an object replaces the record (reserve_data
+    keeps no other field: ``log`` is the parsed key), its string ``time``
+    popped and parsed; anything else stays ``{"log": text}``."""
+    out = []
+    for text in texts:
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            obj = None
+        if not isinstance(obj, dict):
+            out.append((None, json.dumps({"log": text})))
+            continue
+        ts = None
+        if isinstance(obj.get("time"), str):
+            ts = strptime_epoch(obj.pop("time"))
+        out.append((ts, json.dumps(obj)))
+    return out
+
+
+def cast_integer(v: str):
+    """parsers.conf's ``Types ... :integer`` cast."""
+    try:
+        return int(float(v)) if "." in v else int(v, 10)
+    except ValueError:
+        return v
+
+
+def config2r_fold(texts: list) -> list:
+    """(parsed time or None, body as JSON text) per line, from Python's
+    ``re`` with the apache2 pattern: the named captures that are not
+    empty, code and size cast to integers, ``time`` popped and parsed;
+    a line the pattern misses stays ``{"log": text}``."""
+    out = []
+    for text in texts:
+        m = APACHE2_PY.search(text)
+        fields = ({k: v for k, v in m.groupdict().items() if v}
+                  if m is not None else {})
+        if not fields:
+            out.append((None, json.dumps({"log": text})))
+            continue
+        for k in ("code", "size"):
+            if k in fields:
+                fields[k] = cast_integer(fields[k])
+        ts = strptime_epoch(fields.pop("time")) if "time" in fields else None
+        out.append((ts, json.dumps(fields)))
+    return out
+
+
+def run_config2(flb, device: str, path: str, parser: str) -> dict:
+    """Config 2's pipeline (``parser`` json) or 2r's (apache2) over
+    ``path``: tail (read_from_head) → parser (key_name log, reserve_data)
+    → null, plus lib to capture the records. Waits until the tail's
+    offset reaches the file's size with nothing pending, then flushes
+    and stops."""
+    chunks = []
+    ctx = flb.create(device=device, flush="50ms", grace="2")
+    ctx.parser(parser, **PARSERS_CONF[parser])
+    ctx.input("tail", tag="ndjson", path=path, read_from_head="true",
+              refresh_interval="1")
+    ctx.filter("parser", match="ndjson", key_name="log", parser=parser,
+               reserve_data="true")
+    ctx.output("null", match="*")
+    ctx.output("lib", match="*",
+               callback=lambda data, tag: chunks.append(data))
+    size = os.path.getsize(path)
+    tail = ctx.engine.inputs[0].plugin
+    t0 = time.perf_counter()
+    ctx.start()
+    try:
+        while True:
+            tf = tail._files.get(path)
+            if tf is not None and tf.offset == size and not tf.pending:
+                break
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit(f"config 2 ({parser}, {device}): the tail "
+                                 f"did not reach the end of the file")
+            time.sleep(0.01)
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.stop()
+    f = ctx.engine.filters[0].plugin
+    return {"chunks": chunks, "wall": wall, "steps": list(f.step_seconds),
+            "program": f._prefilter}
+
+
+def parsed_records(decode_events, chunks: list) -> list:
+    """(time if the parser set it, else None; body as JSON text)."""
+    return [(ev.timestamp if isinstance(ev.timestamp, float) else None,
+             json.dumps(ev.body))
+            for chunk in chunks for ev in decode_events(chunk)]
+
+
+PARSER_STEPS = ("values_staging", "launch_readback", "overflow_regex",
+                "parse_apply")
+
+
+def step_p50(steps: list) -> dict:
+    if not steps:
+        return {k: None for k in PARSER_STEPS}
+    return {k: statistics.median(s[i] for s in steps) * 1e3
+            for i, k in enumerate(PARSER_STEPS)}
+
+
+def utf8_walked(np, tu, batch, lengths) -> int:
+    """Bytes K11 needs to walk on these rows: each row's bytes up to its
+    length or its first invalid byte (DEAD is absorbing), none for a
+    negative length."""
+    B, width = batch.shape
+    state = np.zeros(B, dtype=np.int64)
+    n = np.clip(lengths, 0, width).astype(np.int64)
+    stop = n.copy()
+    for t in range(width):
+        live = (t < n) & (state != tu.DEAD)
+        if not live.any():
+            break
+        state = np.where(live, tu._TRANS[state, tu._CLS[batch[:, t]]], state)
+        stop = np.where(live & (state == tu.DEAD), t + 1, stop)
+    return int(np.where(lengths >= 0, stop, 0).sum())
+
+
+def utf8_bound_ms(np, tu, batch, lengths) -> tuple:
+    """Least time for one K11 pass, counting what these rows need: the
+    bytes walked, every length (4 B) and verdict (1 B) once, over HBM's
+    rate; two lookups and an index multiply-add per byte walked over the
+    int32 peak. Also the staged bound ``B * L + 4B + B`` bytes."""
+    walked = utf8_walked(np, tu, batch, lengths)
+    B, width = batch.shape
+    bytes_ms = (walked + 5 * B) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 4 * walked / PEAK_INT32_OPS_PER_S * 1e3
+    staged_ms = (B * width + 5 * B) / PEAK_BYTES_PER_S * 1e3
+    bound = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                            "operations")
+    return bound + (staged_ms, walked)
+
+
+def utf8_cases(np, assemble, raw_lines: list) -> list:
+    """(case, batch, lengths, view): config 2's raw lines at [4096, 512]
+    (the main path's shape) and [65536, 512], and the edge cases."""
+    cases = []
+    for B in (UTF8_B, 65536):
+        staged = assemble(raw_lines[:B], L)
+        cases.append(("config2_lines", staged.batch, staged.lengths, None))
+    cases.append(("L0", np.zeros((300, 0), np.uint8),
+                  np.array([0, -1, -2] * 100, np.int32), None))
+    cases.append(("negative_lengths", np.full((4096, L), 0x41, np.uint8),
+                  np.array([-1, -2] * 2048, np.int32), None))
+    cases.append(("full_ascii", np.full((4096, L), 0x61, np.uint8),
+                  np.full(4096, L, np.int32), None))
+    bad = np.full((4096, L), 0x61, np.uint8)
+    bad[:, 0] = np.array([0x80, 0xC0, 0xFF, 0xF5] * 1024, np.uint8)
+    cases.append(("invalid_at_byte_0", bad, np.full(4096, L, np.int32),
+                  None))
+    staged = assemble(raw_lines[:4096], L)
+    cases.append(("unaligned", staged.batch, staged.lengths, "unaligned"))
+    return cases
+
+
+def phase_utf8_kernels(np, torch, tu, assemble, raw_lines: list) -> list:
+    """K11 against ``utf8_validate_plain`` on the card, verdict for
+    verdict: config 2's raw lines at [4096, 512] and [65536, 512], L =
+    0, every row at -1 / -2, full 512-byte ASCII rows (no early exit),
+    rows invalid at byte 0, an unaligned view; with CUDA-event times of
+    both."""
+    dev = torch.device("cuda")
+    v = tu.Utf8Validator(dev)
+    results = []
+    for case, batch, lengths, view in utf8_cases(np, assemble, raw_lines):
+        b = torch.from_numpy(batch).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        if view == "unaligned":
+            flat = torch.zeros(1 + b.numel(), dtype=torch.uint8, device=dev)
+            b = flat[1:].view(b.shape)
+            b.copy_(torch.from_numpy(batch))
+        before = tu.utf8_validate.launches
+        got = tu.utf8_validate(v.class_map, v.trans, b, ln)
+        launches = tu.utf8_validate.launches - before
+        plain = tu.utf8_validate_plain(v.class_map, v.trans, b, ln)
+        torch.cuda.synchronize()
+        mism = int((got != plain).sum())
+        B, width = batch.shape
+        bms, by, staged_ms, walked = utf8_bound_ms(np, tu, batch, lengths)
+        res = {"case": case, "shape": [B, width], "launches": launches,
+               "mismatches": mism,
+               "max_abs_err": int((got.int() - plain.int()).abs().max()),
+               "valid_rows": int(got.sum()), "bytes_walked": walked,
+               "bound_ms": bms, "bound_by": by,
+               "bound_staged_bytes_ms": staged_ms}
+        if case in ("config2_lines", "full_ascii"):
+            iters = 20 if B >= 65536 else 100
+            call = lambda: tu.utf8_validate(v.class_map, v.trans, b, ln)
+            res["ms"] = cuda_ms(torch, call, iters)
+            res["host_enqueue_ms"] = host_ms(torch, call, iters)
+            res["plain_ms"] = cuda_ms(torch, lambda: tu.utf8_validate_plain(
+                v.class_map, v.trans, b, ln), 2)
+        else:
+            res.update(ms=None, host_enqueue_ms=None, plain_ms=None)
+        log("utf8-vs-plain: " + json.dumps(res))
+        if mism or launches != 1:
+            raise SystemExit(f"utf8_validate on {case} {[B, width]}: {mism} "
+                             f"rows differ from plain, {launches} launches")
+        want = {"negative_lengths": 0, "invalid_at_byte_0": 0,
+                "full_ascii": B}.get(case)
+        if want is not None and res["valid_rows"] != want:
+            raise SystemExit(f"utf8_validate on {case}: {res['valid_rows']} "
+                             f"valid rows, expected {want}")
+        if case == "config2_lines" and not 0 < res["valid_rows"] < B:
+            raise SystemExit(f"degenerate verdicts on {case}: {res}")
+        results.append(res)
+    return results
+
+
+def strict_utf8(line: bytes) -> bool:
+    try:
+        line.decode("utf-8")
+        return True
+    except UnicodeDecodeError:
+        return False
+
+
+def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
+                  card: str) -> dict:
+    """Config 2 on cuda and cpu over ``data`` (the NDJSON file), against
+    the Python fold; then K11 through ``Utf8Validator("cuda")`` over the
+    file's raw lines, staged [4096, 512], against plain and strict
+    ``bytes.decode``."""
+    import tempfile
+
+    raw = data.split(b"\n")[:-1]  # the lines' bytes before in_tail decodes
+    texts = tail_texts(data)
+    want = config2_fold(texts)
+    sizes = tail_append_sizes(data)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "utf8_corpus.ndjson")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        gpu = run_config2(flb, "cuda", path, "json")
+        cpu = run_config2(flb, "cpu", path, "json")
+    got, ref = (parsed_records(decode_events, r["chunks"]) for r in (gpu, cpu))
+    # the K11 path: 64 launches of [4096, 512] over the raw lines
+    v = tu.Utf8Validator("cuda")
+    tu.utf8_validate.launches = 0
+    t0 = time.perf_counter()
+    verdicts, staged_all = [], []
+    for off in range(0, len(raw), UTF8_B):
+        staged = assemble(raw[off:off + UTF8_B], L)
+        verdicts.append(v.validate(staged.batch, staged.lengths))
+        staged_all.append(staged)
+    k11_wall = time.perf_counter() - t0
+    launches = tu.utf8_validate.launches
+    mism = 0
+    for staged, verdict in zip(staged_all, verdicts):
+        plain = tu.utf8_validate_plain(
+            v.class_map, v.trans, torch.from_numpy(staged.batch).cuda(),
+            torch.from_numpy(staged.lengths).cuda())
+        mism += int((plain.cpu().numpy() != verdict).sum())
+    valid = np.concatenate(verdicts)
+    overflow = [off * UTF8_B + i for off, s in enumerate(staged_all)
+                for i in s.overflow]
+    for i in overflow:  # rows past 512 B: the host oracle, as filters do
+        valid[i] = tu.validate_bytes(raw[i])
+    strict = np.array([strict_utf8(x) for x in raw])
+    res = {"lines": len(texts), "file_bytes": len(data),
+           "appends": len(sizes),
+           "records_equal_cpu": got == ref,
+           "records_equal_python_fold": got == want,
+           "parsed_times": sum(ts is not None for ts, _ in got),
+           "untouched": sum(body.startswith('{"log": ')
+                            for _, body in got),
+           "lines_per_s": len(texts) / gpu["wall"],
+           "cpu_lines_per_s": len(texts) / cpu["wall"],
+           "device_appends": len(gpu["steps"]),
+           "utf8": {"launches": launches, "expected_launches":
+                    -(-len(raw) // UTF8_B),
+                    "mismatches_vs_plain": mism,
+                    "equals_strict_decode": bool((valid == strict).all()),
+                    "invalid_lines": int((~strict).sum()),
+                    "overflow_rows": len(overflow),
+                    "lines_per_s": len(raw) / k11_wall},
+           "card": card}
+    log("config2: " + json.dumps(res))
+    failed = [k for k in ("records_equal_cpu", "records_equal_python_fold")
+              if not res[k]]
+    u = res["utf8"]
+    if (u["launches"] != u["expected_launches"] or u["mismatches_vs_plain"]
+            or not u["equals_strict_decode"] or not u["invalid_lines"]):
+        failed.append("utf8")
+    if res["device_appends"] or not res["parsed_times"]:
+        failed.append("shape")
+    if failed:
+        raise SystemExit(f"config 2 failed {failed}: {res}")
+    return res
+
+
+def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
+                   card: str) -> dict:
+    """Config 2r on cuda and cpu over an Apache access log, against the
+    Python ``re`` fold; K3 must launch once per tail append of >= 64
+    records (apache2 has > 64 states: "auto" takes the scan), K4 never.
+    K3 is then timed at one tail read, [1, 1024, 512], against plain."""
+    import tempfile
+
+    data = config2r_corpus(seed, CONFIG2R_LINES)
+    texts = tail_texts(data)
+    want = config2r_fold(texts)
+    sizes = tail_append_sizes(data)
+    device_appends = sum(n >= 64 for n in sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "access.log")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        gpu = run_config2(flb, "cuda", path, "apache2")
+        launches = {"grep_dfa": tg.grep_dfa.launches,
+                    "grep_assoc": tg.grep_assoc.launches}
+        cpu = run_config2(flb, "cpu", path, "apache2")
+    got, ref = (parsed_records(decode_events, r["chunks"]) for r in (gpu, cpu))
+    prog = gpu["program"]
+    rows = [t.encode() for t in texts[:TAIL_BUCKET]]
+    staged = assemble(rows, L)
+    b = torch.from_numpy(staged.batch[None]).cuda()
+    ln = torch.from_numpy(staged.lengths[None]).cuda()
+    k3 = prog.dispatch(b, ln)
+    tables = plain_tables(torch, tg, prog)
+    plain = plain_dispatch(torch, tg, prog, tables, b, ln)
+    torch.cuda.synchronize()
+    k3_bound, k3_by = bound_ms(torch, prog, b, ln,
+                               table_bytes_read(torch, tg, prog, b, ln))
+    res = {"lines": len(texts), "file_bytes": len(data),
+           "appends": len(sizes), "device_appends": device_appends,
+           "filter_device_appends": len(gpu["steps"]),
+           "kernel_resolved": prog.decision()["kernel_resolved"],
+           "max_states": prog.decision()["max_states"],
+           "records_equal_cpu": got == ref,
+           "records_equal_python_re": got == want,
+           "parsed": sum(not body.startswith('{"log": ')
+                         for _, body in got),
+           "parsed_times": sum(ts is not None for ts, _ in got),
+           "launches": launches,
+           "expected_launches": {"grep_dfa": device_appends,
+                                 "grep_assoc": 0},
+           "lines_per_s": len(texts) / gpu["wall"],
+           "cpu_lines_per_s": len(texts) / cpu["wall"],
+           "p50_ms": step_p50(gpu["steps"]),
+           "cpu_p50_ms": step_p50(cpu["steps"]),
+           "k3": {"shape": [1, TAIL_BUCKET, L],
+                  "mismatches": int((k3 != plain).sum()),
+                  "max_abs_err": int((k3.int() - plain.int()).abs().max()),
+                  "ms": cuda_ms(torch, lambda: prog.dispatch(b, ln), 50),
+                  "plain_ms": cuda_ms(torch, lambda: plain_dispatch(
+                      torch, tg, prog, tables, b, ln), 3),
+                  "bound_ms": k3_bound, "bound_by": k3_by},
+           "card": card}
+    res["k3_busy_share"] = (res["k3"]["ms"] * device_appends
+                            / (gpu["wall"] * 1e3))
+    log("config2r: " + json.dumps(res))
+    failed = [k for k in ("records_equal_cpu", "records_equal_python_re")
+              if not res[k]]
+    if (launches != res["expected_launches"] or device_appends == 0
+            or res["filter_device_appends"] != device_appends
+            or res["kernel_resolved"] != "scan"):
+        failed.append("launches")
+    if res["k3"]["mismatches"] or not res["parsed_times"]:
+        failed.append("k3")
+    if failed:
+        raise SystemExit(f"config 2r failed {failed}: {res}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1597,6 +2124,8 @@ def main() -> int:
     from fluentbit_tpu_torch.ops import cuda_build
     from fluentbit_tpu_torch.ops import grep as tg
     from fluentbit_tpu_torch.ops import sketch as tsk
+    from fluentbit_tpu_torch.ops import utf8 as tu
+    from fluentbit_tpu_torch.ops.batch import assemble
     from fluentbit_tpu_torch.ops.device import describe, resolve
     from fluentbit_tpu_torch.regex.dfa import compile_dfa
 
@@ -1607,7 +2136,7 @@ def main() -> int:
     # fresh build from the sources in this checkout
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    sources = ["grep_dfa", "grep_assoc", "sketch"]
+    sources = list(cuda_build.SOURCES)
     cuda_build.libraries.build(sources)
     for name in sources:
         cuda_build.libraries.load(name)
@@ -1629,6 +2158,16 @@ def main() -> int:
     assoc = phase_assoc_kernels(np, torch, tg, compile_dfa, args.seed)
     config3 = phase_config3(tg, flb, decode_events, args.seed, env["card"],
                             assoc)
+    # ~5% of config 2's times do not parse: the parser logs each one at
+    # WARNING, as the reference does; keep them off the run's stderr
+    logging.getLogger("flb.parser").setLevel(logging.ERROR)
+    ndjson = ndjson_corpus(args.seed, CONFIG2_LINES)
+    utf8 = phase_utf8_kernels(np, torch, tu, assemble,
+                              ndjson.split(b"\n")[:-1])
+    config2 = phase_config2(np, torch, tu, assemble, flb, decode_events,
+                            ndjson, env["card"])
+    config2r = phase_config2r(np, torch, tg, assemble, flb, decode_events,
+                              args.seed, env["card"])
 
     main_shape = next(v for v in variants
                       if v["program"] == "apache2" and v["shape"][1] == 4096)
@@ -1640,7 +2179,10 @@ def main() -> int:
         "fuses": ["fluentbit_tpu/ops/grep.py:314",
                   "fluentbit_tpu/ops/grep.py:343"],
         "launches": pipeline["regex"]["launches"]["grep_dfa"],
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
+        "launches_config2r": config2r["launches"]["grep_dfa"],
+        "config2r_k3": config2r["k3"],
+        "max_abs_err": max([v["max_abs_err"] for v in variants]
+                           + [config2r["k3"]["max_abs_err"]]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -1709,6 +2251,17 @@ def main() -> int:
         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
         "library_ms": None, "k3_ms": main_k4["k3_ms"],
         "shape": main_k4["shape"], "variants": assoc})
+    main_k11 = next(r for r in utf8 if r["case"] == "config2_lines"
+                    and r["shape"][0] == UTF8_B)
+    kernels["kernels"].append({
+        "name": "utf8_validate", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/utf8.cu",
+        "replaces": "fluentbit_tpu/ops/utf8.py:121",
+        "launches": config2["utf8"]["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in utf8),
+        "ms": main_k11["ms"], "plain_ms": main_k11["plain_ms"],
+        "bound_ms": main_k11["bound_ms"], "bound_by": main_k11["bound_by"],
+        "library_ms": None, "shape": main_k11["shape"], "variants": utf8})
     log(f"total_seconds: {time.perf_counter() - t_all:.1f}")
     log(env["card"])
     log(json.dumps(kernels))

@@ -4,9 +4,10 @@ The port's counterpart of ``fluentbit_tpu/core/engine.py``, trimmed to the
 decoded path: ``input_log_append`` → decode → filter chain → chunk pool,
 typed appends (``input_event_append``: metrics snapshots, no filter
 chain), hidden inputs (the emitters that log_to_metrics and flux feed),
-server inputs listening on the engine's loop, and a flush timer that
-drains the pools to the outputs, with the grace window at stop. The
-engine's ``metrics`` registry holds the flux families, and
+the named parsers (``parsers``, ``parser()``) that filter_parser and
+in_tail look up, server inputs listening on the engine's loop, and a
+flush timer that drains the pools to the outputs, with the grace window
+at stop. The engine's ``metrics`` registry holds the flux families, and
 ``_ingest_src`` names the input whose append the filter chain is running
 (flux skips its own emitter's rows by it). Storage, qos, guard,
 failpoints, the admin HTTP server, the stream processor, multiline,
@@ -26,7 +27,7 @@ import asyncio
 import logging
 import threading
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -58,6 +59,7 @@ class Engine:
         self.filters: List[FilterInstance] = []
         self.outputs: List[OutputInstance] = []
         self.metrics = MetricsRegistry()
+        self.parsers: Dict[str, Any] = {}  # named parsers (flb_parser registry)
         self._ingest_src: Optional[InputInstance] = None  # under the lock
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
@@ -102,6 +104,14 @@ class Engine:
                                   self.outputs)
         self.outputs = self.outputs + [ins]
         return ins
+
+    def parser(self, name: str, **props):
+        """Create + register a named parser (flb_parser_create)."""
+        from ..parsers import create_parser
+
+        p = create_parser(name, **props)
+        self.parsers[p.name] = p
+        return p
 
     def hidden_input(self, name: str, **props) -> InputInstance:
         """Create and initialize an internal input at once: the hidden

@@ -58,6 +58,12 @@ class FLBContext:
         for k, v in props.items():
             self._handles[ffd].set(k, v)
 
+    def parser(self, name: str, **props):
+        """Create + register a named parser (flb_parser_create / the
+        [PARSER] section's properties: Format, Regex, Time_Key,
+        Time_Format, Types, ...)."""
+        return self.engine.parser(name, **props)
+
     # -- lifecycle --
 
     def start(self) -> None:

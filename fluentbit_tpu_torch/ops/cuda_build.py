@@ -24,6 +24,10 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+#: every kernel source of ``csrc/``: K1-K3 (``grep_dfa``), K4
+#: (``grep_assoc``), K6/K7/K9/K10 (``sketch``), K11 (``utf8``)
+SOURCES = ("grep_dfa", "grep_assoc", "sketch", "utf8")
+
 #: keep the ``a``: plain sm_90 refuses wgmma/setmaxnreg in later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

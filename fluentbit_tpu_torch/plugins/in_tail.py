@@ -16,12 +16,15 @@ tail_fs_stat.c).
   mapped to dots (the reference's tag expansion)
 - ``skip_long_lines``: lines above ``buffer_max_size`` are dropped with
   a warning instead of blocking the file
+- ``parser``: each line goes through the named parser (engine
+  ``parsers``); a parsed line becomes the parsed fields, stamped with
+  the parsed time when it is non-zero, and a line the parser refuses
+  stays ``{key: line}``
 
 ``inotify_watcher`` is accepted: stat polling serves, as the reference
 falls back to it where inotify is missing, with the same records in the
-same order. ``db``, ``parser``, ``multiline.parser``,
-``unicode.encoding`` and ``generic.encoding`` are not ported yet;
-setting one raises ValueError.
+same order. ``db``, ``multiline.parser``, ``unicode.encoding`` and
+``generic.encoding`` are not ported yet; setting one raises ValueError.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..core.plugin import InputPlugin, registry
 log = logging.getLogger("flb.tail")
 
 #: properties of the reference's tail that this port does not run yet
-_NOT_PORTED = ("db", "parser", "multiline.parser", "unicode.encoding",
+_NOT_PORTED = ("db", "multiline.parser", "unicode.encoding",
                "generic.encoding")
 
 
@@ -71,6 +74,7 @@ class TailInput(InputPlugin):
         ConfigMapEntry("buffer_max_size", "str", default="32k"),
         ConfigMapEntry("skip_long_lines", "bool", default=False),
         ConfigMapEntry("rotate_wait", "time", default="5"),
+        ConfigMapEntry("parser", "str"),
     ] + [ConfigMapEntry(name, "str", desc="not ported: raises")
          for name in _NOT_PORTED]
 
@@ -84,6 +88,11 @@ class TailInput(InputPlugin):
         self._files: Dict[str, _TailFile] = {}
         self._since_scan = float("inf")  # force a scan on first collect
         self._max_line = parse_size(self.buffer_max_size)
+        self._parser = None
+        if self.parser:
+            self._parser = engine.parsers.get(self.parser)
+            if self._parser is None:
+                raise ValueError(f"tail: unknown parser {self.parser!r}")
 
     def exit(self) -> None:
         for tf in self._files.values():
@@ -210,10 +219,18 @@ class TailInput(InputPlugin):
             if len(line) > self._max_line and self.skip_long_lines:
                 log.warning("tail: dropping long line in %s", path)
                 continue
-            body = {self.key or "log": line}
+            body = None
+            ts = None
+            if self._parser is not None:
+                got = self._parser.do(line)
+                if got is not None:
+                    body, ts = got
+            if body is None:
+                body = {self.key or "log": line}
             if self.path_key:
                 body[self.path_key] = path
-            out += encode_event(body, now_event_time())
+            out += encode_event(
+                body, ts if ts not in (None, 0) else now_event_time())
             n += 1
         if n:
             engine.input_log_append(self.instance, tag, bytes(out), n)

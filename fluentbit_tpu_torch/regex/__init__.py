@@ -9,8 +9,8 @@ Two execution tiers, same semantics (ONIG_SYNTAX_RUBY, UTF-8 bytes):
   equivalent, src/flb_regex.c): DFA when possible, Python ``re`` for
   patterns with backrefs/lookaround (translated to Ruby semantics), and
   the capture tuple rewrite_tag's tag templates read
-  (``search_captures``). Named-capture extraction into a record (the
-  parser path) waits for a later slice.
+  (``search_captures``), and the named captures a regex parser turns
+  into a record (``parse_record``).
 """
 
 from __future__ import annotations
@@ -206,3 +206,13 @@ class FlbRegex:
             ordered = sorted(py.groupindex.items(), key=lambda kv: kv[1])
             return (m.group(0),) + tuple(m.group(i) for _, i in ordered)
         return (m.group(0),) + m.groups()
+
+    def parse_record(self, text) -> Optional[Dict[str, str]]:
+        """Named-capture extraction (flb_regex_parse with callback per
+        named group). Returns None when the pattern does not match."""
+        if isinstance(text, bytes):
+            text = text.decode("utf-8", "surrogateescape")
+        m = self._py().search(text)
+        if m is None:
+            return None
+        return {k: v for k, v in m.groupdict().items() if v is not None}

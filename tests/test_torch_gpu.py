@@ -7,7 +7,12 @@ config 3 append (the own-emitter re-entry adds none); ``hll_update`` (K6) and
 the flux plane's ``fused_absorb`` (K10) and ``segment_counts`` (K9)
 against ``fused_absorb_plain`` / ``segment_counts_plain``, and K10's
 launch count across a pipeline append. Registers, stacks, tables and
-counts equal exactly (integer atomics are order-free).
+counts equal exactly (integer atomics are order-free). ``utf8_validate``
+(K11) against ``utf8_validate_plain``, verdict for verdict, over random
+rows and the edge cases (L = 0, rows at -1 / -2, full ASCII rows,
+invalid first bytes, unaligned and strided views); filter_parser on
+``cuda`` against ``cpu`` for json and apache2, and K3's launches on
+config 2r (tail → parser apache2: one per append of >= 64 records).
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -19,6 +24,7 @@ dependencies:
 """
 
 import random
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +37,8 @@ from fluentbit_tpu_torch.codec.events import decode_events
 from fluentbit_tpu_torch.flux import kernels as tfk
 from fluentbit_tpu_torch.ops import grep as tg
 from fluentbit_tpu_torch.ops import sketch as tsk
+from fluentbit_tpu_torch.ops import utf8 as tu
+from fluentbit_tpu_torch.ops.batch import assemble
 from fluentbit_tpu_torch.regex.dfa import compile_dfa
 
 APACHE2 = (
@@ -519,3 +527,211 @@ def test_flux_pipeline_append_launches_the_kernel_once(cuda_device):
         assert a["key"] == b["key"] and a["count"] == b["count"]
         assert a["cols"] == b["cols"]
         assert np.array_equal(a["hlls"]["user"], b["hlls"]["user"])
+
+
+# ------------------------------------------------------------------ K11
+
+def utf8_rows(seed, B, L):
+    """Seeded [B, L] rows: valid text of 1-4 byte sequences, the same
+    with one random byte spliced in, random bytes, and every length class
+    (-1, -2, 0, L) at the front."""
+    rng = random.Random(seed)
+    vals = []
+    for i in range(B):
+        text = "".join(rng.choice("aé日🎉") for _ in range(rng.randrange(40)))
+        raw = bytearray(text.encode()[:L])
+        kind = i % 3
+        if kind == 1 and raw:
+            raw[rng.randrange(len(raw))] = rng.randrange(256)
+        elif kind == 2:
+            raw = bytearray(rng.randrange(256) for _ in range(min(L, 20)))
+        vals.append(bytes(raw))
+    for i, v in enumerate([None, b"x" * (L + 1), b"", b"a" * L][:B]):
+        vals[i] = v
+    staged = assemble(vals, L)
+    return staged.batch, staged.lengths, vals
+
+
+def utf8_both(dev, batch, lengths):
+    v = tu.Utf8Validator(dev)
+    b = batch if isinstance(batch, torch.Tensor) else \
+        torch.from_numpy(batch).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    before = tu.utf8_validate.launches
+    got = tu.utf8_validate(v.class_map, v.trans, b, ln)
+    assert tu.utf8_validate.launches - before == (1 if b.shape[0] else 0)
+    plain = tu.utf8_validate_plain(v.class_map, v.trans, b, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(1, 0), (17, 1), (300, 17), (300, 512),
+                                 (4096, 512)])
+def test_utf8_kernel_equals_plain(cuda_device, B, L):
+    batch, lengths, vals = utf8_rows(B + L, B, L)
+    got = utf8_both(cuda_device, batch, lengths)
+
+    def strict(v):
+        try:
+            v.decode("utf-8")
+            return True
+        except UnicodeDecodeError:
+            return False
+
+    want = [v is not None and len(v) <= L and strict(v) for v in vals]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tu.Utf8Validator("cpu").validate(batch, lengths))
+
+
+@pytest.mark.gpu
+def test_utf8_kernel_edge_cases(cuda_device):
+    L = 512
+    batch = np.full((64, L), ord("a"), dtype=np.uint8)  # full ASCII rows
+    lengths = np.full(64, L, dtype=np.int32)
+    batch[8:16, 0] = 0x80           # invalid at byte 0
+    batch[16:24, L - 1] = 0xE6      # a sequence cut at the row's end
+    lengths[24:32] = -1
+    lengths[32:40] = -2
+    lengths[40:48] = 0
+    batch[48:56, :3] = np.frombuffer("日".encode(), np.uint8)
+    lengths[48:56] = 2              # cut by the length: invalid
+    got = utf8_both(cuda_device, batch, lengths)
+    want = np.ones(64, dtype=bool)
+    want[8:40] = False
+    want[48:56] = False
+    np.testing.assert_array_equal(got, want)
+    # every row at -1 / -2
+    np.testing.assert_array_equal(
+        utf8_both(cuda_device, batch[:4], np.array([-1, -2, -1, -2],
+                                                   dtype=np.int32)),
+        np.zeros(4, dtype=bool))
+    # unaligned and strided views take the copy in the wrapper
+    flat = torch.zeros(1 + batch.size, dtype=torch.uint8, device=cuda_device)
+    unaligned = flat[1:].view(batch.shape)
+    unaligned.copy_(torch.from_numpy(batch))
+    np.testing.assert_array_equal(utf8_both(cuda_device, unaligned, lengths),
+                                  want)
+    wide = torch.zeros((64, 2 * L), dtype=torch.uint8, device=cuda_device)
+    wide[:, ::2] = torch.from_numpy(batch).to(cuda_device)
+    np.testing.assert_array_equal(
+        utf8_both(cuda_device, wide[:, ::2], lengths), want)
+
+
+@pytest.mark.gpu
+def test_utf8_wrapper_rejects_bad_tensors(cuda_device):
+    v = tu.Utf8Validator(cuda_device)
+    b = torch.zeros((4, 16), dtype=torch.uint8, device=cuda_device)
+    ln = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        tu.utf8_validate(v.class_map.cpu(), v.trans.cpu(), b.cpu(), ln.cpu())
+    with pytest.raises(ValueError, match="lengths"):
+        tu.utf8_validate(v.class_map, v.trans, b, ln.long())
+    with pytest.raises(ValueError, match="trans"):
+        tu.utf8_validate(v.class_map, v.trans[:10], b, ln)
+
+
+# ------------------------------------------------- filter_parser, K3
+
+PARSERS = {
+    "apache2": dict(Format="regex", Regex=APACHE2, Time_Key="time",
+                    Time_Format="%d/%b/%Y:%H:%M:%S %z",
+                    Types="code:integer size:integer"),
+    "json": dict(Format="json", Time_Key="time",
+                 Time_Format="%d/%b/%Y:%H:%M:%S %z"),
+}
+
+
+def parser_records(parser, n):
+    rng = random.Random(n)
+    recs = []
+    for i in range(n):
+        t = f"{rng.randrange(1, 29):02d}/Oct/2000:13:55:{i % 60:02d} -0700"
+        if parser == "json":
+            log = json.dumps({"time": t if i % 4 else "bad", "i": i,
+                              "msg": "é🎉" * (i % 3)}) if i % 5 else "x{"
+        else:
+            log = (f'10.0.0.{i % 256} - u{i} [{t}] "GET /p/ü{i} HTTP/1.1" '
+                   f'200 {i}' + (' "r" "' + "a" * 600 + '"' if i % 17 == 0
+                                 else "")) if i % 3 else f"junk {i}"
+        recs.append({"log": log, "i": i})
+    return recs
+
+
+def run_parser_push(device, parser, recs):
+    got = []
+    ctx = fluentbit_tpu_torch.create(device=device, flush="50ms", grace="1")
+    ctx.parser(parser, **PARSERS[parser])
+    ffd = ctx.input("lib", tag="t")
+    ctx.filter("parser", match="t", key_name="log", parser=parser,
+               reserve_data="true")
+    ctx.output("lib", match="*", callback=lambda d, t: got.extend(
+        (ev.timestamp if isinstance(ev.timestamp, float) else None,
+         json.dumps(ev.body)) for ev in decode_events(d)))
+    ctx.start()
+    before = (tg.grep_dfa.launches, tg.grep_assoc.launches)
+    try:
+        assert ctx.push(ffd, json.dumps(recs)) == len(recs)
+        ctx.flush_now()
+    finally:
+        ctx.stop()
+    return got, (tg.grep_dfa.launches - before[0],
+                 tg.grep_assoc.launches - before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parser", ["json", "apache2"])
+def test_filter_parser_cuda_equals_cpu(cuda_device, parser):
+    recs = parser_records(parser, 300)
+    gpu, launches = run_parser_push("cuda", parser, recs)
+    cpu, cpu_launches = run_parser_push("cpu", parser, recs)
+    assert gpu == cpu and len(gpu) == 300
+    assert sum(ts is not None for ts, _ in gpu) > 100
+    # apache2 (690 states) resolves to the scan: one K3 launch
+    assert launches == ((1, 0) if parser == "apache2" else (0, 0))
+    assert cpu_launches == (0, 0)
+
+
+@pytest.mark.gpu
+def test_config2r_tail_launches_k3_per_append(cuda_device, tmp_path):
+    """Config 2r: tail over an Apache log → parser apache2 → null; K3
+    launches once per tail append of >= 64 records, K4 never."""
+    lines = [r["log"].encode() for r in parser_records("apache2", 3000)]
+    data = b"\n".join(lines) + b"\n"
+    path = str(tmp_path / "access.log")
+    with open(path, "wb") as fh:
+        fh.write(data)
+    sizes, pending = [], b""
+    for off in range(0, len(data), 65536):
+        split = (pending + data[off:off + 65536]).split(b"\n")
+        pending = split.pop()
+        sizes.append(sum(1 for ln in split if ln))
+    ctx = fluentbit_tpu_torch.create(device="cuda", flush="50ms", grace="1")
+    ctx.parser("apache2", **PARSERS["apache2"])
+    ctx.input("tail", tag="access", path=path, read_from_head="true")
+    ctx.filter("parser", match="access", key_name="log", parser="apache2",
+               reserve_data="true")
+    ctx.output("null", match="*")
+    tail = ctx.engine.inputs[0].plugin
+    before = (tg.grep_dfa.launches, tg.grep_assoc.launches)
+    ctx.start()
+    try:
+        deadline = time.time() + 60
+        while True:
+            tf = tail._files.get(path)
+            if tf is not None and tf.offset == len(data) and not tf.pending:
+                break
+            assert time.time() < deadline
+            time.sleep(0.01)
+        ctx.flush_now()
+    finally:
+        ctx.stop()
+    f = ctx.engine.filters[0].plugin
+    assert f._prefilter.decision()["kernel_resolved"] == "scan"
+    device_appends = sum(n >= 64 for n in sizes)
+    assert device_appends >= 2
+    assert len(f.step_seconds) == device_appends
+    assert (tg.grep_dfa.launches - before[0],
+            tg.grep_assoc.launches - before[1]) == (device_appends, 0)

@@ -36,20 +36,26 @@ def wait_for(cond, what, timeout=10.0):
         time.sleep(TICK)
 
 
-def run_tail(create, decode, root, setup, steps, props, **create_kw):
+def run_tail(create, decode, root, setup, steps, props, parsers=None,
+             times=False, **create_kw):
     """Fresh ``root``, ``setup(root)``, a tail over it → lib output; each
-    step is (action, records expected after it). Returns [(tag, body)]."""
+    step is (action, records expected after it). ``parsers`` maps names
+    to [PARSER] properties to register first. Returns [(tag, body)], or
+    [(tag, body, time)] with ``times``."""
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     setup(root)
     got = []
     ctx = create(flush="20ms", grace="1", **create_kw)
+    for name, pprops in (parsers or {}).items():
+        ctx.parser(name, **pprops)
     ffd = ctx.input("tail", **{k: v.format(root=root)
                                for k, v in props.items()})
     tail = ctx._handles[ffd].plugin
     tail.collect_interval = TICK
     ctx.output("lib", match="*", callback=lambda d, t: got.extend(
-        (t, ev.body) for ev in decode(d)))
+        (t, ev.body, ev.timestamp) if times else (t, ev.body)
+        for ev in decode(d)))
     ctx.start()
     try:
         for action, n in steps:
@@ -154,7 +160,43 @@ def test_invalid_utf8_is_replaced(tmp_path):
                    ("t", {"log": "fine"})]
 
 
+PARSERS = {
+    "json": dict(Format="json", Time_Key="time",
+                 Time_Format="%d/%b/%Y:%H:%M:%S %z"),
+    "kv": dict(Format="regex", Regex=r"^(?<k>[a-z]+)=(?<v>\d+) (?<t>.*)$",
+               Time_Key="t", Time_Format="%Y-%m-%d %H:%M:%S",
+               Types="v:integer"),
+}
+PARSED_LINES = (
+    b'{"time": "10/Oct/2000:13:55:36 -0700", "a": "\xc3\xa9"}\n'
+    b'{"time": "bad", "b": [1, 2.5]}\n'
+    b'not json\n[1, 2]\n{"c": null}\r\n'
+    b'x=1 2024-01-02 03:04:05\nx=y 2024-01-02 03:04:05\ny=7 nope\n')
+
+
+@pytest.mark.parametrize("parser", sorted(PARSERS))
+def test_parser_option_equals_reference(tmp_path, parser):
+    """``parser``: parsed lines become the parsed fields stamped with the
+    parsed time; refused lines stay ``{log: line}``."""
+    root = str(tmp_path / "logs")
+    args = (root, lambda r: write(f"{r}/a.log", PARSED_LINES), [(None, 8)],
+            {"path": "{root}/a.log", "tag": "t", "read_from_head": "true",
+             "parser": parser})
+    ref = run_tail(fluentbit_tpu.create, jax_decode_events, *args,
+                   parsers=PARSERS, times=True)
+    got = run_tail(fluentbit_tpu_torch.create, decode_events, *args,
+                   parsers=PARSERS, times=True, device="cpu")
+    assert [(t, b) for t, b, _ in got] == [(t, b) for t, b, _ in ref]
+    stamped = [(i, ts) for i, (_, _, ts) in enumerate(got)
+               if isinstance(ts, float)]
+    assert stamped == [(i, ts) for i, (_, _, ts) in enumerate(ref)
+                       if isinstance(ts, float)]
+    assert len(stamped) == 1
+    assert sum("log" in b for _, b, _ in got) == (6 if parser == "kv" else 5)
+
+
 @pytest.mark.parametrize("prop,value", [
+    # "parser" is ported: a name no parser was registered under raises
     ("db", "tail.db"), ("parser", "json"), ("multiline.parser", "docker"),
     ("unicode.encoding", "UTF-16LE"), ("generic.encoding", "ShiftJIS")])
 def test_left_out_properties_raise(tmp_path, prop, value):
