@@ -9,9 +9,10 @@ Phases (any failure exits non-zero):
 
 1. environment: torch/CUDA/nvcc/triton versions, the card's name and power
    limit;
-2. build: every kernel of ``fluentbit_tpu_torch/csrc`` (``grep_dfa``,
-   ``grep_assoc``, ``sketch``, ``utf8``), one ``nvcc`` each, started
-   together, with ptxas' report;
+2. build: every library of ``fluentbit_tpu_torch/csrc`` (the kernels
+   ``grep_dfa``, ``grep_assoc``, ``sketch``, ``utf8`` with ``nvcc``, and
+   the host codec ``codec_host`` with ``g++``), one compiler each,
+   started together, with ptxas' report;
 3. kernel against plain: the ``grep_dfa`` kernel against its plain torch
    version on the card, bool for bool, on three programs (apache2 k=3, an
    even-k literal set, a mixed-k 3-rule set) at [R, 65536, 512] and the
@@ -21,8 +22,28 @@ Phases (any failure exits non-zero):
    ``fluentbit_tpu_torch.create(device="cuda")``, then again with
    an Exclude rule in front; each run's output bytes must equal the same
    pipeline on ``device="cpu"``, the kept records must equal a Python
-   ``re`` filter over the input, and the kernel's launch count must show
-   every append of >= 32 records went through it;
+   ``re`` filter over the input, the kernel's launch count must show
+   every append of >= 32 records went through it, and on both devices
+   every such append must have taken the raw chunk path (the filter's
+   raw record count, and no append through the decoded path's device
+   match);
+4b. pipeline: config 1 on pre-encoded msgpack chunks handed straight to
+   ``engine.input_log_append`` (the form in_forward delivers): the same
+   64 appends as chunks of 4096 records, then one chunk of 65,536 (16
+   segments, double-buffered), regex and regex + Exclude, on cuda and
+   cpu: bytes equal between the devices and to Python ``re``, one launch
+   per segment and k-group, lines/s and the p50 raw steps (extract,
+   kernel, the overflow rows' host re-check, compact) per append;
+4c. K5, the sharded dispatch: ``dispatch_mesh`` / ``match_mesh`` over
+   ``Mesh((cuda:0,) * n)``, n in {1, 2, 8}, for apache2 and apache2 +
+   Exclude (batch variant, two children) and config 3's 8 rules (rules
+   variant, ``FBTPU_MESH_RULE_SHARD_R=2``) at [R, 4096, 512]: masks and
+   counts equal to the unsharded kernel, the plain version and
+   ``mask.sum``, with CUDA-event times beside the unsharded kernel's and
+   n times one shard's; the grep filter's mesh staging branch over the
+   65,536-record chunk against its unsharded branch (K5's main path: its
+   shard launches counted from 0); and K3's and K4's times with and
+   without the counts epilogue;
 5. sketch kernels against plain: ``hll_update`` (p = 14, 10) and
    ``cms_update`` (4 x 16384 int32, 4 x 512 int64, 4 x 16384 int32 with
    weights) against their plain torch versions on the card at the main
@@ -427,7 +448,9 @@ def make_appends(seed: int, n_appends: int, n_records: int) -> list:
     return appends
 
 
-def run_pipeline(flb, device: str, appends: list, exclude: bool) -> tuple:
+def config1_ctx(flb, device: str, exclude: bool) -> tuple:
+    """Config 1's context: lib input → grep (the Exclude rule first, when
+    asked) → lib output collecting the bytes."""
     out = []
     ctx = flb.create(device=device, flush="50ms", grace="2")
     in_ffd = ctx.input("lib", tag="bench.apache")
@@ -436,6 +459,12 @@ def run_pipeline(flb, device: str, appends: list, exclude: bool) -> tuple:
         ctx.set(f, exclude="log " + EXCLUDE)
     ctx.set(f, regex="log " + APACHE2)
     ctx.output("lib", match="*", callback=lambda data, tag: out.append(data))
+    return ctx, in_ffd, out
+
+
+def run_pipeline(flb, device: str, appends: list, exclude: bool) -> tuple:
+    """Config 1 through ``ctx.push`` (JSON, as a lib user pushes)."""
+    ctx, in_ffd, out = config1_ctx(flb, device, exclude)
     ctx.start()
     t0 = time.perf_counter()
     try:
@@ -445,8 +474,34 @@ def run_pipeline(flb, device: str, appends: list, exclude: bool) -> tuple:
         wall = time.perf_counter() - t0
     finally:
         ctx.stop()
-    grep = ctx.engine.filters[0].plugin
-    return b"".join(out), wall, list(grep.match_seconds), grep._program
+    return b"".join(out), wall, ctx.engine.filters[0].plugin
+
+
+def run_chunks(flb, device: str, chunks: list, exclude: bool) -> tuple:
+    """Config 1 on pre-encoded msgpack chunks handed straight to
+    ``input_log_append``, the form in_forward delivers."""
+    ctx, _in_ffd, out = config1_ctx(flb, device, exclude)
+    ctx.start()
+    ins = ctx.engine.inputs[0]
+    t0 = time.perf_counter()
+    try:
+        for data, n in chunks:
+            ctx.engine.input_log_append(ins, "bench.apache", data, n)
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.stop()
+    return b"".join(out), wall, ctx.engine.filters[0].plugin
+
+
+RAW_STEPS = ("extract", "kernel", "overflow", "compact")
+
+
+def raw_p50(grep) -> dict:
+    """p50 ms of each raw step over the filter's raw appends."""
+    steps = list(grep.raw_step_seconds)
+    return {f"{name}_ms": statistics.median(s[i] for s in steps) * 1e3
+            for i, name in enumerate(RAW_STEPS)} if steps else {}
 
 
 def expected_bodies(appends: list, exclude: bool) -> list:
@@ -473,32 +528,51 @@ def launches_per_dispatch(prog) -> dict:
     return count
 
 
-def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
-    appends = make_appends(seed, APPENDS, RECORDS)
+def raw_route(grep, sizes: list) -> dict:
+    """What shows that config 1 took the raw chunk path: the filter's
+    raw record count against the records of every append (of ``sizes``
+    records each) of at least ``tpu_batch_records``, and the decoded
+    path's device match unused."""
+    raw_records = sum(n for n in sizes if n >= grep.tpu_batch_records)
+    return {"raw_records": grep.raw_timings["records"],
+            "expected_raw_records": raw_records,
+            "decoded_device_appends": len(grep.match_seconds),
+            "raw": (grep.raw_timings["records"] == raw_records > 0
+                    and not grep.match_seconds)}
+
+
+def phase_pipeline(tg, flb, decode_events, appends: list, card: str) -> dict:
+    """Config 1 through ``ctx.push``: the appends of 4096 records take
+    the raw chunk path (one segment each) on both devices."""
     n_records = APPENDS * RECORDS
     device_appends = sum(len(r) >= 32 for r, _ in appends)
     report = {}
     for exclude in (False, True):
         label = "regex+exclude" if exclude else "regex"
         tg.grep_dfa.launches = tg.grep_assoc.launches = 0
-        got, wall, match_s, prog = run_pipeline(flb, "cuda", appends, exclude)
+        got, wall, grep = run_pipeline(flb, "cuda", appends, exclude)
         # apache2 (690 states) takes the scan; the Exclude rule (16
         # states) resolves to K4 on the card, as the reference's "auto"
         launches = {"grep_dfa": tg.grep_dfa.launches,
                     "grep_assoc": tg.grep_assoc.launches}
+        prog = grep._program
         expected = {name: device_appends * n for name, n in
                     launches_per_dispatch(prog).items()}
-        ref, cpu_wall, _, _ = run_pipeline(flb, "cpu", appends, exclude)
+        ref, cpu_wall, cpu_grep = run_pipeline(flb, "cpu", appends, exclude)
         bodies = [ev.body for ev in decode_events(got)]
         want = expected_bodies(appends, exclude)
+        sizes = [len(r) for r, _ in appends]
+        route, cpu_route = raw_route(grep, sizes), raw_route(cpu_grep, sizes)
         res = {"rules": label, "records": n_records, "appends": len(appends),
                "kept": len(bodies), "bytes_equal_cpu": got == ref,
                "kept_equals_python_re": bodies == want,
                "kernel_resolved": prog.decision()["kernel_resolved"],
                "launches": launches, "expected_launches": expected,
+               "route": route, "cpu_route": cpu_route,
                "lines_per_s": n_records / wall,
-               "p50_append_match_ms": statistics.median(match_s) * 1e3,
-               "cpu_lines_per_s": n_records / cpu_wall, "card": card}
+               "p50_append_raw": raw_p50(grep),
+               "cpu_lines_per_s": n_records / cpu_wall,
+               "cpu_p50_append_raw": raw_p50(cpu_grep), "card": card}
         log("pipeline: " + json.dumps(res))
         if not res["bytes_equal_cpu"]:
             raise SystemExit(f"{label}: cuda output bytes differ from cpu")
@@ -508,8 +582,259 @@ def phase_pipeline(tg, flb, decode_events, seed: int, card: str) -> dict:
         if launches != expected or launches["grep_dfa"] == 0:
             raise SystemExit(f"{label}: {launches} kernel launches, expected "
                              f"{expected}")
+        if not (route["raw"] and cpu_route["raw"]):
+            raise SystemExit(f"{label}: not the raw chunk path: {route} "
+                             f"{cpu_route}")
         report[label] = res
     return report
+
+
+def encode_chunks(encode_event, EventTime, appends: list) -> list:
+    """Each append's records as one msgpack chunk: (bytes, records)."""
+    return [(b"".join(encode_event(body, EventTime.from_float(ts))
+                      for ts, body in recs), len(recs))
+            for recs, _text in appends]
+
+
+def phase_raw_chunks(tg, flb, decode_events, chunks: list, appends: list,
+                     card: str) -> dict:
+    """Config 1 on pre-encoded chunks: the 64 chunks of 4096 records,
+    then one chunk of 65,536 (the first 16 again, concatenated: 16
+    segments, double-buffered), handed to ``input_log_append`` on cuda
+    and cpu; output bytes against cpu and against Python ``re``."""
+    big = (b"".join(c for c, _ in chunks[:16]),
+           sum(n for _, n in chunks[:16]))
+    runs = chunks + [big]
+    all_appends = appends + appends[:16]
+    n_records = sum(n for _, n in runs)
+    segments = sum(-(-n // RECORDS) for _, n in runs)
+    report = {}
+    for exclude in (False, True):
+        label = "regex+exclude" if exclude else "regex"
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        got, wall, grep = run_chunks(flb, "cuda", runs, exclude)
+        launches = {"grep_dfa": tg.grep_dfa.launches,
+                    "grep_assoc": tg.grep_assoc.launches}
+        prog = grep._program
+        per_dispatch = launches_per_dispatch(prog)
+        expected = {k: segments * v for k, v in per_dispatch.items()}
+        ref, cpu_wall, cpu_grep = run_chunks(flb, "cpu", runs, exclude)
+        bodies = [ev.body for ev in decode_events(got)]
+        want = expected_bodies(all_appends, exclude)
+        sizes = [n for _, n in runs]
+        route, cpu_route = raw_route(grep, sizes), raw_route(cpu_grep, sizes)
+        k_groups = prog.decision()["k_groups"]
+        total = sum(launches.values())
+        big_steps = grep.raw_step_seconds[-1]
+        res = {"rules": label, "records": n_records, "chunks": len(runs),
+               "segments": segments, "k_groups": k_groups,
+               "kept": len(bodies), "bytes_equal_cpu": got == ref,
+               "kept_equals_python_re": bodies == want,
+               "launches": launches, "expected_launches": expected,
+               "launches_per_segment": total / segments,
+               "launches_per_k_group": total / len(k_groups),
+               "route": route, "cpu_route": cpu_route,
+               "lines_per_s": n_records / wall,
+               "cpu_lines_per_s": n_records / cpu_wall,
+               "p50_append_raw": raw_p50(grep),
+               "cpu_p50_append_raw": raw_p50(cpu_grep),
+               "chunk_65536_ms": {f"{name}_ms": big_steps[i] * 1e3
+                                  for i, name in enumerate(RAW_STEPS)},
+               "card": card}
+        log("raw_chunks: " + json.dumps(res))
+        failed = [k for k in ("bytes_equal_cpu", "kept_equals_python_re")
+                  if not res[k]]
+        if launches != expected or not route["raw"] or not cpu_route["raw"]:
+            failed.append("route")
+        if failed:
+            raise SystemExit(f"raw chunks {label} failed {failed}: {res}")
+        report[label] = res
+    return report
+
+
+def shard_call(tg, prog, mesh, variant: str, b, ln):
+    """One call of K5's first shard alone: the batch variant's first
+    B / n rows through ``dispatch``, or the rules variant's first R / n
+    rules over every row on that shard's tables."""
+    n = mesh.size
+    if variant == "batch":
+        step = b.shape[1] // n
+        bs, ls = b[:, :step].contiguous(), ln[:, :step].contiguous()
+        return lambda: prog.dispatch(bs, ls)
+    step = b.shape[0] // n
+    t = prog._mesh_tables(mesh, variant)[0]
+    bs, ls = b[:step].contiguous(), ln[:step].contiguous()
+    return lambda: tg.match_rows(t, bs, ls, prog.k, prog.kernel_resolved,
+                                 prog.max_states, prog.segment)
+
+
+def mesh_case(np, torch, tg, tmesh, compile_dfa, name: str, patterns: list,
+              want_variant: str, dev, seed: int, card: str) -> list:
+    """One program of the K5 phase over 1, 2 and 8 shards of ``dev``."""
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, dev)
+    R = len(patterns)
+    results = []
+    if patterns == CONFIG3:
+        batch, lengths = syslog_rows(np, seed + 5, R, RECORDS)
+    else:
+        batch, lengths = make_rows(np, seed + 5 + R, R, RECORDS)
+    b = torch.from_numpy(batch).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    unsharded = prog.dispatch(b, ln)
+    tables = plain_tables(torch, tg, prog)
+    plain = plain_dispatch(torch, tg, prog, tables, b, ln)
+    torch.cuda.synchronize()
+    bms, by = bound_ms(torch, prog, b, ln,
+                       table_bytes_read(torch, tg, prog, b, ln))
+    k3_ms = cuda_ms(torch, lambda: prog.dispatch(b, ln), 30)
+    plain_ms = cuda_ms(torch, lambda: plain_dispatch(
+        torch, tg, prog, tables, b, ln), 2)
+    for n in (1, 2, 8):
+        mesh = tmesh.Mesh((dev,) * n)
+        variant = prog.mesh_variant(mesh)
+        before = tg.grep_mesh.launches
+        mask, counts, B, Bp = prog.dispatch_mesh(mesh, b, ln)
+        shard_launches = tg.grep_mesh.launches - before
+        mask2, counts2, _, _ = prog.dispatch_mesh(mesh, b, ln,
+                                                  with_counts=False)
+        torch.cuda.synchronize()
+        m = mask[:, :B]
+        res = {"program": name, "shape": [R, RECORDS, L], "shards": n,
+               "variant": variant, "Bp": Bp,
+               "k_groups": prog.decision()["k_groups"],
+               "shard_launches": shard_launches,
+               "mismatches_unsharded": int((m != unsharded).sum()),
+               "mismatches_plain": int((m != plain).sum()),
+               "max_abs_err": int((m.int() - plain.int()).abs().max()),
+               "counts_equal_mask_sum": torch.equal(
+                   counts, tg.counts_plain(plain)),
+               "no_counts_equal": (counts2 is None and torch.equal(
+                   mask2[:, :B], m)),
+               "matched_rows": int(m.sum()),
+               "ms": cuda_ms(torch, lambda: prog.dispatch_mesh(
+                   mesh, b, ln, with_counts=False), 20),
+               "counts_ms": cuda_ms(torch, lambda: prog.dispatch_mesh(
+                   mesh, b, ln), 20),
+               "unsharded_ms": k3_ms,
+               "n_x_shard_ms": n * cuda_ms(torch, shard_call(
+                   tg, prog, mesh, variant, b, ln), 30),
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "card": card}
+        log("mesh: " + json.dumps(res))
+        if (res["mismatches_unsharded"] or res["mismatches_plain"]
+                or not res["counts_equal_mask_sum"]
+                or not res["no_counts_equal"] or variant != want_variant
+                or shard_launches != n * len(res["k_groups"])
+                or not 0 < res["matched_rows"] < R * RECORDS):
+            raise SystemExit(f"grep_mesh failed on {name}: {res}")
+        results.append(res)
+    return results
+
+
+def phase_mesh(np, torch, tg, tmesh, compile_dfa, flb, chunks: list,
+               seed: int, card: str) -> dict:
+    """K5 over ``Mesh((cuda:0,) * n)``, n in {1, 2, 8}: the batch variant
+    for apache2 and apache2 + Exclude (two children), the rules variant
+    for config 3's 8 rules (``FBTPU_MESH_RULE_SHARD_R=2``), at [R, 4096,
+    512]. Masks and counts must equal the unsharded kernel, the plain
+    version and ``mask.sum``; ``with_counts=False`` the same masks. Then
+    the grep filter's mesh staging branch over the 65,536-record chunk
+    (the K5 main path, counts reset before and read after) against its
+    unsharded branch, and the counts epilogue's cost on K3 and K4."""
+    dev = torch.device("cuda", 0)
+    cases = [("apache2", [APACHE2], None), ("apache2+exclude",
+                                            [APACHE2, EXCLUDE], None),
+             ("config3_rules", CONFIG3, "2")]
+    results = []
+    for name, patterns, shard_r in cases:
+        # the rule-shard count is read when the program is built (no k
+        # split) and when a mesh picks its variant
+        if shard_r:
+            os.environ["FBTPU_MESH_RULE_SHARD_R"] = shard_r
+        try:
+            results += mesh_case(np, torch, tg, tmesh, compile_dfa, name,
+                                 patterns, "rules" if shard_r else "batch",
+                                 dev, seed, card)
+        finally:
+            os.environ.pop("FBTPU_MESH_RULE_SHARD_R", None)
+
+    # the filter's mesh staging branch: the K5 main path
+
+    data, n_big = (b"".join(c for c, _ in chunks[:16]),
+                   sum(n for _, n in chunks[:16]))
+    ctx, _in_ffd, _out = config1_ctx(flb, "cuda", exclude=True)
+    grep_ins = ctx.engine.filters[0]
+    grep_ins.configure()
+    grep_ins.plugin.init(grep_ins, ctx.engine)
+    grep = grep_ins.plugin
+    mesh = tmesh.Mesh((dev,) * 8)
+    grep._device_match_raw(data, n_big, mesh=mesh)  # warm: tables, pinned
+    tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+    tg.grep_mesh.launches = 0
+    t0 = time.perf_counter()
+    m_mesh, o_mesh, n_mesh = grep._device_match_raw(data, n_big, mesh=mesh)
+    mesh_wall = time.perf_counter() - t0
+    launches = {"grep_mesh": tg.grep_mesh.launches,
+                "grep_dfa": tg.grep_dfa.launches,
+                "grep_assoc": tg.grep_assoc.launches}
+    t0 = time.perf_counter()
+    m_one, o_one, n_one = grep._device_match_raw(data, n_big)
+    one_wall = time.perf_counter() - t0
+    segments = -(-n_big // RECORDS)
+    expected = {"grep_mesh": segments * 8 * 2, "grep_dfa": segments * 8,
+                "grep_assoc": segments * 8}
+    branch = {"records": n_big, "segments": segments, "shards": 8,
+              "launches": launches, "expected_launches": expected,
+              "mask_equal_unsharded": bool(np.array_equal(m_mesh, m_one)),
+              "offsets_equal": bool(np.array_equal(o_mesh, o_one)),
+              "mesh_ms": mesh_wall * 1e3, "unsharded_ms": one_wall * 1e3,
+              "card": card}
+    log("mesh_filter_branch: " + json.dumps(branch))
+    if (launches != expected or not branch["mask_equal_unsharded"]
+            or not branch["offsets_equal"]
+            or not n_mesh == n_one == n_big):
+        raise SystemExit(f"the filter's mesh branch failed: {branch}")
+
+    # the counts epilogue's cost: K3 at config 1's [1, 4096, 512], K4 at
+    # config 3's tail read [8, 1024, 512]
+    epilogue = []
+    k3 = tg.TorchGrepProgram([compile_dfa(APACHE2)], L, dev)
+    batch, lengths = make_rows(np, seed + 11, 1, RECORDS)
+    k4 = tg.TorchGrepProgram([compile_dfa(p) for p in CONFIG3], L, dev)
+    sb, sl = syslog_rows(np, seed + 12, len(CONFIG3), TAIL_BUCKET)
+    for name, prog, bb, ll in (("grep_dfa", k3, batch, lengths),
+                               ("grep_assoc", k4, sb, sl)):
+        b = torch.from_numpy(bb).to(dev)
+        ln = torch.from_numpy(ll).to(dev)
+        parts = leaves(prog, b, ln)
+        cnts = [torch.zeros(bl.shape[0], dtype=torch.int32, device=dev)
+                for _, bl, _ in parts]
+
+        def run(with_counts, parts=parts, cnts=cnts):
+            return [tg.match_rows(lf.tables, bl, ll_, lf.k, lf.kernel_resolved,
+                                  lf.max_states, lf.segment,
+                                  counts=c if with_counts else None)
+                    for (lf, bl, ll_), c in zip(parts, cnts)]
+
+        for c in cnts:
+            c.zero_()
+        masks = run(True)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(c, tg.counts_plain(m))
+                 for c, m in zip(cnts, masks))
+        row = {"kernel": name, "shape": list(bb.shape),
+               "k_groups": prog.decision()["k_groups"],
+               "kernel_resolved": prog.decision()["kernel_resolved"],
+               "counts_equal_mask_sum": ok,
+               "ms": cuda_ms(torch, lambda: run(False), 30),
+               "counts_ms": cuda_ms(torch, lambda: run(True), 30),
+               "card": card}
+        log("counts_epilogue: " + json.dumps(row))
+        if not ok or row["kernel_resolved"] != {"grep_dfa": "scan",
+                                                "grep_assoc": "assoc"}[name]:
+            raise SystemExit(f"counts epilogue failed: {row}")
+        epilogue.append(row)
+    return {"cases": results, "filter_branch": branch, "epilogue": epilogue}
 
 
 def sketch_rows(np, seed: int, B: int):
@@ -2119,10 +2444,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fluentbit_tpu_torch as flb
-    from fluentbit_tpu_torch.codec.events import decode_events
+    from fluentbit_tpu_torch.codec.events import decode_events, encode_event
+    from fluentbit_tpu_torch.codec.msgpack import EventTime
     from fluentbit_tpu_torch.flux import kernels as tfk
     from fluentbit_tpu_torch.ops import cuda_build
     from fluentbit_tpu_torch.ops import grep as tg
+    from fluentbit_tpu_torch.ops import mesh as tmesh
     from fluentbit_tpu_torch.ops import sketch as tsk
     from fluentbit_tpu_torch.ops import utf8 as tu
     from fluentbit_tpu_torch.ops.batch import assemble
@@ -2141,14 +2468,20 @@ def main() -> int:
     for name in sources:
         cuda_build.libraries.load(name)
     build = {"seconds": time.perf_counter() - t0,
-             "kernels": {n: {"nvcc_seconds": v["seconds"],
+             "kernels": {n: {"compile_seconds": v["seconds"],
                              "ptxas": [ln for ln in v["ptxas"].splitlines()
                                        if "Used" in ln or "spill" in ln]}
                          for n, v in cuda_build.libraries.build_log.items()}}
     log("build: " + json.dumps(build))
 
     variants = phase_kernels(np, torch, tg, compile_dfa, args.seed)
-    pipeline = phase_pipeline(tg, flb, decode_events, args.seed, env["card"])
+    appends = make_appends(args.seed, APPENDS, RECORDS)
+    pipeline = phase_pipeline(tg, flb, decode_events, appends, env["card"])
+    chunks = encode_chunks(encode_event, EventTime, appends)
+    raw_chunks = phase_raw_chunks(tg, flb, decode_events, chunks, appends,
+                                  env["card"])
+    mesh = phase_mesh(np, torch, tg, tmesh, compile_dfa, flb, chunks,
+                      args.seed, env["card"])
     sketches = phase_sketch_kernels(np, torch, tsk, args.seed)
     config4 = phase_config4(np, torch, tsk, flb, args.seed, env["card"],
                             sketches)
@@ -2179,6 +2512,7 @@ def main() -> int:
         "fuses": ["fluentbit_tpu/ops/grep.py:314",
                   "fluentbit_tpu/ops/grep.py:343"],
         "launches": pipeline["regex"]["launches"]["grep_dfa"],
+        "launches_raw_chunks": raw_chunks["regex"]["launches"]["grep_dfa"],
         "launches_config2r": config2r["launches"]["grep_dfa"],
         "config2r_k3": config2r["k3"],
         "max_abs_err": max([v["max_abs_err"] for v in variants]
@@ -2251,6 +2585,25 @@ def main() -> int:
         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
         "library_ms": None, "k3_ms": main_k4["k3_ms"],
         "shape": main_k4["shape"], "variants": assoc})
+    main_k5 = next(r for r in mesh["cases"] if r["program"] == "apache2"
+                   and r["shards"] == 8)
+    kernels["kernels"].append({
+        "name": "grep_mesh", "route": "cuda",
+        "source": "fluentbit_tpu_torch/ops/grep.py",
+        "kernels": ["fluentbit_tpu_torch/csrc/grep_dfa.cu",
+                    "fluentbit_tpu_torch/csrc/grep_assoc.cu"],
+        "replaces": "fluentbit_tpu/ops/grep.py:741",
+        "fuses": ["fluentbit_tpu/ops/grep.py:509",
+                  "fluentbit_tpu/ops/grep.py:551",
+                  "fluentbit_tpu/ops/grep.py:624",
+                  "fluentbit_tpu/ops/grep.py:805"],
+        "launches": mesh["filter_branch"]["launches"]["grep_mesh"],
+        "max_abs_err": max(r["max_abs_err"] for r in mesh["cases"]),
+        "ms": main_k5["ms"], "plain_ms": main_k5["plain_ms"],
+        "bound_ms": main_k5["bound_ms"], "bound_by": main_k5["bound_by"],
+        "library_ms": None, "shape": main_k5["shape"],
+        "shards": main_k5["shards"], "counts_epilogue": mesh["epilogue"],
+        "variants": mesh["cases"]})
     main_k11 = next(r for r in utf8 if r["case"] == "config2_lines"
                     and r["shape"][0] == UTF8_B)
     kernels["kernels"].append({

@@ -1,8 +1,9 @@
 """Log event codec — Fluent Bit log event format V2.
 
-The port's own copy of ``fluentbit_tpu/codec/events.py``, pure Python only
-(the reference package's native codec is not carried over; the bytes are
-the same — tests/test_torch_codec.py).
+The port's own copy of ``fluentbit_tpu/codec/events.py``: the decoder and
+encoder are pure Python (the bytes are the reference's —
+tests/test_torch_codec.py); ``fast_count_records`` counts through the
+port's host codec (``fluentbit_tpu_torch.native``).
 
 A log event is msgpack ``[[timestamp, metadata-map], body-map]``
 (reference: include/fluent-bit/flb_log_event.h:29-62). Legacy (Forward/V1)
@@ -68,6 +69,33 @@ def decode_events(buf: bytes) -> List[LogEvent]:
         pos = end
         events.append(_to_event(obj, raw))
     return events
+
+
+def count_records(buf: bytes) -> int:
+    """Count log records by a Python decode (flb_mp_count_log_records,
+    reference src/flb_mp.c). Raises ValueError on malformed msgpack."""
+    n = 0
+    for _ in Unpacker(buf):
+        n += 1
+    return n
+
+
+def fast_count_records(buf) -> Optional[int]:
+    """Count records with the host codec, no Python-object decode. The
+    codec rejects what the Python decoder may still take (more than 64
+    levels of nesting): then the Python count decides. None when neither
+    can count it (malformed msgpack, or nesting too deep for Python)."""
+    from .. import native
+
+    if not isinstance(buf, bytes):
+        buf = bytes(buf)
+    n = native.count_records(buf)
+    if n is not None:
+        return n
+    try:
+        return count_records(buf)
+    except (ValueError, RecursionError):
+        return None
 
 
 def _to_event(obj: Any, raw: Optional[bytes] = None) -> LogEvent:

@@ -1,7 +1,9 @@
 """The engine — event loop, ingest path, dispatch, flush.
 
-The port's counterpart of ``fluentbit_tpu/core/engine.py``, trimmed to the
-decoded path: ``input_log_append`` → decode → filter chain → chunk pool,
+The port's counterpart of ``fluentbit_tpu/core/engine.py``:
+``input_log_append`` → raw chunk path (when every filter of the tag can
+take it: matching and compaction straight off the msgpack bytes, no
+decode) or decode → filter chain → chunk pool,
 typed appends (``input_event_append``: metrics snapshots, no filter
 chain), hidden inputs (the emitters that log_to_metrics and flux feed),
 the named parsers (``parsers``, ``parser()``) that filter_parser and
@@ -11,7 +13,8 @@ at stop. The engine's ``metrics`` registry holds the flux families, and
 ``_ingest_src`` names the input whose append the filter chain is running
 (flux skips its own emitter's rows by it). Storage, qos, guard,
 failpoints, the admin HTTP server, the stream processor, multiline,
-retries and the raw chunk path wait for later slices.
+retries, the raw path's batch hooks (``process_batch``) and its per-input
+parallel lock wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
@@ -32,7 +35,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..codec.chunk import Chunk
-from ..codec.events import LogEvent, decode_events, reencode_event
+from ..codec.events import (LogEvent, decode_events, fast_count_records,
+                            reencode_event)
+from .chunk_batch import RawChunk
 from .config import ServiceConfig
 from .metrics import MetricsRegistry
 from .plugin import (
@@ -232,19 +237,32 @@ class Engine:
 
     def input_log_append(self, ins: InputInstance, tag: Optional[str],
                          data: bytes, n_records: Optional[int] = None) -> int:
-        """Append encoded log events: decode, run the filter chain
-        synchronously (src/flb_input_chunk.c:3078), write the survivors
-        into the input's chunk pool. Returns the records written.
+        """Append encoded log events: run the filter chain synchronously
+        (src/flb_input_chunk.c:3078) and write the survivors into the
+        input's chunk pool. Returns the records written.
 
-        A filter that raises fails the append: the device path has no
-        silent pass-through (the reference package logs and continues)."""
+        When every filter whose route matches the tag ``can_filter_raw``
+        (the reference's ``raw_ok`` gate, fluentbit_tpu/core/engine.py:
+        1080-1122, with no processors, stream processor, conditional
+        routing or trace in the port), the chain runs on the raw bytes.
+        A filter that declines (returns None) sends the append down the
+        decoded path: decode, filter chain, re-encode of modified events.
+
+        A filter that raises fails the append: neither path has a silent
+        pass-through (the reference package logs and continues)."""
         tag = tag or ins.tag or ins.plugin.name
+        matching = [f for f in self.filters if f.route.matches(tag)]
         with self._ingest_lock:
             # saved and restored: an emitter re-enters this method from
             # inside the chain, and the outer chain's remaining filters
             # must see the outer append's source again
             prev_src, self._ingest_src = self._ingest_src, ins
             try:
+                if all(f.plugin.can_filter_raw() for f in matching):
+                    got = self._ingest_raw(ins, tag, data, matching,
+                                           n_records)
+                    if got is not None:
+                        return got
                 events = self._run_filters(decode_events(data), tag)
             finally:
                 self._ingest_src = prev_src
@@ -255,6 +273,36 @@ class Engine:
                 for ev in events)
             ins.pool.append(tag, payload, len(events))
             return len(events)
+
+    def _ingest_raw(self, ins: InputInstance, tag: str, data: bytes,
+                    matching: List[FilterInstance],
+                    n_records: Optional[int]) -> Optional[int]:
+        """The raw chain (the reference's ``_ingest_raw``, :1312): each
+        filter's ``filter_raw`` takes the bytes the previous one kept,
+        the record count found by one is the next one's hint, and the
+        survivors go to the pool as they are. Returns the records
+        written, or None when a filter declines or the bytes cannot be
+        counted: grep filters commit nothing, so the decoded path then
+        re-runs the whole chain from the input bytes."""
+        chunk = RawChunk(data, tag, n_records, src=ins, engine=self)
+        for f in matching:
+            got = f.plugin.filter_raw(chunk.data, tag, self,
+                                      n_records=chunk.n)
+            if got is None:
+                return None
+            n_kept, out, _n_in = got
+            chunk.replace(out, n_kept)
+            if n_kept == 0:
+                return 0
+        n = chunk.n
+        if n is None:  # no filter matched: count the records natively
+            n = fast_count_records(chunk.data)
+            if n is None:
+                return None
+        if n == 0:
+            return 0
+        ins.pool.append(tag, chunk.as_bytes(), n)
+        return n
 
     def input_event_append(self, ins: InputInstance, tag: Optional[str],
                            data: bytes, event_type: str,

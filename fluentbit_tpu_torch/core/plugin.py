@@ -70,10 +70,22 @@ class InputPlugin(Plugin):
 class FilterPlugin(Plugin):
     """Filter vtable: ``filter(events, tag, engine) -> (FilterResult,
     events')`` over the decoded events of one append. Untouched records
-    keep their raw spans, so the chunk writer re-emits them verbatim."""
+    keep their raw spans, so the chunk writer re-emits them verbatim.
+
+    A filter that can work on the raw chunk bytes says so with
+    ``can_filter_raw()`` and implements ``filter_raw(data, tag, engine,
+    n_records) -> (n_kept, data', n_records) | None`` (None declines to
+    the decoded path). ``can_process_batch()`` names the reference's
+    stateful batch hook, which no port filter has yet."""
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         return (FilterResult.NOTOUCH, events)
+
+    def can_process_batch(self) -> bool:
+        return False
+
+    def can_filter_raw(self) -> bool:
+        return False
 
 
 class OutputPlugin(Plugin):

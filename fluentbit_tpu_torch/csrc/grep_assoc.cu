@@ -32,7 +32,14 @@
 // the chain F_G2[...F_1[start]] only visits real states, so leaving them
 // out is exact and keeps every load inside the rule's row. A row with a
 // negative length has no match whatever its bytes: its block writes 0 and
-// returns at once.
+// returns at once. Bytes past a row's length are never staged (the raw
+// path leaves them unzeroed).
+//
+// Counts epilogue (K5's per-rule totals, counts[r] = sum_b mask[r, b]):
+// when `counts` is not null, thread 0 adds its block's verdict with one
+// atomicAdd, only for a matched row. A block holds one row's verdict, so
+// there is no warp of verdicts to aggregate here; the adds of one rule
+// meet at one address, at most B of them per launch.
 //
 // What bounds it on an H100: each (g, s) thread is a chain of m = 32
 // dependent gathers from trans_flat (k-stride tables of 0.1-1.4 MB per
@@ -63,7 +70,8 @@ __global__ void grep_assoc_kernel(const uint8_t* __restrict__ batch,
                                   const int32_t* __restrict__ eol_arr,
                                   const int32_t* __restrict__ start_arr,
                                   const int32_t* __restrict__ n_states_arr,
-                                  uint8_t* __restrict__ out, int B, int L,
+                                  uint8_t* __restrict__ out,
+                                  int32_t* __restrict__ counts, int B, int L,
                                   int k, long long max_flat, int S, int m,
                                   int Lk, int G2, int vec16) {
   // layout (the wrapper's assoc_launch_shape sizes it): row bytes
@@ -143,7 +151,11 @@ __global__ void grep_assoc_kernel(const uint8_t* __restrict__ batch,
     fa = fb;
     fb = t;
   }
-  if (threadIdx.x == 0) out[rowi] = fa[start_arr[r]] == kAcc ? 1 : 0;
+  if (threadIdx.x == 0) {
+    const bool hit = fa[start_arr[r]] == kAcc;
+    out[rowi] = hit ? 1 : 0;
+    if (hit && counts != nullptr) atomicAdd(counts + r, 1);
+  }
 }
 
 }  // namespace
@@ -151,7 +163,8 @@ __global__ void grep_assoc_kernel(const uint8_t* __restrict__ batch,
 // Plain-C launcher (bound with ctypes). Pointers are device pointers of
 // contiguous tensors: batch u8 [R, B, L], lengths i32 [R, B], trans_flat
 // i32 [R, max_flat], class_maps i32 [R, 257], C/Ck/eol/starts/n_states
-// i32 [R], out bool [R, B]. S is the program's largest state count, m the
+// i32 [R], out bool [R, B], counts i32 [R] or null (when set, each rule's
+// matched rows are added to it). S is the program's largest state count, m the
 // segment length, Lk the super-symbols of a row, G2 the segments rounded
 // up to a power of two, `threads` the block size and `smem` the dynamic
 // shared bytes, all computed by the wrapper. Launches one block per
@@ -162,8 +175,9 @@ extern "C" int grep_assoc_launch(const void* batch, const void* lengths,
                                  const void* class_maps, const void* c_arr,
                                  const void* ck_arr, const void* eol_arr,
                                  const void* start_arr,
-                                 const void* n_states_arr, void* out, int R,
-                                 int B, int L, int k, long long max_flat,
+                                 const void* n_states_arr, void* out,
+                                 void* counts, int R, int B, int L, int k,
+                                 long long max_flat,
                                  int S, int m, int Lk, int G2, int threads,
                                  int smem, int vec16, void* stream) {
   if (R <= 0 || B <= 0) return 0;
@@ -183,6 +197,6 @@ extern "C" int grep_assoc_launch(const void* batch, const void* lengths,
       static_cast<const int32_t*>(eol_arr),
       static_cast<const int32_t*>(start_arr),
       static_cast<const int32_t*>(n_states_arr), static_cast<uint8_t*>(out),
-      B, L, k, max_flat, S, m, Lk, G2, vec16);
+      static_cast<int32_t*>(counts), B, L, k, max_flat, S, m, Lk, G2, vec16);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,9 @@
 // memory; positions >= lengths[r, b] take the EOL class), packs k classes
 // at radix C[r] into one super-symbol and steps
 //   state = trans_flat[r, state * Ck[r] + sym].
-// No [R, B, Lk] symbol array exists in device memory. Even-k programs form
+// Bytes past a row's length are never read as data (they may be anything:
+// the raw path stages rows without zeroing them). No [R, B, Lk] symbol
+// array exists in device memory. Even-k programs form
 // their symbols from the per-byte class map too: K2's pair table is only a
 // faster route to the same super-symbols, so the symbols are equal by
 // construction.
@@ -23,6 +25,12 @@
 // at least one full EOL super-step follows the last byte (patterns ending
 // in `$` reach ACC only through the EOL class). It does not stop early at
 // the row's length; every row walks Lk = (L + extra) / k super-steps.
+//
+// Counts epilogue (K5's per-rule totals, the reference's
+//   counts[r] = sum_b mask[r, b]   at fluentbit_tpu/ops/grep.py:679-691):
+// when `counts` is not null, each warp ballots its 32 verdicts (all of one
+// rule: a block's rows share blockIdx.y) and its first lane adds the
+// popcount with one atomicAdd. No second pass over the mask.
 //
 // What bounds it on an H100: each row is a chain of Lk dependent gathers
 // from trans_flat (1.41 MB for the apache2 rule, k = 3, Lk = 172 at
@@ -59,26 +67,14 @@ __device__ __forceinline__ void feed(Walk& w, int cls, int C, int k, int Ck,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-grep_dfa_kernel(const uint8_t* __restrict__ batch,
-                const int32_t* __restrict__ lengths,
-                const int32_t* __restrict__ trans_flat,
-                const int32_t* __restrict__ class_maps,
-                const int32_t* __restrict__ c_arr,
-                const int32_t* __restrict__ ck_arr,
-                const int32_t* __restrict__ eol_arr,
-                const int32_t* __restrict__ start_arr,
-                uint8_t* __restrict__ out,
-                int B, int L, int k, long long max_flat, int vec16) {
-  __shared__ int32_t cmap[kClassMapLen];
-  const int r = blockIdx.y;
-  for (int i = threadIdx.x; i < kClassMapLen; i += blockDim.x) {
-    cmap[i] = class_maps[(long long)r * kClassMapLen + i];
-  }
-  __syncthreads();
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// Walks row (r, b), writes its verdict to out and returns it.
+__device__ __forceinline__ bool walk_row(
+    const uint8_t* __restrict__ batch, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ trans_flat, const int32_t* cmap,
+    const int32_t* __restrict__ c_arr, const int32_t* __restrict__ ck_arr,
+    const int32_t* __restrict__ eol_arr,
+    const int32_t* __restrict__ start_arr, uint8_t* __restrict__ out, int r,
+    int b, int B, int L, int k, long long max_flat, int vec16) {
   const long long row = (long long)r * B + b;
   const int len = lengths[row];
   const int C = c_arr[r];
@@ -110,7 +106,41 @@ grep_dfa_kernel(const uint8_t* __restrict__ batch,
   for (int q = 0; q < extra; ++q) {
     feed(w, eol, C, k, Ck, tf);
   }
-  out[row] = (w.state == kAcc && len >= 0) ? 1 : 0;
+  const bool hit = w.state == kAcc && len >= 0;
+  out[row] = hit ? 1 : 0;
+  return hit;
+}
+
+__global__ void __launch_bounds__(kThreads)
+grep_dfa_kernel(const uint8_t* __restrict__ batch,
+                const int32_t* __restrict__ lengths,
+                const int32_t* __restrict__ trans_flat,
+                const int32_t* __restrict__ class_maps,
+                const int32_t* __restrict__ c_arr,
+                const int32_t* __restrict__ ck_arr,
+                const int32_t* __restrict__ eol_arr,
+                const int32_t* __restrict__ start_arr,
+                uint8_t* __restrict__ out, int32_t* __restrict__ counts,
+                int B, int L, int k, long long max_flat, int vec16) {
+  __shared__ int32_t cmap[kClassMapLen];
+  const int r = blockIdx.y;
+  for (int i = threadIdx.x; i < kClassMapLen; i += blockDim.x) {
+    cmap[i] = class_maps[(long long)r * kClassMapLen + i];
+  }
+  __syncthreads();
+
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  // every thread of the block stays to the end: the counts epilogue's
+  // ballot needs all 32 lanes of each warp
+  const bool hit = b < B && walk_row(batch, lengths, trans_flat, cmap, c_arr,
+                                     ck_arr, eol_arr, start_arr, out, r, b,
+                                     B, L, k, max_flat, vec16);
+  if (counts != nullptr) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if ((threadIdx.x & 31) == 0 && ballot != 0u) {
+      atomicAdd(counts + r, __popc(ballot));
+    }
+  }
 }
 
 }  // namespace
@@ -118,14 +148,17 @@ grep_dfa_kernel(const uint8_t* __restrict__ batch,
 // Plain-C launcher (bound with ctypes). Pointers are device pointers of
 // contiguous tensors: batch u8 [R, B, L], lengths i32 [R, B], trans_flat
 // i32 [R, max_flat], class_maps i32 [R, 257], C/Ck/eol/starts i32 [R],
-// out bool [R, B]. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 on success, nothing launched when R * B == 0).
+// out bool [R, B], counts i32 [R] or null (when set, each rule's matched
+// rows are added to it). Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (0 on success, nothing launched when
+// R * B == 0).
 extern "C" int grep_dfa_launch(const void* batch, const void* lengths,
                                const void* trans_flat, const void* class_maps,
                                const void* c_arr, const void* ck_arr,
                                const void* eol_arr, const void* start_arr,
-                               void* out, int R, int B, int L, int k,
-                               long long max_flat, int vec16, void* stream) {
+                               void* out, void* counts, int R, int B, int L,
+                               int k, long long max_flat, int vec16,
+                               void* stream) {
   if (R <= 0 || B <= 0) return 0;
   dim3 grid((B + kThreads - 1) / kThreads, R);
   grep_dfa_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -134,7 +167,7 @@ extern "C" int grep_dfa_launch(const void* batch, const void* lengths,
       static_cast<const int32_t*>(class_maps),
       static_cast<const int32_t*>(c_arr), static_cast<const int32_t*>(ck_arr),
       static_cast<const int32_t*>(eol_arr),
-      static_cast<const int32_t*>(start_arr), static_cast<uint8_t*>(out), B,
-      L, k, max_flat, vec16);
+      static_cast<const int32_t*>(start_arr), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(counts), B, L, k, max_flat, vec16);
   return static_cast<int>(cudaGetLastError());
 }

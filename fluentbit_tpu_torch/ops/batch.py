@@ -4,7 +4,8 @@ The port's counterpart of ``fluentbit_tpu/ops/batch.py``: field values
 become a ``[B, L] uint8`` padded matrix + ``lengths`` i32, staged in
 numpy. ``staging`` allocates the host buffers in pinned memory when the
 batch is bound for a CUDA device, so the whole ``[R, B, L]`` matrix moves
-with one non-blocking copy.
+with one non-blocking copy. ``bucket_size`` and ``len_bucket`` round the
+row count and the row width to the reference's small sets of shapes.
 """
 
 from __future__ import annotations
@@ -36,10 +37,16 @@ class Batch:
 
 
 def staging(shape: Tuple[int, ...], dtype: torch.dtype,
-            device: torch.device) -> torch.Tensor:
-    """Zeroed host tensor for a batch bound for ``device``: pinned when
-    that is a CUDA device (a non-blocking copy needs pinned memory)."""
-    return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+            device: torch.device, fill: Optional[int] = 0) -> torch.Tensor:
+    """Host tensor for a batch bound for ``device``, filled with
+    ``fill`` (left as allocated for None): pinned when that is a CUDA
+    device (a non-blocking copy needs pinned memory). The raw path
+    stages its rows unfilled and its lengths at -1: the kernels and
+    their plain versions never read a byte past a row's length."""
+    pin = device.type == "cuda"
+    if fill is None:
+        return torch.empty(shape, dtype=dtype, pin_memory=pin)
+    return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
 
 
 def assemble(
@@ -89,13 +96,16 @@ _PAD_BYTE_BUDGET = 256 * 1024 * 1024
 
 def bucket_size(n: int, buckets: Sequence[int] = (256, 1024, 4096, 16384, 65536),
                 max_len: Optional[int] = None,
-                byte_budget: int = _PAD_BYTE_BUDGET) -> int:
+                byte_budget: int = _PAD_BYTE_BUDGET,
+                multiple_of: Optional[int] = None) -> int:
     """Round a batch size up to a small set of stable shapes (the same
     buckets as the reference package, so both stage identical shapes).
 
     ``max_len`` clamps the rounding: the padded ``bucket * max_len``
     staging matrix must stay inside ``byte_budget``; past it, the batch
-    takes minimal 64-record-granularity padding."""
+    takes minimal 64-record-granularity padding. ``multiple_of`` then
+    aligns the result to a mesh's shard count, so every shard of the
+    batch axis gets the same rows."""
     pick = None
     for b in buckets:
         if n <= b:
@@ -105,4 +115,20 @@ def bucket_size(n: int, buckets: Sequence[int] = (256, 1024, 4096, 16384, 65536)
         pick = ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
     if max_len and pick * max_len > byte_budget:
         pick = ((n + 63) // 64) * 64
+    if multiple_of and multiple_of > 1:
+        pick = ((pick + multiple_of - 1) // multiple_of) * multiple_of
     return pick
+
+
+#: scan widths the raw path stages at (the reference grep's buckets)
+_LEN_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def len_bucket(n: int, cap: int) -> int:
+    """Round the longest staged value up to a small set of row widths,
+    never past ``cap``: the DFA walk is sequential in L, so a segment of
+    short values walks a narrow batch."""
+    for b in _LEN_BUCKETS:
+        if n <= b:
+            return min(b, cap)
+    return cap

@@ -1,11 +1,12 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native libraries at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, under
-``fluentbit_tpu_torch/_build/`` (listed in ``.gitignore``). The library
-name carries a digest of the source and flags, so an edited source never
-loads a stale build. Nothing here runs at import: the first ``load`` of a
-kernel builds it.
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``),
+and the host codec ``csrc/codec_host.cpp`` with ``g++``, into a shared
+library with a plain C interface, under ``fluentbit_tpu_torch/_build/``
+(listed in ``.gitignore``). The library name carries a digest of the
+source and flags, so an edited source never loads a stale build. Nothing
+here runs at import: the first ``load`` of a library builds it, and a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -18,19 +19,24 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-#: every kernel source of ``csrc/``: K1-K3 (``grep_dfa``), K4
-#: (``grep_assoc``), K6/K7/K9/K10 (``sketch``), K11 (``utf8``)
-SOURCES = ("grep_dfa", "grep_assoc", "sketch", "utf8")
+#: every source of ``csrc/``: the kernels K1-K3 (``grep_dfa``), K4
+#: (``grep_assoc``), K6/K7/K9/K10 (``sketch``), K11 (``utf8``), and the
+#: raw chunk path's host codec (``codec_host``, C++ for the CPU)
+SOURCES = ("grep_dfa", "grep_assoc", "sketch", "utf8", "codec_host")
+
+#: the sources ``g++`` builds (``csrc/<name>.cpp``); the rest are CUDA
+HOST_SOURCES = ("codec_host",)
 
 #: keep the ``a``: plain sm_90 refuses wgmma/setmaxnreg in later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 
 def nvcc() -> str:
@@ -50,18 +56,36 @@ def nvcc() -> str:
                        "the CUDA kernels build from csrc/ at first use")
 
 
+def gxx() -> str:
+    """Path of ``g++`` on ``PATH`` (``nvcc`` needs it too)."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found on PATH; the host codec builds "
+                           "from csrc/codec_host.cpp at first use")
+    return found
+
+
+def source_path(name: str) -> Path:
+    return CSRC_DIR / (f"{name}.cpp" if name in HOST_SOURCES
+                       else f"{name}.cu")
+
+
+def _flags(name: str) -> Tuple[str, ...]:
+    return GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source_path(name).read_bytes()
+                            + " ".join(_flags(name)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 class KernelLibraries:
-    """Loaded ``csrc/<name>.cu`` libraries, each built on first use.
+    """Loaded ``csrc/`` libraries, each built on first use.
     ``build_log`` maps a name to the wall seconds (from the start of the
-    builds started with it) and the ptxas ``-v`` report of the ``nvcc``
-    run that built it in this process."""
+    builds started with it) and the compiler's report (ptxas ``-v`` for
+    a kernel) of the run that built it in this process."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -69,9 +93,9 @@ class KernelLibraries:
         self.build_log: Dict[str, dict] = {}
 
     def load(self, name: str) -> ctypes.CDLL:
-        """The loaded library of ``csrc/<name>.cu``, built first if it
-        has no current build. Raises RuntimeError with the compiler's
-        output if the build fails."""
+        """The loaded library of ``csrc/<name>``, built first if it has
+        no current build. Raises RuntimeError with the compiler's output
+        if the build fails."""
         with self._lock:
             lib = self._loaded.get(name)
             if lib is None:
@@ -81,7 +105,7 @@ class KernelLibraries:
 
     def build(self, names: Sequence[str]) -> None:
         """Build every named source that has no current build: one
-        ``nvcc`` per source, all started together."""
+        compiler process per source, all started together."""
         with self._lock:
             self._build(names)
 
@@ -91,22 +115,23 @@ class KernelLibraries:
         if not todo:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        compiler = nvcc()
         t0 = time.perf_counter()
         running = []
         for name, out in todo:
+            compiler = gxx() if name in HOST_SOURCES else nvcc()
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC_DIR / f"{name}.cu")],
+                [compiler, *_flags(name), "-o", str(tmp),
+                 str(source_path(name))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             running.append((name, out, tmp, proc))
         failed = []
         for name, out, tmp, proc in running:
             report = proc.communicate()[0]
             if proc.returncode != 0:
-                failed.append(f"CUDA kernel build of {name} failed: nvcc "
-                              f"exit {proc.returncode}\n{report}")
+                failed.append(f"build of {name} failed: "
+                              f"{os.path.basename(proc.args[0])} exit "
+                              f"{proc.returncode}\n{report}")
                 continue
             os.replace(tmp, out)
             self.build_log[name] = {"seconds": time.perf_counter() - t0,
@@ -115,5 +140,5 @@ class KernelLibraries:
             raise RuntimeError("\n".join(failed))
 
 
-#: the process's kernel libraries (one build and one load per source)
+#: the process's native libraries (one build and one load per source)
 libraries = KernelLibraries()

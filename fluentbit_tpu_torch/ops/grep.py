@@ -20,12 +20,22 @@ prepass fused with the K3 walk, through ``grep_dfa``) or
 comes from the plain torch versions below, which transcribe the
 reference's jnp programs step for step. There is no other path: a failed
 build or launch raises.
+
+K5, the sharded dispatch (``dispatch_mesh``, ``match_mesh``,
+``match_sharded``), runs the same kernels once per shard of an
+``ops.mesh.Mesh``: the batch axis (or, for large rule sets, the rule
+axis) is cut into one slice per mesh entry, each slice and its table
+shard go to that entry's device, and every shard launches before any
+result is read back. Per-rule match counts come from the kernels' counts
+epilogue (one warp-aggregated atomic add per warp of verdicts), summed
+over the shards of the batch variant (the reference's ``psum``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +44,8 @@ import torch
 from ..regex.dfa import ACC, DFA, compile_dfa, compose_supersteps
 from . import cuda_build
 from .device import ArrayLike, DeviceLike, resolve, to_device
+from .mesh import (Mesh, mesh_key, pad_to_devices, partition_rules,
+                   replicated_table_bytes, shard_leaf)
 
 # table budget for k-byte super-stepping (bytes); C^k columns * S rows * 4.
 # The reference package's TPU budget, kept so tables and decision() match
@@ -43,9 +55,19 @@ _TABLE_BUDGET = 4 * 1024 * 1024
 #: byte-pair class tables cost R * 65536 * 4 bytes; skip beyond this
 _PAIR_MAP_MAX_RULES = 32
 
-#: rule count from which the reference keeps one fused table set (its
-#: rule-sharded mesh regime) instead of splitting per-k child programs
+#: rule count from which a program keeps one fused table set (the
+#: rule-sharded mesh regime) instead of splitting per-k child programs,
+#: and from which ``mesh_variant`` shards the rule axis
+#: (``FBTPU_MESH_RULE_SHARD_R``)
 _RULE_SHARD_R = 64
+
+#: replicated table bytes (times the shard count) past which
+#: ``mesh_variant`` shards the rule axis (``FBTPU_MESH_TABLE_BUDGET``)
+_MESH_TABLE_BUDGET = 64 * 1024 * 1024
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, str(default)))
 
 #: "auto" takes the assoc kernel on an accelerator up to this many states
 _ASSOC_MAX_STATES = 64
@@ -295,6 +317,20 @@ def _check_launch(kernel: str, t: Tables, batch: torch.Tensor,
             raise ValueError(f"{kernel}: {name} must be contiguous on {dev}")
 
 
+def _counts_ptr(kernel: str, counts: Optional[torch.Tensor],
+                batch: torch.Tensor) -> Optional[int]:
+    """The device pointer of the counts epilogue's int32 [R] output
+    (None: the kernel counts nothing)."""
+    if counts is None:
+        return None
+    R = batch.shape[0]
+    if (counts.dtype != torch.int32 or tuple(counts.shape) != (R,)
+            or counts.device != batch.device or not counts.is_contiguous()):
+        raise ValueError(f"{kernel}: counts must be a contiguous int32 "
+                         f"[{R}] tensor on {batch.device}")
+    return counts.data_ptr()
+
+
 class _Kernel:
     """A ctypes-bound launcher of ``csrc/<source>.cu`` with a launch
     count (a plain integer a caller may reset)."""
@@ -328,15 +364,19 @@ class _Kernel:
 
 class GrepDfaKernel(_Kernel):
     """Wrapper of ``csrc/grep_dfa.cu`` (K1–K3): checks the tensors,
-    allocates the output, launches on the current stream."""
+    allocates the output, launches on the current stream. With
+    ``counts`` (int32 [R] on the same device) the kernel also adds each
+    rule's matched rows into it."""
 
     source, symbol = "grep_dfa", "grep_dfa_launch"
-    argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
-                 k: int) -> torch.Tensor:
+                 k: int, counts: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
         _check_launch("grep_dfa", t, batch, lengths, k, _SCAN_TABLES)
+        counts_ptr = _counts_ptr("grep_dfa", counts, batch)
         R, B, L = batch.shape
         out = torch.empty((R, B), dtype=torch.bool, device=batch.device)
         if R * B == 0:
@@ -346,8 +386,8 @@ class GrepDfaKernel(_Kernel):
                      t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
                      t["C"].data_ptr(), t["Ck"].data_ptr(),
                      t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
-                     out.data_ptr(), R, B, L, k, t["trans_flat"].shape[1],
-                     vec16)
+                     out.data_ptr(), counts_ptr, R, B, L, k,
+                     t["trans_flat"].shape[1], vec16)
         return out
 
 
@@ -369,16 +409,20 @@ def assoc_launch_shape(L: int, k: int, S: int,
 class GrepAssocKernel(_Kernel):
     """Wrapper of ``csrc/grep_assoc.cu`` (K4, the parallel-in-time walk):
     one block per (rule, row); checks the tensors, allocates the output,
-    launches on the current stream."""
+    launches on the current stream. With ``counts`` (int32 [R] on the
+    same device) the kernel also adds each rule's matched rows into
+    it."""
 
     source, symbol = "grep_assoc", "grep_assoc_launch"
-    argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                 + [ctypes.c_void_p])
 
     def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
-                 k: int, S: int, segment: int) -> torch.Tensor:
+                 k: int, S: int, segment: int,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
         _check_launch("grep_assoc", t, batch, lengths, k, tuple(_TABLE_DIMS))
+        counts_ptr = _counts_ptr("grep_assoc", counts, batch)
         R, B, L = batch.shape
         if not 1 <= S <= 65535 or segment < 2:
             raise ValueError(f"grep_assoc: unsupported S={S} or "
@@ -396,31 +440,52 @@ class GrepAssocKernel(_Kernel):
                      t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
                      t["C"].data_ptr(), t["Ck"].data_ptr(),
                      t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
-                     t["n_states"].data_ptr(), out.data_ptr(), R, B, L, k,
-                     t["trans_flat"].shape[1], S, segment, Lk, G2, threads,
-                     smem, vec16)
+                     t["n_states"].data_ptr(), out.data_ptr(), counts_ptr, R,
+                     B, L, k, t["trans_flat"].shape[1], S, segment, Lk, G2,
+                     threads, smem, vec16)
         return out
+
+
+class MeshLaunches:
+    """K5's launch count: one per shard whose kernel (K3 or K4, which
+    count their own launches too) ran on a CUDA device. A plain integer
+    a caller may reset; shards on the CPU take the plain versions and
+    count nothing."""
+
+    def __init__(self) -> None:
+        self.launches = 0
 
 
 #: the process's kernel wrappers (one build, one launch count each)
 grep_dfa = GrepDfaKernel()
 grep_assoc = GrepAssocKernel()
+grep_mesh = MeshLaunches()
+
+
+def counts_plain(mask: torch.Tensor) -> torch.Tensor:
+    """The counts epilogue's plain version: matched rows per rule."""
+    return mask.sum(1, dtype=torch.int32)
 
 
 def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor, k: int,
-               kernel: str = "scan", S: int = 0,
-               segment: int = 32) -> torch.Tensor:
+               kernel: str = "scan", S: int = 0, segment: int = 32,
+               counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``bool[R, B]`` verdicts by ``kernel`` ("scan": K3, "assoc": K4
     over S states in segments of ``segment``): the plain version for CPU
     tensors, the CUDA kernel for everything else (which raises off
-    CUDA)."""
+    CUDA). ``counts`` (int32 [R]), when given, gains each rule's matched
+    rows."""
     if batch.device.type == "cpu":
         if kernel == "assoc":
-            return match_assoc_plain(t, batch, lengths, k, S, segment)
-        return match_plain(t, batch, lengths, k)
+            mask = match_assoc_plain(t, batch, lengths, k, S, segment)
+        else:
+            mask = match_plain(t, batch, lengths, k)
+        if counts is not None:
+            counts += counts_plain(mask)
+        return mask
     if kernel == "assoc":
-        return grep_assoc(t, batch, lengths, k, S, segment)
-    return grep_dfa(t, batch, lengths, k)
+        return grep_assoc(t, batch, lengths, k, S, segment, counts=counts)
+    return grep_dfa(t, batch, lengths, k, counts=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -465,9 +530,11 @@ class TorchGrepProgram:
         self._children: Optional[List["TorchGrepProgram"]] = None
         self._child_idxs: Optional[List[torch.Tensor]] = None
         self._inv_perm: Optional[torch.Tensor] = None
+        self._mesh_cache: dict = {}
         self.tables: Optional[Tables] = None
         distinct_ks = sorted(set(self.k_by_rule))
-        if len(distinct_ks) > 1 and R < _RULE_SHARD_R:
+        min_shard_r = _env_int("FBTPU_MESH_RULE_SHARD_R", _RULE_SHARD_R)
+        if len(distinct_ks) > 1 and R < min_shard_r:
             # rules disagree on k: one homogeneous child program per k,
             # merged back to rule order with the inverse permutation;
             # each child resolves its own kernel from its own states
@@ -494,7 +561,12 @@ class TorchGrepProgram:
 
     def _set_tables(self, np_tables: Dict[str, Optional[np.ndarray]]) -> None:
         """Upload the tables this device's route reads: all of them for
-        the CPU plain versions, the kernels' (no ``pair_maps``) on CUDA."""
+        the CPU plain versions, the kernels' (no ``pair_maps``) on CUDA.
+        ``table_bytes`` is the reference's table footprint (its leaves,
+        ``pair_maps`` included where it builds them), which
+        ``mesh_variant`` weighs."""
+        self.table_bytes = replicated_table_bytes(
+            {n: a for n, a in np_tables.items() if n != "n_states"})
         cpu = self.device.type == "cpu"
         self.tables = {
             name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -550,6 +622,142 @@ class TorchGrepProgram:
         """Run the program; returns bool [R, B] (numpy)."""
         return self.dispatch(batch, lengths).cpu().numpy()
 
+    # -- K5: the sharded dispatch over a mesh --
+
+    def _merge_rule_axis(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Reassemble the children's rule rows in the caller's order."""
+        merged = torch.cat(list(parts), dim=0)
+        return merged.index_select(0, self._inv_perm.to(merged.device))
+
+    def mesh_variant(self, mesh: Mesh) -> str:
+        """Which axis of the ``[R, B, L]`` program shards across the mesh
+        (the reference's ``mesh_variant``): "batch" (B splits, the tables
+        replicate), or "rules" (R splits with its tables) once the
+        replicated tables times the shard count pass
+        ``FBTPU_MESH_TABLE_BUDGET`` or R reaches
+        ``FBTPU_MESH_RULE_SHARD_R``, and only where the shard count
+        divides R. A k-split program answers for its first child (the
+        split happens only below the rule-shard count)."""
+        if self._children is not None:
+            return self._children[0].mesh_variant(mesh)
+        R = len(self.k_by_rule)
+        if R < 2 or R % mesh.size:
+            return "batch"
+        budget = _env_int("FBTPU_MESH_TABLE_BUDGET", _MESH_TABLE_BUDGET)
+        min_r = _env_int("FBTPU_MESH_RULE_SHARD_R", _RULE_SHARD_R)
+        if self.table_bytes * mesh.size > budget or R >= min_r:
+            return "rules"
+        return "batch"
+
+    def _mesh_tables(self, mesh: Mesh, variant: str) -> List[Tables]:
+        """Each shard's tables on its device, under the variant's
+        partition rules; made once per mesh structure and variant. A
+        replicated leaf already on a shard's device is that same tensor,
+        not a copy."""
+        key = (mesh_key(mesh), variant)
+        shards = self._mesh_cache.get(key)
+        if shards is None:
+            axis = mesh.axis_names[0]
+            rules = partition_rules(f"grep-{variant}", axis)
+            shards = [{name: shard_leaf(rules, name, leaf, axis, mesh.size,
+                                        i).to(dev).contiguous()
+                       for name, leaf in self.tables.items()}
+                      for i, dev in enumerate(mesh.devices)]
+            self._mesh_cache[key] = shards
+        return shards
+
+    def _launch_shards(self, mesh: Mesh, b: torch.Tensor, ln: torch.Tensor,
+                       variant: str, with_counts: bool):
+        """K5's per-shard launches of a single-k program over rows ``b``
+        ``[R, Bp, L]`` (``Bp`` divisible by the shard count for the batch
+        variant): each shard's slice goes to its device and its kernel
+        launches there, all before any result is read. Returns the
+        merged ``(mask bool [R, Bp], counts int32 [R] | None)`` on the
+        mesh's first device, without waiting."""
+        n = mesh.size
+        axis = 1 if variant == "batch" else 0
+        step = b.shape[axis] // n
+        tables = self._mesh_tables(mesh, variant)
+        masks, counts = [], []
+        for i, (dev, t) in enumerate(zip(mesh.devices, tables)):
+            bs = to_device(b.narrow(axis, i * step, step), torch.uint8, dev)
+            ls = to_device(ln.narrow(axis, i * step, step), torch.int32, dev)
+            c = (torch.zeros(bs.shape[0], dtype=torch.int32, device=dev)
+                 if with_counts else None)
+            masks.append(match_rows(t, bs, ls, self.k, self.kernel_resolved,
+                                    self.max_states, self.segment, counts=c))
+            counts.append(c)
+            if dev.type == "cuda" and bs.shape[0] * bs.shape[1]:
+                grep_mesh.launches += 1
+        dev0 = mesh.devices[0]
+        mask = torch.cat([m.to(dev0) for m in masks], dim=axis)
+        if not with_counts:
+            return mask, None
+        if variant == "batch":  # every shard saw every rule: the psum
+            total = torch.stack([c.to(dev0) for c in counts]).sum(
+                0, dtype=torch.int32)
+        else:
+            total = torch.cat([c.to(dev0) for c in counts])
+        return mask, total
+
+    def dispatch_mesh(self, mesh: Mesh, batch: ArrayLike, lengths: ArrayLike,
+                      with_counts: bool = True, variant: Optional[str] = None):
+        """K5: launch the program sharded over ``mesh`` without waiting.
+        The batch variant pads B to a multiple of the shard count (pad
+        rows: zero bytes, length -1, so they never match or count); the
+        rules variant takes B as it is. Returns ``(mask bool [R, Bp],
+        counts int32 [R] | None, B, Bp)`` on the mesh's first device;
+        ``counts[r]`` is rule r's matched rows over all Bp rows (overflow
+        rows at -2 count as the kernels saw them, before any host
+        re-check). ``with_counts=False``, the engine's call, computes no
+        count at all. ``variant`` pins the axis (``match_sharded``); by
+        default ``mesh_variant`` picks it."""
+        b = torch.from_numpy(batch) if isinstance(batch, np.ndarray) else batch
+        ln = (torch.from_numpy(lengths) if isinstance(lengths, np.ndarray)
+              else lengths)
+        R, B, L = b.shape
+        if self._children is not None:
+            # every child launches before the merge touches a result;
+            # children that padded B differently are cut back to B
+            parts, count_parts, bps = [], [], []
+            for c, ix in zip(self._children, self._child_idxs):
+                ix = ix.to(b.device)
+                m, ct, _b, bp = c.dispatch_mesh(
+                    mesh, b.index_select(0, ix), ln.index_select(0, ix),
+                    with_counts, variant)
+                parts.append(m)
+                count_parts.append(ct)
+                bps.append(bp)
+            if len(set(bps)) == 1:
+                Bp = bps[0]
+            else:
+                parts = [p[:, :B] for p in parts]
+                Bp = B
+            counts = (self._merge_rule_axis(count_parts)
+                      if with_counts else None)
+            return self._merge_rule_axis(parts), counts, B, Bp
+        variant = variant or self.mesh_variant(mesh)
+        Bp = pad_to_devices(B, mesh.size) if variant == "batch" else B
+        if Bp != B:
+            b = torch.cat([b, b.new_zeros((R, Bp - B, L))], dim=1)
+            ln = torch.cat([ln, ln.new_full((R, Bp - B), -1)], dim=1)
+        mask, counts = self._launch_shards(mesh, b, ln, variant, with_counts)
+        return mask, counts, B, Bp
+
+    def match_mesh(self, mesh: Mesh, batch: ArrayLike, lengths: ArrayLike):
+        """Run the sharded program and read it back: ``(mask bool [R, B],
+        counts int32 [R], Bp)`` (numpy)."""
+        mask, counts, B, Bp = self.dispatch_mesh(mesh, batch, lengths)
+        return mask[:, :B].cpu().numpy(), counts.cpu().numpy(), Bp
+
+    def match_sharded(self, mesh: Mesh, batch: ArrayLike, lengths: ArrayLike):
+        """The batch-sharded matcher whatever ``mesh_variant`` says (the
+        reference's ``match_sharded``): ``(mask bool [R, B], counts int32
+        [R], Bp)`` (numpy)."""
+        mask, counts, B, Bp = self.dispatch_mesh(mesh, batch, lengths,
+                                                 variant="batch")
+        return mask[:, :B].cpu().numpy(), counts.cpu().numpy(), Bp
+
 
 def from_jax_tables(np_tables: Dict[str, Optional[np.ndarray]], k: int,
                     max_len: int = 512, device: DeviceLike = None,
@@ -573,6 +781,7 @@ def from_jax_tables(np_tables: Dict[str, Optional[np.ndarray]], k: int,
     prog.k_by_rule = [prog.k] * int(np_tables["starts"].shape[0])
     prog.max_states = max((d.n_states for d in prog.dfas), default=0)
     prog._children = prog._child_idxs = prog._inv_perm = None
+    prog._mesh_cache = {}
     if prog.dfas:
         np_tables = dict(np_tables, n_states=np.asarray(
             [d.n_states for d in prog.dfas], dtype=np.int32))

@@ -1,7 +1,7 @@
 """filter_grep — keep/exclude records by regex on a record-accessor field.
 
-The port's counterpart of ``fluentbit_tpu/plugins/filter_grep.py`` on the
-decoded path. Reference: plugins/filter_grep/grep.c. Rules are
+The port's counterpart of ``fluentbit_tpu/plugins/filter_grep.py``.
+Reference: plugins/filter_grep/grep.c. Rules are
 ``Regex <field> <pattern>`` (keep) and ``Exclude <field> <pattern>``
 pairs. Three evaluation modes (logical_op): legacy (first rule decides:
 Regex-miss ⇒ EXCLUDE, Exclude-hit ⇒ EXCLUDE, Regex-hit ⇒ KEEP,
@@ -15,24 +15,41 @@ least ``tpu_batch_records`` records stages its field values into one
 CPU). Values longer than ``tpu_max_record_len`` and smaller appends take
 the per-record regex, with identical semantics. There is no host
 fallback for a device failure: it raises.
+
+The raw chunk path (``can_filter_raw`` / ``filter_raw``, the engine's
+first choice when every filter of a tag can take it) matches straight
+off the append's msgpack bytes: the host codec (``fluentbit_tpu_torch.
+native``) stages each rule's top-level field into the batch, segments of
+``FBTPU_SEGMENT_RECORDS`` records (4096) are double-buffered (staging of
+segment N+1 overlaps the kernel of segment N), overflow rows are decoded
+and re-checked on the host, and the survivors are copied as byte spans,
+with no decode and no re-encode. Over a mesh (``FBTPU_MESH``) each
+segment launches through the sharded dispatch (K5, ``ops.grep``).
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..codec.events import decode_events
 from ..core.config import ConfigMapEntry
 from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor
-from ..ops.batch import assemble, bucket_size, staging
+from ..ops.batch import assemble, bucket_size, len_bucket, staging
 from ..regex import FlbRegex
 
 LEGACY, AND, OR = "legacy", "AND", "OR"
+
+
+class _RawDecline(Exception):
+    """A segment's staging cannot serve this chunk: unwind the pipeline
+    and decline to the decoded path."""
 
 
 def _to_text(v) -> Optional[str]:
@@ -137,9 +154,22 @@ class GrepFilter(FilterPlugin):
             if len(kinds) > 1:
                 raise ValueError("grep: AND/OR mode cannot mix Regex and Exclude rules")
         self.device = engine.device
-        #: host seconds of each device match (staging to verdict), the
-        #: most recent appends only
+        #: host seconds of each device match on the decoded path (staging
+        #: to verdict), the most recent appends only
         self.match_seconds: collections.deque = collections.deque(maxlen=4096)
+        #: the raw path's totals: host seconds of field staging
+        #: (``extract_s``), of launches and readbacks beyond the staging
+        #: (``kernel_s``), of the overflow rows' decode and regex
+        #: (``overflow_s``) and of survivor compaction (``compact_s``),
+        #: and the records it matched
+        self.raw_timings = dict.fromkeys(
+            ("extract_s", "kernel_s", "overflow_s", "compact_s", "records"),
+            0)
+        #: (extract, kernel, overflow, compact) seconds of each raw
+        #: append, the most recent appends only
+        self.raw_step_seconds: collections.deque = collections.deque(
+            maxlen=4096)
+        self._mesh = self._mesh_resolved = None
         self._program = None
         if self.rules and all(r.dfa is not None for r in self.rules):
             self._program = program_for(
@@ -212,6 +242,217 @@ class GrepFilter(FilterPlugin):
                 mask[r, i] = rule.regex.match(values[r][i])
         self.match_seconds.append(time.perf_counter() - t0)
         return mask
+
+    # -- the raw chunk path (no decode) --
+
+    def _grep_mesh(self):
+        """The mesh the raw path shards across, or None, resolved once
+        from ``FBTPU_MESH``: "off"/"0" never builds one; "on"/"1"/"force"
+        builds one over the visible CUDA devices; "auto" (the default)
+        does so only when the engine's device is CUDA. ``build_mesh``
+        returns None below two devices, so one card never shards."""
+        if self._mesh_resolved is None:
+            from ..ops.mesh import build_mesh
+
+            mode = os.environ.get("FBTPU_MESH", "auto").lower()
+            if self._program is None or mode in ("0", "off"):
+                self._mesh = None
+            elif mode in ("1", "on", "force"):
+                self._mesh = build_mesh()
+            else:
+                self._mesh = (build_mesh() if self.device.type == "cuda"
+                              else None)
+            self._mesh_resolved = True
+        return self._mesh
+
+    def can_filter_raw(self) -> bool:
+        """True when matching can run straight off chunk bytes: every
+        rule compiles to a DFA and addresses a top-level key (a nested
+        accessor declines), and the host codec is built (it raises if it
+        cannot be)."""
+        from .. import native
+
+        return (self._program is not None and bool(self.rules)
+                and all(not r.ra.parts for r in self.rules)
+                and native.available())
+
+    def filter_raw(self, data, tag: str, engine, n_records=None):
+        """Raw chunk bytes → device verdicts → survivors as byte spans.
+        Returns ``(n_kept, new_data, n_records)``, or None to decline
+        (fewer than ``tpu_batch_records`` records, or a buffer the codec
+        cannot stage): the engine then runs the decoded path. Kept
+        records are byte-identical (grep.c:286-392). A failed build,
+        launch or readback raises."""
+        from .. import native
+
+        if n_records is not None and n_records < self.tpu_batch_records:
+            return None
+        tm = self.raw_timings
+        before = (tm["extract_s"], tm["kernel_s"], tm["overflow_s"])
+        got = self._device_match_raw(data, n_records, mesh=self._grep_mesh())
+        if got is None:
+            return None
+        mask, offsets, n = got
+        tm["records"] += n
+        keep = self.keep_mask(mask)
+        n_keep = int(keep.sum())
+        compact_s = 0.0
+        if n_keep == n:
+            out = data
+        elif n_keep == 0:
+            out = b""
+        else:
+            t0 = time.perf_counter()
+            out = native.compact(data, offsets[: n + 1], keep)
+            compact_s = time.perf_counter() - t0
+            if out is None:
+                raise RuntimeError("grep: compact found a record span "
+                                   "outside the chunk")
+            tm["compact_s"] += compact_s
+        self.raw_step_seconds.append((tm["extract_s"] - before[0],
+                                      tm["kernel_s"] - before[1],
+                                      tm["overflow_s"] - before[2],
+                                      compact_s))
+        return (n_keep, out, n)
+
+    def _device_match_raw(self, data, n_records, mesh=None):
+        """Device matching straight off chunk bytes, double-buffered.
+
+        The chunk's records split into segments of
+        ``FBTPU_SEGMENT_RECORDS`` (4096); the host codec stages segment
+        N+1's fields while segment N's kernel runs
+        (``core.chunk_batch.double_buffered``: the launch returns a
+        device tensor, its readback runs one segment behind). Each
+        segment stages into pinned buffers of its own, rows left
+        unzeroed and lengths at -1 for pad rows.
+
+        Without ``mesh`` a segment stages at the row width of its longest
+        value (``len_bucket``) and launches ``dispatch``; with one, it
+        stages at ``tpu_max_record_len`` with the rows a multiple of the
+        shard count and launches ``dispatch_mesh(..., with_counts=
+        False)``. Overflow rows (-2) are decoded and re-checked with the
+        regex on the host. Returns ``(mask bool [R, n], offsets[n+1],
+        n)``, or None to decline."""
+        from .. import native
+        from ..core.chunk_batch import double_buffered, segment_bounds
+
+        if not isinstance(data, bytes):
+            data = bytes(data)
+        # a full segment is a bucket_size rung exactly: zero pad rows
+        seg = int(os.environ.get("FBTPU_SEGMENT_RECORDS", "4096"))
+        n = n_records
+        offsets = None
+        if n is None or n > seg:
+            # segments (or an unknown count) need the boundaries first; a
+            # one-segment chunk takes them from its staging walk
+            offsets = native.scan_offsets(data)
+            if offsets is None:
+                return None
+            n = len(offsets) - 1
+        if n < self.tpu_batch_records:
+            return None
+        by_key: dict = {}
+        for r, rule in enumerate(self.rules):
+            by_key.setdefault(rule.ra.head.encode("utf-8"), []).append(r)
+        R = len(self.rules)
+        Lmax = self.tpu_max_record_len
+        bounds = segment_bounds(n, seg)
+        multi = len(bounds) > 1
+        n_dev = mesh.size if mesh is not None else 1
+        offs_box = [offsets]
+        extract_s = [0.0]
+        lens_parts: list = []
+        cnts: list = []
+
+        def stage_key(span, key, rows, lens, cnt):
+            want_offs = offs_box[0] is None
+            offs = np.empty(cnt + 1, dtype=np.int64) if want_offs else None
+            count = native.stage_field_into(span, key, rows, lens,
+                                            n_hint=cnt, offsets_out=offs)
+            if count != cnt:
+                raise _RawDecline
+            if want_offs:
+                offs_box[0] = offs
+
+        def stages():
+            for s, e in bounds:
+                t0 = time.perf_counter()
+                cnt = e - s
+                span = (data if offs_box[0] is None
+                        else data[offs_box[0][s]: offs_box[0][e]])
+                if mesh is not None:
+                    # one width for every segment, rows a multiple of the
+                    # shards; staged straight into the transfer matrix
+                    Bp = bucket_size(seg if multi else cnt, max_len=Lmax,
+                                     multiple_of=n_dev)
+                    batch = staging((R, Bp, Lmax), torch.uint8, self.device,
+                                    fill=None)
+                    lengths = staging((R, Bp), torch.int32, self.device,
+                                      fill=-1)
+                    b_np, l_np = batch.numpy(), lengths.numpy()
+                    for key, idxs in by_key.items():
+                        r0 = idxs[0]
+                        stage_key(span, key, b_np[r0], l_np[r0], cnt)
+                        for r in idxs[1:]:
+                            b_np[r, :cnt] = b_np[r0, :cnt]
+                            l_np[r, :cnt] = l_np[r0, :cnt]
+                else:
+                    staged = {}
+                    longest = 1
+                    for key in by_key:
+                        wide = np.empty((cnt, Lmax), dtype=np.uint8)
+                        wlen = np.full((cnt,), -1, dtype=np.int32)
+                        stage_key(span, key, wide, wlen, cnt)
+                        staged[key] = (wide, wlen)
+                        longest = max(longest, int(wlen.max()) if cnt else 0)
+                    # the walk is sequential in L: stage at the longest
+                    # value's bucket
+                    width = len_bucket(longest, Lmax)
+                    Bp = bucket_size(seg if multi else cnt, max_len=width)
+                    batch = staging((R, Bp, width), torch.uint8, self.device,
+                                    fill=None)
+                    lengths = staging((R, Bp), torch.int32, self.device,
+                                      fill=-1)
+                    b_np, l_np = batch.numpy(), lengths.numpy()
+                    for key, idxs in by_key.items():
+                        wide, wlen = staged[key]
+                        for r in idxs:
+                            b_np[r, :cnt] = wide[:, :width]
+                            l_np[r, :cnt] = wlen
+                extract_s[0] += time.perf_counter() - t0
+                yield batch, lengths, cnt
+
+        def dispatch(item):
+            batch, lengths, cnt = item
+            lens_parts.append(lengths.numpy()[:, :cnt])
+            cnts.append(cnt)
+            if mesh is not None:
+                return self._program.dispatch_mesh(
+                    mesh, batch, lengths, with_counts=False)[0]
+            return self._program.dispatch(batch, lengths)
+
+        t_all = time.perf_counter()
+        try:
+            masks = double_buffered(stages(), dispatch)
+        except _RawDecline:
+            return None
+        wall = time.perf_counter() - t_all
+        tm = self.raw_timings
+        tm["extract_s"] += extract_s[0]
+        tm["kernel_s"] += max(wall - extract_s[0], 0.0)
+        offsets = offs_box[0]
+        mask = np.concatenate([m[:, :c] for m, c in zip(masks, cnts)], axis=1)
+        lengths = np.concatenate(lens_parts, axis=1)
+        # overflow rows (-2): decode just those records on the host
+        t0 = time.perf_counter()
+        for b_idx in np.unique(np.nonzero(lengths == -2)[1]):
+            span = data[offsets[b_idx]: offsets[b_idx + 1]]
+            body = decode_events(span)[0].body
+            for r, rule in enumerate(self.rules):
+                if lengths[r, b_idx] == -2:
+                    mask[r, b_idx] = rule.match(body)
+        tm["overflow_s"] += time.perf_counter() - t0
+        return mask, offsets, n
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         if (

@@ -13,6 +13,11 @@ rows and the edge cases (L = 0, rows at -1 / -2, full ASCII rows,
 invalid first bytes, unaligned and strided views); filter_parser on
 ``cuda`` against ``cpu`` for json and apache2, and K3's launches on
 config 2r (tail → parser apache2: one per append of >= 64 records).
+The raw chunk path and K5: K3's and K4's counts epilogue against
+``mask.sum``, verdicts over rows whose bytes past the length are dirty
+(0xFF, random) against zeroed rows, the sharded dispatch over
+``Mesh((cuda:0,) * n)`` against the sharded plain version, and a
+65,536-record chunk (16 double-buffered segments) on cuda against cpu.
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -735,3 +740,164 @@ def test_config2r_tail_launches_k3_per_append(cuda_device, tmp_path):
     assert len(f.step_seconds) == device_appends
     assert (tg.grep_dfa.launches - before[0],
             tg.grep_assoc.launches - before[1]) == (device_appends, 0)
+
+
+# -- the raw chunk path and K5 ------------------------------------------
+
+EXCLUDE = r'HTTP/1\.1" 500 '
+
+
+def dirty_past_length(rng, batch, lengths):
+    """The same rows with every byte past a row's length replaced by
+    0xFF (first copy) and by random bytes (second copy)."""
+    L = batch.shape[2]
+    past = np.arange(L)[None, None, :] >= np.maximum(lengths, 0)[:, :, None]
+    ones = np.where(past, 0xFF, batch).astype(np.uint8)
+    noise = rng.integers(0, 256, size=batch.shape, dtype=np.uint8)
+    return ones, np.where(past, noise, batch).astype(np.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["scan", "assoc"])
+@pytest.mark.parametrize("patterns,L,B", [([APACHE2], 512, 4096),
+                                          (CONFIG3, 512, 300),
+                                          (MIXED_K, 64, 1000),
+                                          ([EXCLUDE], 45, 77)])
+def test_counts_epilogue_and_dirty_rows(cuda_device, kernel, patterns, L, B):
+    """K3's and K4's counts epilogue adds each rule's matched rows
+    (``mask.sum``, the plain version) into ``counts``; verdicts over rows
+    whose bytes past the length are 0xFF or random equal the zeroed
+    rows'."""
+    rng = np.random.default_rng(B + L)
+    batch, lengths = random_rows(rng, len(patterns), B, L)
+    lines = make_lines(min(B, 400), seed=B)
+    for i, ln in enumerate(lines):
+        if len(ln) <= L:
+            batch[:, i, : len(ln)] = np.frombuffer(ln, np.uint8)
+            lengths[:, i] = len(ln)
+    past = np.arange(L)[None, None, :] >= np.maximum(lengths, 0)[:, :, None]
+    zeroed = np.where(past, 0, batch).astype(np.uint8)
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L,
+                               cuda_device, kernel=kernel)
+    ln_d = torch.from_numpy(lengths).cuda()
+    want = prog.dispatch(torch.from_numpy(zeroed).cuda(), ln_d)
+    for dirty in dirty_past_length(rng, zeroed, lengths):
+        got = prog.dispatch(torch.from_numpy(dirty).cuda(), ln_d)
+        assert torch.equal(got, want)
+    for leaf, ix in zip(prog._children or [prog],
+                        prog._child_idxs or [torch.arange(len(patterns))]):
+        ix = ix.to(cuda_device)
+        b = torch.from_numpy(batch).cuda().index_select(0, ix).contiguous()
+        ln = ln_d.index_select(0, ix).contiguous()
+        counts = torch.full((b.shape[0],), 5, dtype=torch.int32,
+                            device=cuda_device)
+        mask = tg.match_rows(leaf.tables, b, ln, leaf.k, leaf.kernel_resolved,
+                             leaf.max_states, leaf.segment, counts=counts)
+        torch.cuda.synchronize()
+        assert torch.equal(counts - 5, tg.counts_plain(mask))
+        assert torch.equal(mask, want.index_select(0, ix))
+
+
+@pytest.mark.gpu
+def test_counts_wrappers_reject_bad_tensors(cuda_device):
+    prog = tg.TorchGrepProgram([compile_dfa(EXCLUDE)], 16, cuda_device)
+    b = torch.zeros((1, 4, 16), dtype=torch.uint8, device=cuda_device)
+    ln = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
+    for counts in (torch.zeros(2, dtype=torch.int32, device=cuda_device),
+                   torch.zeros(1, dtype=torch.int64, device=cuda_device),
+                   torch.zeros(1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="counts"):
+            tg.grep_dfa(prog.tables, b, ln, prog.k, counts=counts)
+        with pytest.raises(ValueError, match="counts"):
+            tg.grep_assoc(prog.tables, b, ln, prog.k, prog.max_states, 32,
+                          counts=counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("patterns,rule_shard_r", [([APACHE2], None),
+                                                   ([APACHE2, EXCLUDE], None),
+                                                   (CONFIG3, "2")])
+def test_mesh_dispatch_equals_plain(cuda_device, monkeypatch, n, patterns,
+                                    rule_shard_r):
+    """K5 over ``Mesh((cuda:0,) * n)``: masks, counts and Bp equal the
+    sharded plain version over ``Mesh((cpu,) * n)``, the unsharded kernel
+    and ``mask.sum``; every shard launches its kernel."""
+    from fluentbit_tpu_torch.ops.mesh import Mesh
+
+    if rule_shard_r:
+        monkeypatch.setenv("FBTPU_MESH_RULE_SHARD_R", rule_shard_r)
+    dfas = [compile_dfa(p) for p in patterns]
+    prog = tg.TorchGrepProgram(dfas, 512, cuda_device)
+    plain = tg.TorchGrepProgram(dfas, 512, "cpu")
+    mesh = Mesh((cuda_device,) * n)
+    variant = prog.mesh_variant(mesh)
+    assert variant == ("rules" if rule_shard_r else "batch")
+    lines = make_lines(1001, seed=n)
+    staged = assemble(lines, 512)
+    batch = np.stack([staged.batch] * len(patterns))
+    lengths = np.stack([staged.lengths] * len(patterns))
+    before = tg.grep_dfa.launches + tg.grep_assoc.launches
+    mask, counts, Bp = prog.match_mesh(mesh, batch, lengths)
+    launches = tg.grep_dfa.launches + tg.grep_assoc.launches - before
+    assert launches == n * len(prog._children or [prog])
+    pmask, pcounts, pBp = plain.match_mesh(Mesh(("cpu",) * n), batch,
+                                           lengths)
+    np.testing.assert_array_equal(mask, pmask)
+    np.testing.assert_array_equal(counts, pcounts)
+    assert Bp == pBp == (1001 if variant == "rules" else -(-1001 // n) * n)
+    np.testing.assert_array_equal(mask, prog.match(batch, lengths))
+    np.testing.assert_array_equal(counts, mask.sum(axis=1))
+    m, c, B, bp = prog.dispatch_mesh(mesh, batch, lengths, with_counts=False)
+    assert c is None and (B, bp) == (1001, Bp)
+    np.testing.assert_array_equal(m[:, :B].cpu().numpy(), mask)
+
+
+def _grep_ctx(device, exclude):
+    out = []
+    ctx = fluentbit_tpu_torch.create(device=device, flush="50ms", grace="1")
+    ctx.input("lib", tag="app.log")
+    f = ctx.filter("grep", match="app.*")
+    if exclude:
+        ctx.set(f, exclude="log " + EXCLUDE)
+    ctx.set(f, regex="log " + APACHE2)
+    ctx.output("lib", match="*", callback=lambda d, t: out.append(d))
+    return ctx, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exclude", [False, True])
+def test_raw_chunk_of_16_segments_cuda_equals_cpu(cuda_device, exclude):
+    """One pre-encoded chunk of 65,536 records (16 segments of 4096,
+    double-buffered: each segment stages into pinned buffers of its own
+    while the previous segment's copy and kernel run) gives the bytes of
+    the cpu run, one launch per segment and k-group."""
+    from fluentbit_tpu_torch.codec.events import encode_event
+    from fluentbit_tpu_torch.codec.msgpack import EventTime
+
+    lines = make_lines(65536, seed=16)
+    data = b"".join(encode_event({"log": ln.decode()}, EventTime(i, 0))
+                    for i, ln in enumerate(lines))
+    results = {}
+    for device in ("cuda", "cpu"):
+        ctx, out = _grep_ctx(device, exclude)
+        ctx.start()
+        before = (tg.grep_dfa.launches, tg.grep_assoc.launches)
+        try:
+            ins = ctx.engine.inputs[0]
+            kept = ctx.engine.input_log_append(ins, "app.log", data, 65536)
+            ctx.flush_now()
+        finally:
+            ctx.stop()
+        grep = ctx.engine.filters[0].plugin
+        assert grep.raw_timings["records"] == 65536
+        assert not grep.match_seconds
+        results[device] = (b"".join(out), kept,
+                           tg.grep_dfa.launches - before[0],
+                           tg.grep_assoc.launches - before[1])
+    gpu, cpu = results["cuda"], results["cpu"]
+    assert gpu[:2] == cpu[:2] and 0 < gpu[1] < 65536
+    # apache2 takes K3; the Exclude rule (16 states) K4
+    assert gpu[2:] == ((16, 16) if exclude else (16, 0))
+    assert cpu[2:] == (0, 0)
+    assert len(decode_events(gpu[0])) == gpu[1]

@@ -3,8 +3,9 @@
 ``fluentbit_tpu_torch.create(device="cpu")`` and ``fluentbit_tpu.create()``
 take the same lib-input records (made from a seed, with fixed timestamps)
 through grep and must hand their lib outputs the same bytes. Also: the
-port never imports the reference package or JAX, and asks for CUDA unless
-told otherwise.
+port never imports the reference package or JAX, never loads or builds a
+library of the reference's ``native/`` (its host codec is its own
+``csrc/codec_host.cpp``), and asks for CUDA unless told otherwise.
 """
 
 import ast
@@ -104,10 +105,14 @@ def test_lib_output_bytes_match_reference(name):
                             device="cpu")
     assert got == ref
     assert len(ref) > 0
-    # appends of >= tpu_batch_records (32) took the device program
+    # appends of >= tpu_batch_records (32) took the device program on
+    # the raw chunk path; the smaller one declined to the decoded path's
+    # per-record regex
     grep = ctx.engine.filters[0].plugin
     assert grep._program is not None
-    assert len(grep.match_seconds) == sum(len(a) >= 32 for a in appends)
+    assert grep.raw_timings["records"] == sum(len(a) for a in appends
+                                              if len(a) >= 32)
+    assert len(grep.match_seconds) == 0
 
 
 def test_create_without_device_raises_without_cuda(monkeypatch):
@@ -138,7 +143,26 @@ PORT_MODULES = (
     "flux/plugin.py",  # the flux plane
     "plugins/filter_rewrite_tag.py", "plugins/in_tail.py",
     "core/record_accessor.py", "regex/__init__.py",  # config 3
+    "native.py", "core/chunk_batch.py", "ops/mesh.py",  # the raw path, K5
 )
+
+#: what a module that loads or builds the reference's native library
+#: would name
+REFERENCE_NATIVE = ("native/build", "fbtpu_native")
+
+
+def _code_strings(path):
+    """The string constants of a module's code, docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
 
 
 def test_port_imports_neither_jax_nor_reference_package():
@@ -149,15 +173,25 @@ def test_port_imports_neither_jax_nor_reference_package():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "fluentbit_tpu"}, path
+        for text in _code_strings(path):
+            assert not any(name in text for name in REFERENCE_NATIVE), (
+                path, text)
+            assert text != "native", (path, text)
 
 
 def test_import_loads_no_jax_or_reference_module():
     modules = ", ".join("fluentbit_tpu_torch." + m[:-3].replace("/", ".")
                         for m in PORT_MODULES)
+    # the host codec is loaded too: the process maps the port's own
+    # library and none built from the reference's native/
     code = (
         f"import sys, fluentbit_tpu_torch, {modules}\n"
+        "assert fluentbit_tpu_torch.native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fluentbit_tpu', 'triton')]\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad += [n for n in ('fbtpu_native', 'native/build') if n in maps]\n"
+        "assert 'libcodec_host-' in maps\n"
         "print(','.join(bad))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
