@@ -75,7 +75,10 @@ Phases (any failure exits non-zero):
    devices, agree with a check computed here from Python (window folds,
    HLL registers, estimates within 3 sigma, top-k within count-min's
    bound), and K10 must have launched once per append of <= 512 groups
-   and K6 once per group of the wide append;
+   and K6 once per group of the wide append; then the cuda run again
+   with the state's ``_mesh`` set to ``Mesh((cuda:0,) * 8)`` (the
+   filter's ``mesh`` key on one card): rows and states equal to the
+   unsharded run, 8 K10 shard launches and 3 shard merges per append;
 9. K4 against plain: ``grep_assoc`` against ``match_assoc_plain`` and
    against K3 (``kernel="scan"``) on the card, bool for bool: config 3's
    three child programs at [8, 512, 512], the staged bucket of one tail
@@ -86,7 +89,7 @@ Phases (any failure exits non-zero):
    plain version and K3 on the same rows;
 10. pipeline: BASELINE config 3 (tail ``read_from_head`` → rewrite_tag
    with the conf's 8 rules → null, plus lib to capture the records) over
-   a 262,144-line syslog corpus made from the seed, on ``device="cuda"``
+   a 131,072-line syslog corpus made from the seed, on ``device="cuda"``
    and then ``"cpu"``: every tag's bodies must be equal between the
    devices and to a Python ``re`` first-match routing of the file's
    lines, the emit counter must count the rerouted lines, K4 must have
@@ -98,12 +101,12 @@ Phases (any failure exits non-zero):
    byte 0, an unaligned view), with CUDA-event times of both;
 12. pipeline: BASELINE config 2 (``conf/baseline2-parser.yaml``: tail
    ``read_from_head`` over an NDJSON file → parser json with
-   reserve_data → null, plus lib) over 262,144 lines made from the seed,
+   reserve_data → null, plus lib) over 131,072 lines made from the seed,
    on ``device="cuda"`` and then ``"cpu"``: the records (bodies, and the
    times the parser set) must be equal between the devices and to a
    Python fold (``json``, ``datetime.strptime``); then K11 through
    ``Utf8Validator("cuda")`` over the file's raw lines staged at
-   [4096, 512] (64 launches) must equal plain and strict
+   [4096, 512] (32 launches) must equal plain and strict
    ``bytes.decode("utf-8")``;
 13. pipeline: config 2r, the same filter with parsers.conf's apache2
    parser over a 131,072-line access log, on ``device="cuda"`` and then
@@ -111,7 +114,28 @@ Phases (any failure exits non-zero):
    with the apache2 pattern, ``datetime.strptime`` and the integer
    casts; K3 (apache2 has > 64 states, so "auto" takes the scan) must
    have launched once per tail append of >= 64 records and K4 never;
-   K3 is timed at one tail read, [1, 1024, 512], against plain.
+   K3 is timed at one tail read, [1, 1024, 512], against plain;
+14. the shard merge (``shard_merge``, max and add) against its plain
+   version and one PyTorch call over the partials (``amax`` / ``sum``)
+   at its largest operand, [8, 512, 4096] int32;
+15. the mesh programs over ``Mesh((cuda:0,) * n)``, n in {1, 2, 8}: K8
+   (``sharded_hll_registers`` at p = 14 over 4096 of config 4's
+   ``user`` rows, ``sharded_cms_table`` at 4 x 16384 int32 over its
+   ``path`` rows), K9's mesh half over [4096] and [65536] rows of 200
+   segments, K10's mesh half at [4096, 256] with 200 groups and
+   [65536, 256] with 512, one field and composites: each equal, bit for
+   bit, to the same sharded call with the plain versions on the card
+   and to the unsharded kernel, its shard and merge launches counted,
+   with CUDA-event times of all three;
+16. pipeline: flux's SQL mode, FLUX.md's per-tenant query through
+   ``ctx.sp_task`` over phase 8's 64 appends under the same clock: (a)
+   flux-backed on cuda, (b) the same with ``FBTPU_FLUX_MESH=1`` and the
+   state on a hand-built ``Mesh((cuda:0,) * 8)``, (c) flux-backed on
+   cpu, (d) the exact path (``WITH (flux='off')``) on cuda: rows and
+   states of (a), (b) and (c) equal; COUNT(*) and AVG equal to (d) and
+   to Python folds; ``uniq`` equal to the estimate of registers built
+   from scratch and within max(3, 10%) of (d)'s exact count; K10 once
+   per append in (a), 8 times plus 2 merges per append in (b).
 
 Phases 3 and 4 pin K3: phase 3 builds its programs with
 ``kernel="scan"``; in phase 4 config 1's Exclude rule (16 states) takes
@@ -128,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import logging
 import math
@@ -184,7 +209,9 @@ CONFIG3_PY = [re.compile(p, re.ASCII) for p in CONFIG3]
 # a k = 6 program whose rules differ widely in states and classes: walking
 # WARN over all 12 states would pass the end of its trans_flat row
 OUT_OF_ROW = ["a{10}", "WARN", r"x[0-9]+y"]
-SYSLOG_LINES = 262_144  # the conf names a 1M-line corpus; cut to fit the run
+# the conf names a 1M-line corpus; cut to fit the run (262,144 until the
+# mesh and SQL phases came in; the smoke then ran 559 s on one call)
+SYSLOG_LINES = 131_072
 TAIL_BUCKET = 1024      # staged rows of one 64 KiB tail read (~360 lines)
 
 L = 512
@@ -853,14 +880,16 @@ def sketch_rows(np, seed: int, B: int):
     return vocab[idx], lengths
 
 
-def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None) -> tuple:
+def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None,
+                    extra_bytes: int = 0) -> tuple:
     """Least time for one sketch update of these rows. Bytes: each row's
     bytes before its length, every length (and weight) once, and each
-    state word the rows touch read once and written once, over HBM's
-    rate. Operations, for a row with a length: an xor and a multiply per
-    byte, the finaliser (8), and for HLL index and rank (5), for
-    count-min the second hash (9) and per depth row a multiply, an add
-    and a modulo (3), over the int32 peak. The larger bounds it."""
+    state word the rows touch read once and written once (plus
+    ``extra_bytes``: a sharded call's merge), over HBM's rate.
+    Operations, for a row with a length: an xor and a multiply per byte,
+    the finaliser (8), and for HLL index and rank (5), for count-min the
+    second hash (9) and per depth row a multiply, an add and a modulo
+    (3), over the int32 peak. The larger bounds it."""
     valid = ln >= 0
     used = ln.clamp(min=0, max=b.shape[1]).long()
     n_valid = int(valid.sum())
@@ -876,7 +905,7 @@ def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None) -> tuple:
         per_row = 8 + 9 + 3 * d
     nbytes = (int(used.sum()) + ln.numel() * 4
               + (0 if weights is None else weights.numel() * 4)
-              + 2 * words * state.element_size())
+              + 2 * words * state.element_size() + extra_bytes)
     ops = 2 * int(used.sum()) + per_row * n_valid
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
@@ -1162,18 +1191,19 @@ def flux_call(fn, case: dict, stacks, table):
               n_seg=case["G"])
 
 
-def flux_bound_ms(torch, tsk, case: dict) -> tuple:
+def flux_bound_ms(torch, tsk, case: dict, extra_bytes: int = 0) -> tuple:
     """Least time for one fused absorb of these rows. Bytes: each field
     and composite row's bytes before its length, every length, ``seg`` and
     ``valid`` once, the counts written once, and each register and table
-    word the rows touch read once and written once. Operations: per byte
+    word the rows touch read once and written once (plus ``extra_bytes``:
+    a sharded call's merges). Operations: per byte
     an xor and a multiply; per valid field row the finaliser and index and
     rank (13); per valid composite row the finaliser, the second hash and
     per depth row a multiply, an add and a modulo (17 + 3d); one add per
     counted row. The larger bounds it."""
     seg = case["seg"].long()
     B = seg.numel()
-    nbytes = 8 * B + 4 * case["G"]
+    nbytes = 8 * B + 4 * case["G"] + extra_bytes
     ops = int((case["valid"] != 0).sum())
     for b, ln in case["fields"]:
         ok = ln >= 0
@@ -1334,11 +1364,12 @@ def flux_snapshot_print(np, snap: dict) -> tuple:
             snap["counters"], snap["window_start"])
 
 
-def run_flux(np, torch, flb, device: str, appends: list) -> dict:
+def run_flux(np, torch, flb, device: str, appends: list, mesh=None) -> dict:
     """The flux pipeline on ``device``. Before append k the injected window
     clock reads CLOCK0 + 15 s * k and the filter's own tick runs (the tick
     collector waits an hour); the open window's state is snapshotted
-    before each tick that closes it."""
+    before each tick that closes it. ``mesh`` (a hand-built
+    ``Mesh``) shards the state's absorbs."""
     out = []
     ctx = flb.create(device=device, flush="50ms", grace="2")
     in_ffd = ctx.input("lib", tag="app.web")
@@ -1352,6 +1383,8 @@ def run_flux(np, torch, flb, device: str, appends: list) -> dict:
     with engine._ingest_lock:
         plug.state._now = lambda: clock[0]
         plug.state._window_start = CLOCK0
+        if mesh is not None:
+            plug.state._mesh = mesh
     snaps, close_s = [], []
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1476,9 +1509,9 @@ def flux_independent_check(np, appends: list, windows: list, snaps: list
             "failures": bad[:10], "n_failures": len(bad)}
 
 
-def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
-               card: str, kernel_results: list, sketch_results: list) -> dict:
-    appends = make_flux_appends(np, seed)
+def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
+               appends: list, card: str, kernel_results: list,
+               sketch_results: list) -> dict:
     n_records = sum(len(r) for r, _ in appends)
     tfk.fused_absorb.launches = tfk.segment_counts.launches = 0
     tsk.hll_update.launches = tsk.cms_update.launches = 0
@@ -1488,6 +1521,15 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
                 "hll_update": tsk.hll_update.launches,
                 "cms_update": tsk.cms_update.launches}
     cpu = run_flux(np, torch, flb, "cpu", appends)
+    # the filter's mesh key on a hand-built 8-shard mesh of the one card
+    # (flux_mesh() is None below two devices)
+    tfk.fused_absorb.launches = tfk.flux_mesh_launches.launches = 0
+    tsk.shard_merge.launches = 0
+    meshed = run_flux(np, torch, flb, "cuda", appends, tmesh.Mesh(
+        (torch.device("cuda", 0),) * MESH_N, "flux"))
+    mesh_launches = {"flux_absorb": tfk.fused_absorb.launches,
+                     "flux_absorb_mesh": tfk.flux_mesh_launches.launches,
+                     "shard_merge": tsk.shard_merge.launches}
 
     def rows(run, drained=False):
         chunks = run["drained"] if drained else [
@@ -1531,6 +1573,9 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
     snaps_equal = (len(gpu["snaps"]) == len(cpu["snaps"]) and all(
         flux_snapshot_print(np, a) == flux_snapshot_print(np, b)
         for a, b in zip(gpu["snaps"], cpu["snaps"])))
+    mesh_snaps_equal = (len(gpu["snaps"]) == len(meshed["snaps"]) and all(
+        flux_snapshot_print(np, a) == flux_snapshot_print(np, b)
+        for a, b in zip(gpu["snaps"], meshed["snaps"])))
     res = {"records": n_records, "appends": len(appends),
            "windows_closed": len(windows) - 1,
            "rows": len(gpu_rows), "drained_rows": len(drained),
@@ -1538,6 +1583,15 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
            "drained_equal_cpu": drained == rows(cpu, True),
            "states_equal_cpu": snaps_equal,
            "exposition_equal_cpu": gpu["exposition"] == cpu["exposition"],
+           "mesh_rows_equal": gpu_rows == rows(meshed),
+           "mesh_drained_equal": drained == rows(meshed, True),
+           "mesh_states_equal": mesh_snaps_equal,
+           "mesh_launches": mesh_launches,
+           "mesh_expected_launches": {
+               "flux_absorb": MESH_N * APPENDS,
+               "flux_absorb_mesh": MESH_N * APPENDS,
+               "shard_merge": 3 * APPENDS},
+           "mesh_lines_per_s": n_records / meshed["wall"],
            "exposition_lines": len(gpu["exposition"]),
            "launches": launches,
            "expected_launches": {"flux_absorb": APPENDS,
@@ -1554,8 +1608,12 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
                               / (gpu["wall"] * 1e3)), "card": card}
     log("flux: " + json.dumps(res))
     failed = [k for k in ("rows_equal_cpu", "drained_equal_cpu",
-                          "states_equal_cpu", "exposition_equal_cpu")
+                          "states_equal_cpu", "exposition_equal_cpu",
+                          "mesh_rows_equal", "mesh_drained_equal",
+                          "mesh_states_equal")
               if not res[k]]
+    if mesh_launches != res["mesh_expected_launches"]:
+        failed.append("mesh_launches")
     if check["n_failures"]:
         failed.append("independent_check")
     if (launches["flux_absorb"] != APPENDS
@@ -1564,6 +1622,431 @@ def phase_flux(np, torch, tsk, tfk, flb, decode_events, seed: int,
         failed.append("launches")
     if failed:
         raise SystemExit(f"flux failed {failed}: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the mesh programs (the shard merge, K8, the mesh halves
+# of K9 and K10) and flux's SQL mode through the stream processor
+# ---------------------------------------------------------------------------
+
+MESH_N = 8  # the hand-built mesh of the SQL and flux-filter mesh runs
+MESH_SHARDS = (1, 2, MESH_N)
+SQL = ("CREATE STREAM tenants WITH (tag='flux.tenants'{opts}) AS "
+       "SELECT tenant, COUNT(*), COUNT(DISTINCT user) AS uniq, "
+       "AVG(latency_ms) FROM TAG:'app.*' WINDOW TUMBLING (60 SECOND) "
+       "GROUP BY tenant;")
+
+
+@contextlib.contextmanager
+def plain_versions(tsk, tfk):
+    """The sharded programs with every kernel they call swapped for its
+    plain version, on the same card tensors, while the block runs."""
+    saved = [(m, name, getattr(m, name)) for m, name in (
+        (tsk, "hll_update"), (tsk, "cms_update"), (tsk, "shard_merge"),
+        (tfk, "fused_absorb"), (tfk, "segment_counts"),
+        (tfk, "shard_merge"))]
+    tsk.hll_update = tsk.hll_update_plain
+    tsk.cms_update = tsk.cms_update_plain
+    tsk.shard_merge = tfk.shard_merge = tsk.shard_merge_plain
+    tfk.fused_absorb = tfk.fused_absorb_plain
+    tfk.segment_counts = tfk.segment_counts_plain
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def merge_bytes(n: int, base) -> int:
+    """One merge's bytes: the n partials and the base read once, the base
+    written once."""
+    return (n + 2) * base.numel() * base.element_size()
+
+
+def max_err(got: list, want: list) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want))
+
+
+def sharded_case(torch, tsk, tfk, program: str, n: int, shape: list, calls,
+              counters: dict, expected: dict, bound: tuple,
+              iters: int = 50) -> dict:
+    """One sharded program at n shards: ``calls`` gives (sharded, unsharded,
+    timed_unsharded), the first two returning fresh result tensors. The
+    sharded result must equal the same sharded call with the plain
+    versions on the card and the unsharded kernel, bit for bit; its
+    launches are counted; the three are timed with CUDA events."""
+    sharded, unsharded, timed_unsharded = calls
+    before = {k: c.launches for k, c in counters.items()}
+    got = sharded()
+    torch.cuda.synchronize()
+    launches = {k: c.launches - before[k] for k, c in counters.items()}
+    with plain_versions(tsk, tfk):
+        plain = sharded()
+        plain_ms = cuda_ms(torch, sharded, 3)
+    want = unsharded()
+    torch.cuda.synchronize()
+    res = {"program": program, "shards": n, "shape": shape,
+           "launches": launches, "expected_launches": expected,
+           "max_abs_err": max(max_err(got, plain), max_err(got, want)),
+           "max_abs_err_plain": max_err(got, plain),
+           "max_abs_err_unsharded": max_err(got, want),
+           "ms": cuda_ms(torch, sharded, iters),
+           "host_enqueue_ms": host_ms(torch, sharded, iters),
+           "plain_ms": plain_ms,
+           "unsharded_ms": cuda_ms(torch, timed_unsharded, 200),
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    log("mesh-sketch: " + json.dumps(res))
+    if res["max_abs_err"] != 0 or launches != expected:
+        raise SystemExit(f"{program} over {n} shards disagrees or launched "
+                         f"wrongly: {res}")
+    return res
+
+
+def phase_merge_kernel(torch, tsk, seed: int) -> list:
+    """The shard merge alone at its largest operand, 8 partial register
+    stacks of 512 groups x 4096 int32, against its plain version and one
+    PyTorch call over the partials (``amax`` / ``sum``)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    parts = torch.randint(0, 30, (MESH_N, 512, 1 << FLUX_P), generator=gen,
+                          dtype=torch.int32, device=dev)
+    base = torch.randint(0, 30, (512, 1 << FLUX_P), generator=gen,
+                         dtype=torch.int32, device=dev)
+    results = []
+    for op, library in (("max", lambda: parts.amax(0)),
+                        ("add", lambda: parts.sum(0, dtype=torch.int32))):
+        got, want = base.clone(), base.clone()
+        before = tsk.shard_merge.launches
+        tsk.shard_merge(parts, got, op)
+        launches = tsk.shard_merge.launches - before
+        tsk.shard_merge_plain(parts, want, op)
+        lib = (torch.maximum(base, library()) if op == "max"
+               else base + library())
+        torch.cuda.synchronize()
+        res = {"kernel": "shard_merge", "op": op,
+               "shape": [MESH_N, 512, 1 << FLUX_P], "launches": launches,
+               "max_abs_err": max_err([got], [want]),
+               "library_max_abs_err": max_err([lib], [want]),
+               "ms": cuda_ms(torch, lambda: tsk.shard_merge(parts, got, op),
+                             200),
+               "host_enqueue_ms": host_ms(
+                   torch, lambda: tsk.shard_merge(parts, got, op), 200),
+               "plain_ms": cuda_ms(
+                   torch, lambda: tsk.shard_merge_plain(parts, want, op), 20),
+               "library_ms": cuda_ms(torch, library, 200),
+               "bound_ms": merge_bytes(MESH_N, base) / PEAK_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        log("merge-vs-plain: " + json.dumps(res))
+        if res["max_abs_err"] or res["library_max_abs_err"] or launches != 1:
+            raise SystemExit(f"shard_merge disagrees: {res}")
+        results.append(res)
+    return results
+
+
+def phase_mesh_sketch(np, torch, tsk, tfk, tmesh, assemble, seed: int) -> list:
+    """K8 at config 4's widths (HLL p = 14 over 4096 ``user`` rows,
+    count-min 4 x 16384 int32 over 4096 ``path`` rows), K9's mesh half
+    over [4096] and [65536] rows of 200 segments, and K10's mesh half at
+    flux's [4096, 256] (200 groups) and [65536, 256] (512 groups), one
+    field plus composites, each over ``Mesh((cuda:0,) * n)``, n = 1, 2,
+    8."""
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(seed)
+    _bodies, users, paths = make_posts(np, seed)
+    rows = {}
+    for name, vals in (("user", users), ("path", paths)):
+        st = assemble(vals[:RECORDS], SKETCH_L)
+        rows[name] = (torch.from_numpy(st.batch).to(dev),
+                      torch.from_numpy(st.lengths).to(dev))
+    hll = tsk.HyperLogLog(HLL_P, dev)
+    hll.registers.random_(0, 4)
+    cms = tsk.CountMin(CMS_D, CMS_W, dev)
+    cms.table.random_(0, 1 << 20)
+    k10 = {B: flux_case(np, torch, seed + B, B, G, 1, True)
+           for B, G in ((RECORDS, FLUX_TENANTS), (65536, 512))}
+    k9 = {}
+    for B in (RECORDS, 65536):
+        case = flux_case(np, torch, seed + 1 + B, B, FLUX_TENANTS, 0, False)
+        case["valid"][: B // 4] = 0
+        k9[B] = case
+    results = []
+    for n in MESH_SHARDS:
+        mesh = tmesh.Mesh((dev,) * n, "flux")
+        b, ln = rows["user"]
+
+        def hll_once():
+            r = hll.registers.clone()
+            tsk.hll_update(r, b, ln, HLL_P)
+            return [r]
+
+        results.append(sharded_case(
+            torch, tsk, tfk, "hll", n, [RECORDS, SKETCH_L],
+            (lambda: [tsk.sharded_hll_registers(hll, mesh, b, ln)], hll_once,
+             lambda: tsk.hll_update(hll.registers.clone(), b, ln, HLL_P)),
+            {"hll_mesh": tsk.hll_mesh, "hll_update": tsk.hll_update,
+             "shard_merge": tsk.shard_merge},
+            {"hll_mesh": n, "hll_update": n, "shard_merge": 1},
+            sketch_bound_ms(torch, tsk, b, ln, hll.registers, None, HLL_P,
+                            merge_bytes(n, hll.registers))))
+        pb, pln = rows["path"]
+
+        def cms_once():
+            t = cms.table.clone()
+            tsk.cms_update(t, pb, pln)
+            return [t]
+
+        results.append(sharded_case(
+            torch, tsk, tfk, "cms", n, [RECORDS, SKETCH_L],
+            (lambda: [tsk.sharded_cms_table(cms, mesh, pb, pln)], cms_once,
+             lambda: tsk.cms_update(cms.table.clone(), pb, pln)),
+            {"cms_mesh": tsk.cms_mesh, "cms_update": tsk.cms_update,
+             "shard_merge": tsk.shard_merge},
+            {"cms_mesh": n, "cms_update": n, "shard_merge": 1},
+            sketch_bound_ms(torch, tsk, pb, pln, cms.table, None, None,
+                            merge_bytes(n, cms.table))))
+        for B, case in k9.items():
+            seg, valid, G = case["seg"], case["valid"], case["G"]
+            counts0 = torch.zeros(G, dtype=torch.int32, device=dev)
+            nbytes = 8 * B + 4 * G + merge_bytes(n, counts0)
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = int((valid != 0).sum()) / PEAK_INT32_OPS_PER_S * 1e3
+            res = sharded_case(
+                torch, tsk, tfk, "segment_counts", n, [B],
+                (lambda: [tfk.sharded_segment_counts(mesh, seg, valid, G)],
+                 lambda: [tfk.segment_counts(seg, valid, G)],
+                 lambda: tfk.segment_counts(seg, valid, G)),
+                {"flux_mesh": tfk.flux_mesh_launches,
+                 "segment_counts": tfk.segment_counts,
+                 "shard_merge": tsk.shard_merge},
+                {"flux_mesh": n, "segment_counts": n, "shard_merge": 1},
+                (max(bytes_ms, ops_ms),
+                 "bytes" if bytes_ms >= ops_ms else "operations"))
+            valid_f = valid.to(torch.float32)
+            res["library_ms"] = cuda_ms(torch, lambda: torch.bincount(
+                seg, weights=valid_f, minlength=G), 20)
+            results.append(res)
+        for B, case in k10.items():
+            G = case["G"]
+
+            def fresh(case=case):
+                return ([s.clone() for s in case["stacks"]],
+                        case["table"].clone())
+
+            def sharded(case=case):
+                st, tb = fresh()
+                counts = tfk.sharded_fused_absorb(
+                    mesh, case["seg"], case["valid"], case["fields"], st,
+                    case["comp"], case["comp_len"], tb, hll_p=FLUX_P,
+                    n_seg=case["G"])
+                return [counts, *st, tb]
+
+            def unsharded(case=case):
+                st, tb = fresh()
+                return [flux_call(tfk.fused_absorb, case, st, tb), *st, tb]
+
+            st_t, tb_t = fresh()
+            extra = (merge_bytes(n, torch.empty(G, dtype=torch.int32))
+                     + merge_bytes(n, case["stacks"][0])
+                     + merge_bytes(n, case["table"]))
+            results.append(sharded_case(
+                torch, tsk, tfk, "fused_absorb", n, [B, FLUX_L],
+                (sharded, unsharded,
+                 lambda case=case: flux_call(tfk.fused_absorb, case, st_t,
+                                             tb_t)),
+                {"flux_mesh": tfk.flux_mesh_launches,
+                 "fused_absorb": tfk.fused_absorb,
+                 "shard_merge": tsk.shard_merge},
+                {"flux_mesh": n, "fused_absorb": n, "shard_merge": 3},
+                flux_bound_ms(torch, tsk, case, extra), iters=20))
+            results[-1]["groups"] = G
+    return results
+
+
+def run_sql(np, torch, flb, decode_events, device: str, appends: list,
+            exact: bool = False, mesh=None) -> dict:
+    """FLUX.md's per-tenant SQL through ``ctx.sp_task`` on ``device`` (lib
+    input under ``app.web`` → the stream processor → its rows under
+    ``flux.tenants`` → lib output). ``exact`` pins the exact path
+    (``WITH (flux='off')``); ``mesh`` shards the state's absorbs. Before
+    append k the injected window clock reads CLOCK0 + 15 s * k and the
+    task ticks (the SP's own collector waits an hour); the state is
+    snapshotted before each tick that closes a window."""
+    out = []
+    ctx = flb.create(device=device, flush="50ms", grace="2")
+    in_ffd = ctx.input("lib", tag="app.web")
+    ctx.output("lib", match="flux.tenants",
+               callback=lambda data, tag: out.append(data))
+    task = ctx.sp_task(SQL.format(opts=", flux='off'" if exact else ""))
+    engine = ctx.engine
+    engine.sp.emitter_instance.plugin.collect_interval = 3600
+    clock = [CLOCK0]
+    task._now = lambda: clock[0]
+    task._window_start = CLOCK0
+    state = None if task.flux is None else task.flux.state
+    if state is not None:
+        state._now = task._now
+        state._window_start = CLOCK0
+        if mesh is not None:
+            state._mesh = mesh
+    per = int(WINDOW_S / STEP_S)
+    snaps = []
+    ctx.start()
+    try:
+        t0 = time.perf_counter()
+        for k, (recs, text) in enumerate(appends):
+            clock[0] = CLOCK0 + STEP_S * k
+            with engine._ingest_lock:
+                if k and k % per == 0 and state is not None:
+                    snaps.append(state.snapshot())
+                task.tick()
+            if ctx.push(in_ffd, text) != len(recs):
+                raise SystemExit(f"sql on {device}: append {k} dropped "
+                                 f"records")
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+        if state is not None:
+            with engine._ingest_lock:
+                snaps.append(state.snapshot())
+    finally:
+        ctx.stop()  # drains the open window through the pipeline
+    return {"rows": [ev.body for d in out for ev in decode_events(d)],
+            "wall": wall, "snaps": snaps,
+            "spec_mesh": None if state is None else state.spec.mesh}
+
+
+def sql_check(np, tsk, appends: list, flux_rows: list, exact_rows: list
+              ) -> dict:
+    """Each window's flux-backed rows against plain Python folds of its
+    records in record order (COUNT(*), AVG(latency_ms): the sum of the
+    numeric values from 0.0 over the group's count) and against the
+    exact path's rows. The exact path's ``uniq`` must be the fold's
+    distinct user count. The flux-backed ``uniq`` must equal the
+    estimate of registers built from scratch over the tenant's users of
+    <= 256 B, and lie within max(3, 10%) of the exact distinct count of
+    those users: values longer than ``flux_max_len`` are missing to the
+    flux plane by design (FLUX.md), while the exact path counts them
+    (~2% of users here)."""
+    per = int(WINDOW_S / STEP_S)
+    bad, i, j, checked, worst = [], 0, 0, 0, 0.0
+    for w in range(len(appends) // per):
+        fold, users = {}, collections.defaultdict(set)
+        every_user = collections.defaultdict(set)
+        for recs, _ in appends[w * per:(w + 1) * per]:
+            for _ts, body in recs:
+                t = body.get("tenant")
+                f = fold.setdefault(t, [0, 0.0])
+                f[0] += 1
+                v = body.get("latency_ms")
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    f[1] = f[1] + v
+                u = body.get("user")
+                if u is not None:
+                    every_user[t].add(u)
+                if isinstance(u, str) and len(u.encode()) <= FLUX_L:
+                    users[t].add(u.encode())
+        got = flux_rows[i:i + len(fold)]
+        exact = exact_rows[j:j + len(fold)]
+        i += len(fold)
+        j += len(fold)
+        if [r["tenant"] for r in got] != list(fold) or \
+                [r["tenant"] for r in exact] != list(fold):
+            bad.append(f"window {w}: tenants differ")
+            continue
+        for r, e in zip(got, exact):
+            t = r["tenant"]
+            count, total = fold[t]
+            want = (count, total / count)
+            have = (r["COUNT(*)"], r["AVG(latency_ms)"])
+            if have != want or (e["COUNT(*)"], e["AVG(latency_ms)"]) != want \
+                    or type(have[1]) is not float:
+                bad.append(f"window {w} tenant {t}: {have} / "
+                           f"{e['COUNT(*)']}, {e['AVG(latency_ms)']} != "
+                           f"{want}")
+            est = int(round(tsk.estimate_registers(
+                hll_registers_python(np, users[t]))))
+            if r["uniq"] != est:
+                bad.append(f"window {w} tenant {t}: uniq {r['uniq']} != "
+                           f"from-scratch {est}")
+            if e["uniq"] != len(every_user[t]):
+                bad.append(f"window {w} tenant {t}: exact uniq {e['uniq']} "
+                           f"!= {len(every_user[t])}")
+            exact = len(users[t])
+            dev = abs(r["uniq"] - exact)
+            worst = max(worst, dev / max(1, exact))
+            if dev > max(3.0, 0.10 * exact):
+                bad.append(f"window {w} tenant {t}: uniq {r['uniq']} vs "
+                           f"exact {exact} of <= {FLUX_L} B")
+            checked += 1
+    complete = i == len(flux_rows) and j == len(exact_rows)
+    if not complete:
+        bad.append(f"rows left over: {len(flux_rows) - i} flux, "
+                   f"{len(exact_rows) - j} exact")
+    return {"windows_checked": len(appends) // per, "groups_checked": checked,
+            "worst_uniq_rel_dev": worst, "failures": bad[:10],
+            "n_failures": len(bad)}
+
+
+def phase_sql(np, torch, tsk, tfk, tmesh, flb, decode_events,
+              appends: list, card: str) -> dict:
+    """Flux's SQL mode: (a) flux-backed on cuda, (b) the same with
+    ``FBTPU_FLUX_MESH=1`` and the state on a hand-built 8-shard mesh of
+    the card, (c) flux-backed on cpu, (d) the exact path on cuda."""
+    n_records = sum(len(r) for r, _ in appends)
+    counters = {"flux_absorb": tfk.fused_absorb,
+                "flux_absorb_mesh": tfk.flux_mesh_launches,
+                "shard_merge": tsk.shard_merge}
+    runs, launches = {}, {}
+    for name, device, exact, mesh in (
+            ("cuda", "cuda", False, None),
+            ("cuda_mesh", "cuda", False,
+             tmesh.Mesh((torch.device("cuda", 0),) * MESH_N, "flux")),
+            ("cpu", "cpu", False, None), ("exact", "cuda", True, None)):
+        for c in counters.values():
+            c.launches = 0
+        if mesh is not None:
+            os.environ["FBTPU_FLUX_MESH"] = "1"
+        try:
+            runs[name] = run_sql(np, torch, flb, decode_events, device,
+                                 appends, exact, mesh)
+        finally:
+            os.environ.pop("FBTPU_FLUX_MESH", None)
+        launches[name] = {k: c.launches for k, c in counters.items()}
+    expected = {"cuda": {"flux_absorb": APPENDS, "flux_absorb_mesh": 0,
+                         "shard_merge": 0},
+                # the query has no top-k: merges of the counts and the
+                # one register stack
+                "cuda_mesh": {"flux_absorb": MESH_N * APPENDS,
+                              "flux_absorb_mesh": MESH_N * APPENDS,
+                              "shard_merge": 2 * APPENDS},
+                "cpu": dict.fromkeys(counters, 0),
+                "exact": dict.fromkeys(counters, 0)}
+    prints = {name: [flux_snapshot_print(np, s) for s in runs[name]["snaps"]]
+              for name in ("cuda", "cuda_mesh", "cpu")}
+    check = sql_check(np, tsk, appends, runs["cuda"]["rows"],
+                      runs["exact"]["rows"])
+    res = {"records": n_records, "appends": len(appends),
+           "rows": len(runs["cuda"]["rows"]),
+           "rows_equal_mesh": runs["cuda"]["rows"] == runs["cuda_mesh"]["rows"],
+           "rows_equal_cpu": runs["cuda"]["rows"] == runs["cpu"]["rows"],
+           "states_equal_mesh": prints["cuda"] == prints["cuda_mesh"],
+           "states_equal_cpu": prints["cuda"] == prints["cpu"],
+           "snapshots": len(prints["cuda"]),
+           "mesh_spec": runs["cuda_mesh"]["spec_mesh"],
+           "launches": launches, "expected_launches": expected, **check,
+           **{f"{name}_lines_per_s": n_records / run["wall"]
+              for name, run in runs.items()}, "card": card}
+    log("sql: " + json.dumps(res))
+    failed = [k for k in ("rows_equal_mesh", "rows_equal_cpu",
+                          "states_equal_mesh", "states_equal_cpu",
+                          "mesh_spec") if not res[k]]
+    if check["n_failures"]:
+        failed.append("check")
+    if launches != expected:
+        failed.append("launches")
+    if failed:
+        raise SystemExit(f"sql failed {failed}: {res}")
     return res
 
 
@@ -1935,11 +2418,11 @@ PARSERS_CONF = {
                     Time_Format=TIME_FORMAT,
                     Types="code:integer size:integer"),
 }
-CONFIG2_LINES = 262_144   # as config 3's file; Fluent Bit's own
-# utf8_surrogate_bench corpus is not in the repo. Config 2r is cut to half
-# that to keep the whole smoke near 400 s (it ran 411 s at 262,144)
+CONFIG2_LINES = 131_072   # as config 3's file; Fluent Bit's own
+# utf8_surrogate_bench corpus is not in the repo. Config 2r is cut to the
+# same size to keep the whole smoke near 450 s
 CONFIG2R_LINES = 131_072
-UTF8_B = 4096             # K11's staged rows per launch: 64 over the file
+UTF8_B = 4096             # K11's staged rows per launch: 32 over the file
 MSG_WORDS = {  # the msg text of a config 2 line, by kind
     "ascii": ["request", "served", "from", "cache", "in", "ms", "user",
               "login", "ok", "retry"],
@@ -2474,33 +2957,58 @@ def main() -> int:
                          for n, v in cuda_build.libraries.build_log.items()}}
     log("build: " + json.dumps(build))
 
-    variants = phase_kernels(np, torch, tg, compile_dfa, args.seed)
+    seconds = {}
+    mark = [time.perf_counter()]
+
+    def timed(name, fn, *fargs):
+        """Run one phase and note its wall seconds."""
+        out = fn(*fargs)
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+        return out
+
+    variants = timed("kernels", phase_kernels, np, torch, tg, compile_dfa,
+                     args.seed)
     appends = make_appends(args.seed, APPENDS, RECORDS)
-    pipeline = phase_pipeline(tg, flb, decode_events, appends, env["card"])
+    pipeline = timed("pipeline", phase_pipeline, tg, flb, decode_events,
+                     appends, env["card"])
     chunks = encode_chunks(encode_event, EventTime, appends)
-    raw_chunks = phase_raw_chunks(tg, flb, decode_events, chunks, appends,
-                                  env["card"])
-    mesh = phase_mesh(np, torch, tg, tmesh, compile_dfa, flb, chunks,
-                      args.seed, env["card"])
-    sketches = phase_sketch_kernels(np, torch, tsk, args.seed)
-    config4 = phase_config4(np, torch, tsk, flb, args.seed, env["card"],
-                            sketches)
-    flux_kernels = phase_flux_kernels(np, torch, tsk, tfk, args.seed)
-    flux = phase_flux(np, torch, tsk, tfk, flb, decode_events, args.seed,
-                      env["card"], flux_kernels, sketches)
-    assoc = phase_assoc_kernels(np, torch, tg, compile_dfa, args.seed)
-    config3 = phase_config3(tg, flb, decode_events, args.seed, env["card"],
-                            assoc)
+    raw_chunks = timed("raw_chunks", phase_raw_chunks, tg, flb,
+                       decode_events, chunks, appends, env["card"])
+    mesh = timed("mesh", phase_mesh, np, torch, tg, tmesh, compile_dfa, flb,
+                 chunks, args.seed, env["card"])
+    sketches = timed("sketch_kernels", phase_sketch_kernels, np, torch, tsk,
+                     args.seed)
+    config4 = timed("config4", phase_config4, np, torch, tsk, flb, args.seed,
+                    env["card"], sketches)
+    flux_kernels = timed("flux_kernels", phase_flux_kernels, np, torch, tsk,
+                         tfk, args.seed)
+    flux_appends = make_flux_appends(np, args.seed)
+    flux = timed("flux", phase_flux, np, torch, tsk, tfk, tmesh, flb,
+                 decode_events, flux_appends, env["card"], flux_kernels,
+                 sketches)
+    merge = timed("merge_kernel", phase_merge_kernel, torch, tsk, args.seed)
+    mesh_sketch = timed("mesh_sketch", phase_mesh_sketch, np, torch, tsk,
+                        tfk, tmesh, assemble, args.seed)
+    sql = timed("sql", phase_sql, np, torch, tsk, tfk, tmesh, flb,
+                decode_events, flux_appends[:APPENDS], env["card"])
+    assoc = timed("assoc_kernels", phase_assoc_kernels, np, torch, tg,
+                  compile_dfa, args.seed)
+    config3 = timed("config3", phase_config3, tg, flb, decode_events,
+                    args.seed, env["card"], assoc)
     # ~5% of config 2's times do not parse: the parser logs each one at
     # WARNING, as the reference does; keep them off the run's stderr
     logging.getLogger("flb.parser").setLevel(logging.ERROR)
     ndjson = ndjson_corpus(args.seed, CONFIG2_LINES)
-    utf8 = phase_utf8_kernels(np, torch, tu, assemble,
-                              ndjson.split(b"\n")[:-1])
-    config2 = phase_config2(np, torch, tu, assemble, flb, decode_events,
-                            ndjson, env["card"])
-    config2r = phase_config2r(np, torch, tg, assemble, flb, decode_events,
-                              args.seed, env["card"])
+    utf8 = timed("utf8_kernels", phase_utf8_kernels, np, torch, tu, assemble,
+                 ndjson.split(b"\n")[:-1])
+    config2 = timed("config2", phase_config2, np, torch, tu, assemble, flb,
+                    decode_events, ndjson, env["card"])
+    config2r = timed("config2r", phase_config2r, np, torch, tg, assemble, flb,
+                     decode_events, args.seed, env["card"])
+    log("phase_seconds (each with the data made before it): "
+        + json.dumps(seconds))
 
     main_shape = next(v for v in variants
                       if v["program"] == "apache2" and v["shape"][1] == 4096)
@@ -2615,6 +3123,65 @@ def main() -> int:
         "ms": main_k11["ms"], "plain_ms": main_k11["plain_ms"],
         "bound_ms": main_k11["bound_ms"], "bound_by": main_k11["bound_by"],
         "library_ms": None, "shape": main_k11["shape"], "variants": utf8})
+    main_merge = next(r for r in merge if r["op"] == "max")
+    kernels["kernels"].append({
+        "name": "shard_merge", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/sketch.cu",
+        "replaces": "fluentbit_tpu/flux/kernels.py:232",
+        "fuses": ["fluentbit_tpu/flux/kernels.py:221",
+                  "fluentbit_tpu/flux/kernels.py:242",
+                  "fluentbit_tpu/flux/kernels.py:129",
+                  "fluentbit_tpu/ops/sketch.py:440",
+                  "fluentbit_tpu/ops/sketch.py:506"],
+        "launches": sql["launches"]["cuda_mesh"]["shard_merge"],
+        "launches_flux_filter_mesh": flux["mesh_launches"]["shard_merge"],
+        "max_abs_err": max(r["max_abs_err"] for r in merge),
+        "ms": main_merge["ms"], "plain_ms": main_merge["plain_ms"],
+        "bound_ms": main_merge["bound_ms"],
+        "bound_by": main_merge["bound_by"],
+        "library_ms": main_merge["library_ms"],
+        "library": "torch.amax(parts, 0) (torch.sum(parts, 0) for add)",
+        "shape": main_merge["shape"], "variants": merge})
+    mesh_rows = {
+        "hll": ("hll_mesh", "fluentbit_tpu/ops/sketch.py:449",
+                ["fluentbit_tpu/ops/sketch.py:421",
+                 "fluentbit_tpu/ops/sketch.py:478",
+                 "fluentbit_tpu/ops/sketch.py:400"], RECORDS),
+        "cms": ("cms_mesh", "fluentbit_tpu/ops/sketch.py:515",
+                ["fluentbit_tpu/ops/sketch.py:486",
+                 "fluentbit_tpu/ops/sketch.py:542"], RECORDS),
+        "segment_counts": ("segment_counts_mesh",
+                           "fluentbit_tpu/flux/kernels.py:139",
+                           ["fluentbit_tpu/flux/kernels.py:110"], RECORDS),
+        "fused_absorb": ("flux_absorb_mesh",
+                         "fluentbit_tpu/flux/kernels.py:348",
+                         ["fluentbit_tpu/flux/kernels.py:189",
+                          "fluentbit_tpu/flux/kernels.py:287"], RECORDS)}
+    for program, (name, at, fuses, B) in mesh_rows.items():
+        cases = [r for r in mesh_sketch if r["program"] == program]
+        main = next(r for r in cases if r["shards"] == MESH_N
+                    and r["shape"][0] == B)
+        on_path = program == "fused_absorb"
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": ("fluentbit_tpu_torch/flux/kernels.py"
+                       if program in ("segment_counts", "fused_absorb")
+                       else "fluentbit_tpu_torch/ops/sketch.py"),
+            "kernels": ["fluentbit_tpu_torch/csrc/sketch.cu"],
+            "replaces": at, "fuses": fuses, "on_main_path": on_path,
+            # K10's mesh half: the SQL run on the 8-shard mesh; the
+            # others have no caller in the pipeline, as in the reference:
+            # their own phase's shard launches over n = 1, 2, 8
+            "launches": (sql["launches"]["cuda_mesh"]["flux_absorb_mesh"]
+                         if on_path else
+                         sum(next(iter(r["launches"].values()))
+                             for r in cases)),
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "unsharded_ms": main["unsharded_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main.get("library_ms"), "shape": main["shape"],
+            "shards": MESH_N, "variants": cases})
     log(f"total_seconds: {time.perf_counter() - t_all:.1f}")
     log(env["card"])
     log(json.dumps(kernels))

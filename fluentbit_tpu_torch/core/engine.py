@@ -11,10 +11,12 @@ in_tail look up, server inputs listening on the engine's loop, and a
 flush timer that drains the pools to the outputs, with the grace window
 at stop. The engine's ``metrics`` registry holds the flux families, and
 ``_ingest_src`` names the input whose append the filter chain is running
-(flux skips its own emitter's rows by it). Storage, qos, guard,
-failpoints, the admin HTTP server, the stream processor, multiline,
-retries, the raw path's batch hooks (``process_batch``) and its per-input
-parallel lock wait for later slices.
+(flux skips its own emitter's rows by it). The stream processor
+(``sp_task``) runs on each append's filtered events, after the filter
+chain; a sketch-eligible query reads a hidden flux filter's state
+instead. Storage, qos, guard, failpoints, the admin HTTP server,
+multiline, retries, the raw path's batch hooks (``process_batch``) and
+its per-input parallel lock wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -76,6 +79,7 @@ class Engine:
         self._ingest_lock = threading.RLock()
         self._start_error: Optional[BaseException] = None
         self._pending_flushes: set = set()
+        self.sp = None  # the stream processor, made by the first sp_task
 
     # ------------------------------------------------------------------
     # configuration
@@ -101,7 +105,15 @@ class Engine:
     def filter(self, name: str, **props) -> FilterInstance:
         ins = self._make_instance(self.registry.create_filter, name, props,
                                   self.filters)
-        self.filters = self.filters + [ins]
+        # the hidden flux filters of SQL queries stand in for the stream
+        # processor, which runs after the filter chain: a filter added
+        # later still goes before them
+        pos = len(self.filters)
+        while pos and getattr(self.filters[pos - 1], "_flux_sql_hidden",
+                              False):
+            pos -= 1
+        with self._ingest_lock:
+            self.filters = self.filters[:pos] + [ins] + self.filters[pos:]
         return ins
 
     def output(self, name: str, **props) -> OutputInstance:
@@ -128,7 +140,88 @@ class Engine:
             self.inputs = self.inputs + [ins]
         ins.configure()
         ins.plugin.init(ins, self)
+        ins._initialized = True  # start() leaves it as it is
         return ins
+
+    def hidden_filter(self, name: str, preset_state, **props
+                      ) -> FilterInstance:
+        """Create, initialize and append the hidden flux filter of an SQL
+        query (``flux.query.attach_flux``): it absorbs into
+        ``preset_state``, stays at the tail of the chain, and
+        ``start()`` does not initialize it again."""
+        ins = self._make_instance(self.registry.create_filter, name, props,
+                                  self.filters)
+        ins.plugin._preset_state = preset_state
+        ins.plugin._sql_mode = True
+        ins._flux_sql_hidden = True
+        ins.configure()
+        ins.plugin.init(ins, self)
+        ins._initialized = True
+        with self._ingest_lock:
+            self.filters = self.filters + [ins]
+        return ins
+
+    def sp_task(self, sql: str, allow_flux: bool = True):
+        """Register a stream-processor query (flb_sp_create task;
+        [STREAM_TASK] Exec). The SP runs synchronously after the filter
+        chain at ingest (src/flb_input_chunk.c:3155) and its window timer
+        rides a 0.5 s collector on the SP's hidden emitter, scheduled
+        here when the engine already runs.
+
+        A sketch-eligible query resolves against the flux plane
+        (``flux.query.attach_flux``): a hidden ``flux`` filter keeps the
+        aggregation state on the engine's device, and the task reads its
+        windows from it. ``allow_flux=False``, ``WITH (flux='off')`` or
+        ``FBTPU_FLUX_SQL=off`` pin the exact per-event evaluation. When
+        ``attach_flux`` raises, so does this call (the reference package
+        logs and keeps the exact path)."""
+        from ..stream_processor import StreamProcessor
+
+        if self.sp is None:
+            self.sp = StreamProcessor(self)
+        task = self.sp.create_task(sql)
+        if allow_flux and os.environ.get(
+                "FBTPU_FLUX_SQL", "on").lower() not in ("0", "off"):
+            from ..flux.query import attach_flux
+
+            try:
+                attach_flux(self, task)
+            except Exception:
+                self.sp.tasks.remove(task)
+                raise
+        if self.sp._emitter is None:
+            ins = self.hidden_input("emitter",
+                                    alias="emitter_for_stream_processor")
+            self.sp._emitter = ins.plugin
+            self.sp.emitter_instance = ins
+            sp = self.sp
+
+            def _tick(_engine):
+                with self._ingest_lock:
+                    sp.tick()
+
+            ins.plugin.collect_interval = 0.5
+            ins.plugin.collect = _tick
+            self.ensure_collector(ins)
+        return task
+
+    def ensure_collector(self, ins: InputInstance) -> None:
+        """Schedule the interval collector of an input made after
+        ``start()`` (``_main`` schedules the others)."""
+        loop = self.loop
+        if not self.running or loop is None \
+                or ins.plugin.collect_interval is None:
+            return
+
+        def _schedule():
+            if ins.collector_task is None and not self._stopping:
+                ins.collector_task = asyncio.ensure_future(
+                    self._collector(ins))
+
+        try:
+            loop.call_soon_threadsafe(_schedule)
+        except RuntimeError:  # loop closed mid-stop
+            pass
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -139,6 +232,8 @@ class Engine:
         if self._thread is not None:
             raise RuntimeError("engine already started")
         for ins in self.inputs + self.filters + self.outputs:
+            if getattr(ins, "_initialized", False):
+                continue  # hidden instances are initialized at creation
             ins.configure()
             ins.plugin.init(ins, self)
         self._stopping = False
@@ -221,11 +316,19 @@ class Engine:
             log.warning("engine thread did not exit within %.1fs at stop()",
                         self.service.grace + 10)
         self._thread = None
-        for ins in self.inputs + self.filters + self.outputs:
-            try:
-                ins.plugin.exit()
-            except Exception:
-                log.exception("%s exit failed", ins.display_name)
+        try:
+            if self.sp is not None and self.sp.tasks:
+                # the open SQL windows: their rows go through the chain
+                # and are flushed here, the engine thread having ended
+                with self._ingest_lock:
+                    self.sp.drain()
+                self.flush_all()
+        finally:
+            for ins in self.inputs + self.filters + self.outputs:
+                try:
+                    ins.plugin.exit()
+                except Exception:
+                    log.exception("%s exit failed", ins.display_name)
 
     @property
     def running(self) -> bool:
@@ -242,23 +345,32 @@ class Engine:
         input's chunk pool. Returns the records written.
 
         When every filter whose route matches the tag ``can_filter_raw``
-        (the reference's ``raw_ok`` gate, fluentbit_tpu/core/engine.py:
-        1080-1122, with no processors, stream processor, conditional
-        routing or trace in the port), the chain runs on the raw bytes.
-        A filter that declines (returns None) sends the append down the
-        decoded path: decode, filter chain, re-encode of modified events.
+        and no exact stream-processor task matches it (the reference's
+        ``raw_ok`` gate, fluentbit_tpu/core/engine.py:1069-1122, with no
+        processors, conditional routing or trace in the port), the chain
+        runs on the raw bytes. A filter that declines (returns None)
+        sends the append down the decoded path: decode, filter chain, the
+        stream processor on the kept events, re-encode of modified
+        events. A flux-backed SQL task does not force the decoded path:
+        its hidden flux filter absorbs inside the chain.
 
-        A filter that raises fails the append: neither path has a silent
-        pass-through (the reference package logs and continues)."""
+        A filter or stream-processor task that raises fails the append:
+        no path has a silent pass-through (the reference package logs and
+        continues)."""
         tag = tag or ins.tag or ins.plugin.name
         matching = [f for f in self.filters if f.route.matches(tag)]
+        sp = self.sp
+        sp_on = sp is not None and ins is not sp.emitter_instance
+        sp_active = sp_on and any(t.matches(tag) and t.flux is None
+                                  for t in sp.tasks)
         with self._ingest_lock:
             # saved and restored: an emitter re-enters this method from
             # inside the chain, and the outer chain's remaining filters
             # must see the outer append's source again
             prev_src, self._ingest_src = self._ingest_src, ins
             try:
-                if all(f.plugin.can_filter_raw() for f in matching):
+                if not sp_active and all(f.plugin.can_filter_raw()
+                                         for f in matching):
                     got = self._ingest_raw(ins, tag, data, matching,
                                            n_records)
                     if got is not None:
@@ -268,6 +380,11 @@ class Engine:
                 self._ingest_src = prev_src
             if not events:
                 return 0
+            if sp_on and sp.tasks:
+                # flb_sp_do on the filtered records, never on the SP's
+                # own emitted rows (a task whose pattern matches its
+                # output tag must not feed itself)
+                sp.do(events, tag)
             payload = b"".join(
                 ev.raw if ev.raw is not None else reencode_event(ev)
                 for ev in events)

@@ -13,7 +13,11 @@
 //      one launch
 //   K9 _counts_impl (flux/kernels.py:80): K10's counts-only launch
 // and updates the sketch state in place, which is the reference's
-// functional result committed. (The flux caller hands K10 freshly
+// functional result committed. It also holds the merge of the sharded
+// programs (K8 ops/sketch.py:421/486, K9's and K10's mesh halves
+// flux/kernels.py:110/348): each shard runs the kernels above into a
+// zeroed partial state, and shard_merge folds the n partials into the
+// base, the reference's lax.pmax / lax.psum (see shard_merge_kernel). (The flux caller hands K10 freshly
 // assembled stacks and a copy of the table, and commits after it
 // returns: snapshot in, commit on finish.)
 //
@@ -190,6 +194,48 @@ flux_absorb_kernel(const int32_t* __restrict__ seg,
   }
 }
 
+// The shard merge: base[i] = max(base[i], parts[s][i]) (op 0, HLL
+// registers and register stacks) or base[i] + sum over s of parts[s][i]
+// (op 1, counts and count-min deltas) for s in [0, n), parts a
+// contiguous [n, numel] buffer. The reference's pmax(max(snapshot,
+// updates of shard s)) is max(snapshot, max over s of the updates), and
+// its table + psum(delta) is the table plus the sum of the deltas, so
+// this equals it bit for bit. Adds go through the unsigned type of the
+// same width: two's complement wraps exactly as XLA's integer adds do.
+//
+// What bounds it on an H100: bytes. Each element reads n + 1 words and
+// writes one, with no reuse, so one thread per element, grid-stride,
+// with neighbouring threads on neighbouring words (coalesced), is the
+// whole design; the n loads of a thread are independent and in flight
+// together. At its largest operand, 8 partial stacks of 512 x 4096
+// int32, that is 72 MiB of traffic, ~0.02 ms at HBM3's rate. Wider
+// loads (int4) and folding the merge into the shards' last launch are
+// later levers.
+template <typename S, typename U>
+__global__ void __launch_bounds__(kThreads)
+shard_merge_kernel(const S* __restrict__ parts, int n, S* __restrict__ base,
+                   long long numel, int op_add) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < numel; i += stride) {
+    S acc = base[i];
+    if (op_add) {
+      U sum = static_cast<U>(acc);
+      for (int s = 0; s < n; ++s) {
+        sum += static_cast<U>(__ldg(parts + s * numel + i));
+      }
+      acc = static_cast<S>(sum);
+    } else {
+      for (int s = 0; s < n; ++s) {
+        const S v = __ldg(parts + s * numel + i);
+        acc = v > acc ? v : acc;
+      }
+    }
+    base[i] = acc;
+  }
+}
+
 int grid_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -251,5 +297,28 @@ extern "C" int flux_absorb_launch(const void* seg, const void* valid, int B,
       static_cast<const FluxField*>(fields), F, L, p, vec16,
       static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_len),
       Bc, W, comp_vec16, static_cast<int32_t*>(table), d, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard merge. parts i32 or i64 [n, numel] (contiguous), base the same
+// dtype [numel]: op 0 takes the max, op 1 adds (table_i64 = 1 for i64).
+// Nothing is launched when numel or n is 0.
+extern "C" int shard_merge_launch(const void* parts, int n, void* base,
+                                  long long numel, int op, int table_i64,
+                                  void* stream) {
+  if (numel <= 0 || n <= 0) return 0;
+  // a grid-stride loop: at most 16 blocks of 256 per SM of the 132
+  const long long want = (numel + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (table_i64) {
+    shard_merge_kernel<long long, unsigned long long>
+        <<<grid, kThreads, 0, s>>>(static_cast<const long long*>(parts), n,
+                                   static_cast<long long*>(base), numel, op);
+  } else {
+    shard_merge_kernel<int, unsigned int><<<grid, kThreads, 0, s>>>(
+        static_cast<const int*>(parts), n, static_cast<int*>(base), numel,
+        op);
+  }
   return static_cast<int>(cudaGetLastError());
 }

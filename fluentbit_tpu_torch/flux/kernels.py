@@ -10,22 +10,35 @@ kernel in ``csrc/sketch.cu``:
   scatter-maxed into a per-group register stack ``stack[seg, idx] max=
   rank``, and K7's weight-1 count-min update of the top-k composites.
 
+Their mesh halves run over an ``ops.mesh.Mesh`` (``flux_mesh`` builds
+one over the visible CUDA devices, None below two; a mesh built by hand
+may repeat a device): ``sharded_segment_counts`` (K9's, the reference's
+``build_sharded_counts`` / ``sharded_segment_counts``) and
+``sharded_fused_absorb`` (K10's). The batch columns pad to a multiple of
+the shard count (pad rows: segment 0, valid 0, length -1; the
+composites pad along their own rows) and shard by the ``flux-counts`` /
+``flux-fused`` partition rules; each shard launches the kernel into
+zeroed partial counts, stacks and a zeroed count-min delta on its
+device; then ``ops.sketch.shard_merge`` folds them: counts and delta by
+sum (the reference's ``psum``), each stack by max into the stack it was
+given (``pmax``). Integer merges make the result equal the reference's
+bit for bit. ``flux_mesh_launches`` counts the shard launches.
+
 The wrappers take the plain version for CPU tensors and launch the
 kernel for CUDA tensors (anything else raises); a failed build or launch
 raises. Each wrapper counts its launches in ``launches``.
 
-``fused_absorb`` updates the stacks and the table it is given in place.
-The caller (``FluxState._fused_absorb``) hands it freshly assembled
-stacks and a copy of the table and commits them after the launch has
-returned — the reference's snapshot-in / commit-on-finish contract
-(``_fused_call``). Integer scatters (add, max) make every route give the
-same state bit for bit.
+``fused_absorb`` and ``sharded_fused_absorb`` update the stacks and the
+table they are given in place. The caller (``FluxState._fused_absorb``)
+hands them freshly assembled stacks and a copy of the table and commits
+them after the launch has returned — the reference's snapshot-in /
+commit-on-finish contract (``_fused_call``). Integer scatters (add, max)
+make every route give the same state bit for bit.
 
 The reference's jit buckets (``_pad_segments``, ``_pad_rows_to``) exist
 for XLA's shape cache and are not carried over: pad rows are no-ops, and
-results cover ``[:n_seg]`` only. The mesh programs (``flux_mesh``,
-``build_sharded_counts``, ``sharded_*``) and ``guarded_segment_counts``
-wait for multi-GPU and the fault domain.
+results cover ``[:n_seg]`` only. ``guarded_segment_counts`` waits for
+the device fault lane.
 """
 
 from __future__ import annotations
@@ -36,11 +49,17 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.mesh import (Mesh, MeshLaunches, build_mesh, pad_to_devices,
+                        partition_rules, shard_leaf)
 from ..ops.sketch import (_SketchKernel, _check_rows, _vec16,
-                          cms_update_plain, hll_index_rank_plain)
+                          cms_update_plain, gather_partials,
+                          hll_index_rank_plain, pad_rows, shard_merge,
+                          shard_partials)
 
 __all__ = ["host_segment_counts", "segment_counts_plain",
-           "fused_absorb_plain", "segment_counts", "fused_absorb"]
+           "fused_absorb_plain", "segment_counts", "fused_absorb",
+           "flux_mesh", "sharded_segment_counts", "sharded_fused_absorb",
+           "flux_mesh_launches"]
 
 Rows = Tuple[torch.Tensor, torch.Tensor]
 
@@ -62,11 +81,15 @@ def host_segment_counts(seg: np.ndarray, valid: np.ndarray,
 
 
 def segment_counts_plain(seg: torch.Tensor, valid: torch.Tensor,
-                         n_seg: int) -> torch.Tensor:
+                         n_seg: int,
+                         counts: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``zeros(n_seg).at[seg].add(valid)`` in int32 (``_counts_impl``);
-    ``seg`` must lie in ``[0, n_seg)``."""
-    out = torch.zeros((n_seg,), dtype=torch.int32, device=seg.device)
-    return out.index_add_(0, seg.long(), valid.to(torch.int32))
+    ``seg`` must lie in ``[0, n_seg)``. With ``counts`` (int32
+    ``[n_seg]``), the rows add into it, and it is returned."""
+    if counts is None:
+        counts = torch.zeros((n_seg,), dtype=torch.int32, device=seg.device)
+    return counts.index_add_(0, seg.long(), valid.to(torch.int32))
 
 
 def fused_absorb_plain(seg: torch.Tensor, valid: torch.Tensor,
@@ -74,13 +97,15 @@ def fused_absorb_plain(seg: torch.Tensor, valid: torch.Tensor,
                        comp: Optional[torch.Tensor] = None,
                        comp_len: Optional[torch.Tensor] = None,
                        table: Optional[torch.Tensor] = None, *, hll_p: int,
-                       n_seg: int) -> torch.Tensor:
-    """The fused absorb in torch ops: returns the counts, and updates each
-    field's ``stack`` [n_seg, 2^p] (scatter-max of the rows' ranks at
-    ``seg * 2^p + idx``) and ``table`` (weight-1 count-min update of the
-    composites) in place. A row with a negative length has rank 0, a
-    no-op under max, so pad rows may carry any segment id."""
-    counts = segment_counts_plain(seg, valid, n_seg)
+                       n_seg: int,
+                       counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused absorb in torch ops: returns the counts (added into
+    ``counts`` when given), and updates each field's ``stack`` [n_seg,
+    2^p] (scatter-max of the rows' ranks at ``seg * 2^p + idx``) and
+    ``table`` (weight-1 count-min update of the composites) in place. A
+    row with a negative length has rank 0, a no-op under max, so pad rows
+    may carry any segment id."""
+    counts = segment_counts_plain(seg, valid, n_seg, counts)
     seg64 = seg.long() << hll_p
     for (batch, lengths), stack in zip(fields, stacks):
         idx, rank = hll_index_rank_plain(batch, lengths, hll_p)
@@ -117,7 +142,7 @@ class _FluxLaunch(_SketchKernel):
              fields: Sequence[Rows], stacks: Sequence[torch.Tensor],
              comp: Optional[torch.Tensor], comp_len: Optional[torch.Tensor],
              table: Optional[torch.Tensor], hll_p: int,
-             n_seg: int) -> torch.Tensor:
+             n_seg: int, counts: Optional[torch.Tensor]) -> torch.Tensor:
         dev = seg.device
         if dev.type != "cuda":
             raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
@@ -152,7 +177,10 @@ class _FluxLaunch(_SketchKernel):
             Bc, W = comp.shape
             d, w = table.shape
             comp_vec16 = _vec16(comp)
-        counts = torch.zeros((n_seg,), dtype=torch.int32, device=dev)
+        if counts is None:
+            counts = torch.zeros((n_seg,), dtype=torch.int32, device=dev)
+        else:
+            _check_i32(name, "counts", counts, (n_seg,), dev)
         ptrs = None
         if fields:
             # FluxField {batch, lengths, stack} per field, as a device array
@@ -186,13 +214,14 @@ class FusedAbsorb(_FluxLaunch):
                  comp: Optional[torch.Tensor] = None,
                  comp_len: Optional[torch.Tensor] = None,
                  table: Optional[torch.Tensor] = None, *, hll_p: int,
-                 n_seg: int) -> torch.Tensor:
+                 n_seg: int,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
         if seg.device.type == "cpu":
             return fused_absorb_plain(seg, valid, fields, stacks, comp,
                                       comp_len, table, hll_p=hll_p,
-                                      n_seg=n_seg)
+                                      n_seg=n_seg, counts=counts)
         return self._run("fused_absorb", seg, valid, fields, stacks, comp,
-                         comp_len, table, hll_p, n_seg)
+                         comp_len, table, hll_p, n_seg, counts)
 
 
 class SegmentCounts(_FluxLaunch):
@@ -200,13 +229,123 @@ class SegmentCounts(_FluxLaunch):
     :func:`segment_counts_plain`, CUDA tensors the kernel."""
 
     def __call__(self, seg: torch.Tensor, valid: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
+                 n_seg: int,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
         if seg.device.type == "cpu":
-            return segment_counts_plain(seg, valid, n_seg)
+            return segment_counts_plain(seg, valid, n_seg, counts)
         return self._run("segment_counts", seg, valid, (), (), None, None,
-                         None, 0, n_seg)
+                         None, 0, n_seg, counts)
 
 
 #: the process's flux kernel wrappers (one build, one launch count each)
 fused_absorb = FusedAbsorb()
 segment_counts = SegmentCounts()
+#: the mesh halves' shard launches (K9 and K10 count them too)
+flux_mesh_launches = MeshLaunches()
+
+
+# ---------------------------------------------------------------------------
+# the mesh halves: per-shard launches into zeroed partials, then the merge
+# ---------------------------------------------------------------------------
+
+
+def flux_mesh(n_devices: Optional[int] = None) -> Optional[Mesh]:
+    """A mesh over the visible CUDA devices (axis ``flux``); None below
+    two (sharding would be pure overhead)."""
+    return build_mesh(n_devices, axis="flux")
+
+
+def _shard_col(mesh: Mesh, rules, name: str, x: torch.Tensor, i: int,
+               dev: torch.device) -> torch.Tensor:
+    """Shard ``i``'s slice of the batch column ``name`` on its device."""
+    part = shard_leaf(rules, name, x, mesh.axis_names[0], mesh.size, i)
+    return part.to(dev, non_blocking=True).contiguous()
+
+
+def sharded_segment_counts(mesh: Mesh, seg: torch.Tensor,
+                           valid: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """K9's mesh half: ``seg`` / ``valid`` int32 ``[B]`` pad to the shard
+    multiple (segment 0, valid 0), shard by the ``flux-counts`` rules,
+    each shard counts into its zeroed partial, and the partials' sum is
+    the int32 ``[n_seg]`` result on the mesh's first device."""
+    n = mesh.size
+    Bp = pad_to_devices(seg.shape[0], n)
+    seg, valid = pad_rows(seg, Bp, 0), pad_rows(valid, Bp, 0)
+    counts = torch.zeros((n_seg,), dtype=torch.int32, device=mesh.devices[0])
+    if Bp == 0 or n_seg == 0:
+        return counts
+    rules = partition_rules("flux-counts", mesh.axis_names[0])
+    parts, outs = shard_partials(mesh, (n_seg,), torch.int32)
+    for i, (dev, out) in enumerate(zip(mesh.devices, outs)):
+        segment_counts(_shard_col(mesh, rules, "seg", seg, i, dev),
+                       _shard_col(mesh, rules, "valid", valid, i, dev),
+                       n_seg, out)
+        if dev.type == "cuda":
+            flux_mesh_launches.launches += 1
+    gather_partials(mesh, parts, outs)
+    shard_merge(parts, counts, "add")
+    return counts
+
+
+def sharded_fused_absorb(mesh: Mesh, seg: torch.Tensor, valid: torch.Tensor,
+                         fields: Sequence[Rows],
+                         stacks: Sequence[torch.Tensor],
+                         comp: Optional[torch.Tensor] = None,
+                         comp_len: Optional[torch.Tensor] = None,
+                         table: Optional[torch.Tensor] = None, *, hll_p: int,
+                         n_seg: int) -> torch.Tensor:
+    """K10's mesh half (the reference's ``sharded_fused_absorb``): what
+    :func:`fused_absorb` computes, over ``mesh``. The batch columns pad
+    to the shard multiple (segment 0, valid 0, lengths -1) and the
+    composites to theirs (length -1); shard i launches K10 over its rows
+    and composites into zeroed partial counts, stacks and delta; the
+    merges add the counts, take each stack's max into ``stacks`` and add
+    the delta into ``table``, both in place (they live on the mesh's
+    first device: the caller's fresh snapshot, never live state).
+    Returns the int32 ``[n_seg]`` counts."""
+    n = mesh.size
+    dev0 = mesh.devices[0]
+    Bp = pad_to_devices(seg.shape[0], n)
+    seg, valid = pad_rows(seg, Bp, 0), pad_rows(valid, Bp, 0)
+    fields = [(pad_rows(b, Bp, 0), pad_rows(ln, Bp, -1))
+              for b, ln in fields]
+    has_cms = comp is not None and table is not None
+    Bc = 0
+    if has_cms:
+        Bc = pad_to_devices(comp.shape[0], n)
+        comp, comp_len = pad_rows(comp, Bc, 0), pad_rows(comp_len, Bc, -1)
+    counts = torch.zeros((n_seg,), dtype=torch.int32, device=dev0)
+    if Bp == 0 and Bc == 0:
+        return counts
+    rules = partition_rules("flux-fused", mesh.axis_names[0])
+    p_counts, o_counts = shard_partials(mesh, (n_seg,), torch.int32)
+    p_stacks, o_stacks = zip(*[shard_partials(mesh, tuple(st.shape),
+                                              torch.int32)
+                               for st in stacks]) if stacks else ((), ())
+    p_delta = o_delta = None
+    if has_cms:
+        p_delta, o_delta = shard_partials(mesh, tuple(table.shape),
+                                          table.dtype)
+    for i, dev in enumerate(mesh.devices):
+        def col(name, x):
+            return _shard_col(mesh, rules, name, x, i, dev)
+
+        fused_absorb(
+            col("seg", seg), col("valid", valid),
+            [(col("batch", b), col("lengths", ln)) for b, ln in fields],
+            [o[i] for o in o_stacks],
+            col("comp", comp) if has_cms else None,
+            col("comp_len", comp_len) if has_cms else None,
+            o_delta[i] if has_cms else None, hll_p=hll_p, n_seg=n_seg,
+            counts=o_counts[i])
+        if dev.type == "cuda":  # the shard's rows or composites: >= 1
+            flux_mesh_launches.launches += 1
+    gather_partials(mesh, p_counts, o_counts)
+    shard_merge(p_counts, counts, "add")
+    for parts, outs, stack in zip(p_stacks, o_stacks, stacks):
+        gather_partials(mesh, parts, outs)
+        shard_merge(parts, stack, "max")
+    if has_cms:
+        gather_partials(mesh, p_delta, o_delta)
+        shard_merge(p_delta, table, "add")
+    return counts

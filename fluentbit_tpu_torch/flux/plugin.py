@@ -11,10 +11,18 @@ pipeline as rows through a hidden emitter under ``tag``, and the
 The window timer rides the hidden emitter's interval collector
 (``tick_interval_sec``); it closes expired windows, emits their rows,
 refreshes the gauges and writes interval snapshots (``snapshot_path``).
+``mesh`` builds the state with ``spec.mesh``: its absorbs shard over the
+visible CUDA devices (``kernels.flux_mesh``, None below two devices, so
+one card keeps the single-device route).
+
+SQL mode: ``flux.query.attach_flux`` makes a hidden instance through
+``Engine.hidden_filter`` with ``_preset_state`` (the query's state) and
+``_sql_mode`` set. Such an instance has no emitter or tick of its own:
+the SP task reads and drains its windows, and the filter skips the SP
+emitter's rows as well as its own.
 
 Not ported yet: ``process_batch`` (the native column stagers of the raw
-path) and SQL mode (``flux.query``, which waits for the stream
-processor). ``mesh`` is accepted and takes the single-device route.
+path).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from __future__ import annotations
 import collections
 import logging
 import time
-from typing import List
+from typing import List, Optional
 
 from ..codec.events import encode_event, now_event_time
 from ..core.config import ConfigMapEntry
@@ -62,13 +70,18 @@ class FluxFilter(FilterPlugin):
         ConfigMapEntry("sketch_width", "int", default=16384),
         ConfigMapEntry("max_field_len", "int", default=256),
         ConfigMapEntry("mesh", "bool", default=False,
-                       desc="shard sketch updates across devices (one "
-                            "device: the single-device route)"),
+                       desc="shard the absorb across the visible CUDA "
+                            "devices (below two: the single-device "
+                            "route)"),
         ConfigMapEntry("snapshot_path", "str"),
         ConfigMapEntry("snapshot_interval_sec", "int", default=0),
         ConfigMapEntry("export_interval_sec", "str", default="1"),
         ConfigMapEntry("tick_interval_sec", "str", default="0.5"),
     ]
+
+    #: SQL mode: the query's state, built by ``flux.query.attach_flux``
+    _preset_state: Optional[FluxState] = None
+    _sql_mode: bool = False
 
     def init(self, instance, engine) -> None:
         self._engine = engine
@@ -78,6 +91,11 @@ class FluxFilter(FilterPlugin):
         #: host seconds of each exporter refresh that ran (recent ones)
         self.refresh_seconds: collections.deque = collections.deque(
             maxlen=4096)
+        if self._preset_state is not None:
+            self.state = self._preset_state
+            self.exporter = FluxExporter(engine.metrics, self.state,
+                                         min_interval=1.0)
+            return
         self.state = FluxState(FluxSpec(
             name=instance.display_name,
             group_by=self.group_by or (),
@@ -186,7 +204,14 @@ class FluxFilter(FilterPlugin):
         return rows
 
     def _skip_sources(self) -> list:
-        return [] if self._emitter_ins is None else [self._emitter_ins]
+        out = []
+        sp = getattr(self._engine, "sp", None)
+        if self._sql_mode and sp is not None \
+                and sp.emitter_instance is not None:
+            out.append(sp.emitter_instance)
+        if self._emitter_ins is not None:
+            out.append(self._emitter_ins)
+        return out
 
     # ------------------------------------------------------------- filter
 
@@ -210,8 +235,10 @@ class FluxFilter(FilterPlugin):
             self.refresh_seconds.append(time.perf_counter() - t0)
 
     def exit(self) -> None:
-        # configured mode emits what the open window holds
-        if self.tag and self._emitter is not None:
+        # configured mode emits what the open window holds; in SQL mode
+        # the SP task drains it
+        if self._preset_state is None and self.tag \
+                and self._emitter is not None:
             closed = self.state.drain()
             if closed:
                 self._emit_rows(closed, "drain")

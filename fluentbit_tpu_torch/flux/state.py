@@ -17,19 +17,22 @@ keeps:
 
 Each absorb with at most ``_FUSED_MAX_GROUPS`` groups is one
 ``kernels.fused_absorb``: the K10 kernel on a CUDA state, its plain
-version on a CPU state. It runs on freshly assembled register stacks and
-a copy of the table, and the state commits them only after the launch
-has returned (snapshot in, commit on finish): a launch that raises
-leaves the state as it was. Above the cap, counts come from
+version on a CPU state. A state built with ``spec.mesh`` keeps
+``kernels.flux_mesh()`` in ``_mesh`` (None below two CUDA devices; a
+caller may set a hand-built ``ops.mesh.Mesh`` whose first device is the
+state's), and while it is set the absorb is ``kernels.sharded_fused_absorb``
+instead: K10 per shard, then the merges. Either runs on freshly
+assembled register stacks and a copy of the table, and the state
+commits them only after the launch has returned (snapshot in, commit on
+finish): a launch that raises leaves the state as it was. Above the cap, counts come from
 ``host_segment_counts`` and each group's registers take
 ``HyperLogLog.update`` (K6), the composites ``CountMin.update`` (K7).
 Every route gives the same state bit for bit, and the same state as the
 reference package; snapshots (plain Python and numpy) carry across
 between the two packages both ways.
 
-Left out of this port: the ``flux.snapshot`` failpoint, the device
-fault lane and the mesh programs (``spec.mesh`` takes the single-device
-route, as the reference does with one device).
+Left out of this port: the ``flux.snapshot`` failpoint and the device
+fault lane.
 """
 
 from __future__ import annotations
@@ -264,6 +267,7 @@ class FluxState:
         self.spec = spec
         self.device = resolve(device)
         self._now = now or time.time
+        self._mesh = kernels.flux_mesh() if spec.mesh else None
         # processing-time pane machinery
         self._groups: Dict[tuple, _FluxGroup] = {}
         self._panes: List[Dict[tuple, _FluxGroup]] = []
@@ -496,7 +500,8 @@ class FluxState:
 
     def _fused_absorb(self, groups: List[_FluxGroup], seg: np.ndarray,
                       strcols, comp, comp_len) -> np.ndarray:
-        """One ``kernels.fused_absorb`` over freshly assembled state: each
+        """One ``kernels.fused_absorb`` (``sharded_fused_absorb`` over
+        ``_mesh`` when it is set) over freshly assembled state: each
         field's register stack ``[G, 2^p]`` is stacked from the groups'
         registers and the table is cloned; the launch updates those, and
         they are committed only after the counts came back (which waits
@@ -520,10 +525,15 @@ class FluxState:
             comp_t = to_device(comp, torch.uint8, dev)
             comp_len_t = to_device(comp_len, torch.int32, dev)
         t0 = self._step("stage", t0)
-        counts_t = kernels.fused_absorb(seg_t, valid_t, fields, stacks,
-                                        comp_t, comp_len_t, table,
-                                        hll_p=spec.hll_p,
-                                        n_seg=len(groups))
+        if self._mesh is not None:
+            counts_t = kernels.sharded_fused_absorb(
+                self._mesh, seg_t, valid_t, fields, stacks, comp_t,
+                comp_len_t, table, hll_p=spec.hll_p, n_seg=len(groups))
+        else:
+            counts_t = kernels.fused_absorb(seg_t, valid_t, fields, stacks,
+                                            comp_t, comp_len_t, table,
+                                            hll_p=spec.hll_p,
+                                            n_seg=len(groups))
         t0 = self._step("launch", t0)
         counts = counts_t.cpu().numpy()
         # commit: copy each stack row back into its group's own registers

@@ -11,6 +11,8 @@ Usage::
     in_ffd = ctx.input("lib")
     ctx.filter("grep", match="*", regex="log aa")
     ctx.output("lib", callback=cb)
+    ctx.sp_task("CREATE STREAM s WITH (tag='sp.out') AS SELECT COUNT(*) "
+                "FROM TAG:'*' WINDOW TUMBLING (60 SECOND);")
     ctx.start()
     ctx.push(in_ffd, '{"log": "aa"}')
     ctx.stop()
@@ -57,6 +59,14 @@ class FLBContext:
         accumulate multi-value keys (grep's Regex/Exclude rules)."""
         for k, v in props.items():
             self._handles[ffd].set(k, v)
+
+    def sp_task(self, sql: str):
+        """Register a stream-processor SQL query ([STREAM_TASK] Exec):
+        ``Engine.sp_task``. Its result rows enter the pipeline under the
+        query's ``tag`` (or its stream name) through the SP's hidden
+        emitter; a sketch-eligible query keeps its state on the
+        context's device."""
+        return self.engine.sp_task(sql)
 
     def parser(self, name: str, **props):
         """Create + register a named parser (flb_parser_create / the

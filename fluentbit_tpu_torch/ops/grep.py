@@ -44,8 +44,8 @@ import torch
 from ..regex.dfa import ACC, DFA, compile_dfa, compose_supersteps
 from . import cuda_build
 from .device import ArrayLike, DeviceLike, resolve, to_device
-from .mesh import (Mesh, mesh_key, pad_to_devices, partition_rules,
-                   replicated_table_bytes, shard_leaf)
+from .mesh import (Mesh, MeshLaunches, mesh_key, pad_to_devices,
+                   partition_rules, replicated_table_bytes, shard_leaf)
 
 # table budget for k-byte super-stepping (bytes); C^k columns * S rows * 4.
 # The reference package's TPU budget, kept so tables and decision() match
@@ -444,16 +444,6 @@ class GrepAssocKernel(_Kernel):
                      B, L, k, t["trans_flat"].shape[1], S, segment, Lk, G2,
                      threads, smem, vec16)
         return out
-
-
-class MeshLaunches:
-    """K5's launch count: one per shard whose kernel (K3 or K4, which
-    count their own launches too) ran on a CUDA device. A plain integer
-    a caller may reset; shards on the CPU take the plain versions and
-    count nothing."""
-
-    def __init__(self) -> None:
-        self.launches = 0
 
 
 #: the process's kernel wrappers (one build, one launch count each)

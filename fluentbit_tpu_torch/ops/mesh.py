@@ -1,11 +1,14 @@
-"""Device meshes for the sharded grep dispatch (K5).
+"""Device meshes for the sharded programs: grep (K5), the sketches (K8)
+and the flux plane (K9's and K10's mesh halves).
 
 The port's counterpart of ``fluentbit_tpu/ops/mesh.py``, trimmed to what
-the grep plane needs. A ``Mesh`` is a tuple of ``torch.device``s with one
-axis name. A program sharded over it cuts one axis of its ``[R, B, L]``
-batch into one slice per entry, sends each slice (and the table leaves
-the partition rules shard) to that entry's device, and launches its
-kernel there.
+those programs need. A ``Mesh`` is a tuple of ``torch.device``s with one
+axis name. A program sharded over it cuts one axis of its batch into one
+slice per entry, sends each slice (and the table leaves the partition
+rules shard) to that entry's device, and launches its kernel there. The
+sketch and flux programs then merge the shards' partial states on the
+first entry's device (``ops.sketch.shard_merge``: the reference's
+``pmax`` / ``psum``).
 
 ``build_mesh`` takes the visible CUDA devices and returns None below
 two, as the reference does below two devices. A mesh built by hand may
@@ -27,8 +30,8 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["AXIS", "Mesh", "PARTITION_RULES", "build_mesh", "mesh_info",
-           "mesh_key", "pad_to_devices", "partition_rules",
+__all__ = ["AXIS", "Mesh", "MeshLaunches", "PARTITION_RULES", "build_mesh",
+           "mesh_info", "mesh_key", "pad_to_devices", "partition_rules",
            "replicated_table_bytes", "shard_leaf"]
 
 
@@ -53,6 +56,16 @@ class Mesh:
         return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names[0]!r})"
 
 
+class MeshLaunches:
+    """A sharded program's launch count: one per shard whose kernel ran
+    on a CUDA device (the kernels count their own launches too). A plain
+    integer a caller may reset; shards on the CPU take the plain
+    versions and count nothing."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
 #: Placeholder bound to the mesh's axis name by ``partition_rules``.
 AXIS = "@axis"
 
@@ -70,6 +83,20 @@ PARTITION_RULES: Dict[str, Tuple[Tuple[str, Tuple[Any, ...]], ...]] = {
     "grep-rules": (
         (r"^(trans_flat|class_maps|pair_maps)$", (AXIS, None)),
         (r"^(C|Ck|eol_cls|starts|n_states)$", (AXIS,)),
+    ),
+    # sketch state replicates: every shard absorbs its rows into a zeroed
+    # partial, merged by max (HLL) / sum (count-min) on the first device
+    "flux-hll": ((r"^registers$", ()),),
+    "flux-cms": ((r"^table$", ()),),
+    # group counts: the batch columns shard, the counts merge by sum
+    "flux-counts": ((r"^(seg|valid)$", (AXIS,)),),
+    # the fused absorb: every batch-axis column shards (the composites
+    # along their own row axis), the register stacks and the table
+    # replicate
+    "flux-fused": (
+        (r"^(seg|valid|lengths|comp_len)$", (AXIS,)),
+        (r"^(batch|comp)$", (AXIS, None)),
+        (r"^(registers|table)$", ()),
     ),
 }
 

@@ -20,19 +20,30 @@ computes in int64 masked to 32 bits (CPU torch has no ``>>``, ``<<`` or
 twins (``add_cpu``), bit-identical to both. There is no other path: a
 failed build or launch raises. The flux plane's fused absorb
 (``flux/kernels.py``) reuses the plain hashes and the launcher base.
+
+K8, the sharded updates (``sharded_hll_registers`` / ``sharded_cms_table``
+and their committing forms), run over an ``ops.mesh.Mesh``: the rows pad
+to a multiple of the shard count (zero bytes, length -1), each shard
+absorbs its slice into a zeroed partial state on its own device (K6 or
+K7), and one ``shard_merge`` launch folds the partials into a copy of
+the snapshot on the mesh's first device: the max for HLL registers (the
+reference's ``lax.pmax``), the sum for count-min tables (``lax.psum``
+plus the table). ``shard_merge`` is a kernel of ``csrc/sketch.cu`` too,
+with ``shard_merge_plain`` beside it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Iterable, List, Optional, Sequence
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import cuda_build
 from .device import ArrayLike, DeviceLike, resolve, to_device
+from .mesh import Mesh, MeshLaunches, mesh_key, pad_to_devices
 
 FNV_OFFSET = 0x811C9DC5
 FNV_PRIME = 0x01000193
@@ -104,6 +115,24 @@ def hll_update_plain(registers: torch.Tensor, batch: torch.Tensor,
     """``registers.at[idx].max(rank)`` in place (``_update_impl``)."""
     idx, rank = hll_index_rank_plain(batch, lengths, p)
     registers.scatter_reduce_(0, idx, rank, "amax", include_self=True)
+
+
+def shard_merge_plain(parts: torch.Tensor, base: torch.Tensor,
+                      op: str) -> None:
+    """Fold the shards' partials ``parts`` ``[n, ...]`` into ``base``
+    ``[...]`` in place: ``op="max"`` takes the elementwise max (the
+    reference's ``pmax`` of ``max(snapshot, update)``), ``op="add"``
+    adds their sum (``table + psum(delta)``), wrapping as int32 or int64
+    arithmetic does."""
+    if op == "max":
+        torch.maximum(base, parts.amax(0), out=base)
+    elif op == "add":
+        total = base.long() + parts.long().sum(0)
+        if base.dtype == torch.int32:  # two's complement wrap to 32 bits
+            total = ((total + (1 << 31)) & MASK32) - (1 << 31)
+        base.copy_(total)
+    else:
+        raise ValueError(f"shard_merge: unknown op {op!r}")
 
 
 def cms_cols_plain(batch: torch.Tensor, lengths: torch.Tensor, d: int,
@@ -236,9 +265,49 @@ class CmsUpdateKernel(_SketchKernel):
                      int(table.dtype == torch.int64), _vec16(batch))
 
 
+class ShardMergeKernel(_SketchKernel):
+    """The shard merge: see :func:`shard_merge_plain`. CPU tensors take
+    the plain version (not counted in ``launches``); CUDA tensors launch
+    the kernel on the current stream; anything else raises."""
+
+    symbol = "shard_merge_launch"
+    argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+
+    def __call__(self, parts: torch.Tensor, base: torch.Tensor,
+                 op: str) -> None:
+        if op not in ("max", "add"):
+            raise ValueError(f"shard_merge: unknown op {op!r}")
+        if (parts.dim() < 1 or tuple(parts.shape[1:]) != tuple(base.shape)
+                or parts.dtype != base.dtype
+                or base.dtype not in (torch.int32, torch.int64)):
+            raise ValueError("shard_merge: parts must be [n, *base.shape] "
+                             "of base's dtype, int32 or int64")
+        if base.device.type == "cpu" and parts.device.type == "cpu":
+            shard_merge_plain(parts, base, op)
+            return
+        dev = base.device
+        if dev.type != "cuda":
+            raise ValueError(f"shard_merge runs on CUDA tensors, got {dev}")
+        if (parts.device != dev or not parts.is_contiguous()
+                or not base.is_contiguous()):
+            raise ValueError(f"shard_merge: parts and base must be "
+                             f"contiguous on {dev}")
+        if parts.shape[0] == 0 or base.numel() == 0:
+            return
+        self._launch(dev, parts.data_ptr(), parts.shape[0], base.data_ptr(),
+                     base.numel(), int(op == "add"),
+                     int(base.dtype == torch.int64))
+
+
 #: the process's sketch kernel wrappers (one build, one launch count each)
 hll_update = HllUpdateKernel()
 cms_update = CmsUpdateKernel()
+shard_merge = ShardMergeKernel()
+#: K8's shard launches (``hll_update`` / ``cms_update`` count them too)
+hll_mesh = MeshLaunches()
+cms_mesh = MeshLaunches()
 
 
 def hll_update_rows(registers: torch.Tensor, batch: torch.Tensor,
@@ -298,6 +367,7 @@ class HyperLogLog:
         self.device = resolve(device)
         self.registers = torch.zeros((self.m,), dtype=torch.int32,
                                      device=self.device)
+        self._mesh_cache: dict = {}  # K8's partial buffers, per mesh
 
     def update(self, batch: ArrayLike, lengths: ArrayLike) -> None:
         """Absorb a staged ``[B, L]`` batch (rows with length < 0 count
@@ -357,6 +427,7 @@ class CountMin:
         self.device = resolve(device)
         self.table = torch.zeros((depth, width), dtype=dtype,
                                  device=self.device)
+        self._mesh_cache: dict = {}  # K8's partial buffers, per mesh
 
     def update(self, batch: ArrayLike, lengths: ArrayLike,
                weights: Optional[ArrayLike] = None) -> None:
@@ -399,6 +470,142 @@ class CountMin:
         """Point estimates for many values, one table copy (or none, from
         a host copy passed as ``table``)."""
         return self.query_cols([self._cols_cpu(v) for v in values], table)
+
+
+# ---------------------------------------------------------------------------
+# K8: the sharded updates (a mesh of shards, then one merge)
+# ---------------------------------------------------------------------------
+
+
+def _as_tensor(x: ArrayLike) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)) \
+        if isinstance(x, np.ndarray) else x
+
+
+def pad_rows(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """``x`` with its leading axis padded up to ``n`` rows of ``fill``."""
+    if x.shape[0] >= n:
+        return x
+    return torch.cat([x, x.new_full((n - x.shape[0],) + tuple(x.shape[1:]),
+                                    fill)])
+
+
+def _pad_to_mesh(mesh: Mesh, batch: ArrayLike, lengths: ArrayLike
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows padded to a multiple of the shard count
+    (``pad_to_devices``): pad rows carry zero bytes and length -1, so
+    they change no sketch."""
+    b, ln = _as_tensor(batch), _as_tensor(lengths)
+    Bp = pad_to_devices(b.shape[0], mesh.size)
+    return pad_rows(b, Bp, 0), pad_rows(ln, Bp, -1)
+
+
+def shard_partials(mesh: Mesh, shape: tuple, dtype: torch.dtype,
+                   cache: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Zeroed partial states for a sharded call: ``parts`` ``[n, *shape]``
+    on the mesh's first device, and the tensor each shard's kernel
+    writes: its slice of ``parts`` where the shard's device is the first
+    one, else a tensor on its own device that ``gather_partials`` copies
+    in. With ``cache``, the buffers are kept per mesh structure, shape
+    and dtype and zeroed again on each call."""
+    dev0 = mesh.devices[0]
+    key = (mesh_key(mesh), tuple(shape), dtype)
+    got = None if cache is None else cache.get(key)
+    if got is None:
+        parts = torch.zeros((mesh.size, *shape), dtype=dtype, device=dev0)
+        outs = [parts[i] if d == dev0
+                else torch.zeros(shape, dtype=dtype, device=d)
+                for i, d in enumerate(mesh.devices)]
+        got = (parts, outs)
+        if cache is not None:
+            cache[key] = got
+    else:
+        got[0].zero_()
+        for out, d in zip(got[1], mesh.devices):
+            if d != dev0:
+                out.zero_()
+    return got
+
+
+def gather_partials(mesh: Mesh, parts: torch.Tensor,
+                    outs: Sequence[torch.Tensor]) -> None:
+    """Copy the partials of shards on other devices into ``parts``."""
+    for i, (out, d) in enumerate(zip(outs, mesh.devices)):
+        if d != mesh.devices[0]:
+            parts[i].copy_(out)
+
+
+def _sharded_rows(mesh: Mesh, counter: MeshLaunches, batch: ArrayLike,
+                  lengths: ArrayLike, base: torch.Tensor, op: str,
+                  update: Callable, cache: dict) -> torch.Tensor:
+    """K8's body: ``update(out, rows, lengths)`` of each shard's slice into
+    its zeroed partial, then one merge into ``base`` (a fresh copy of
+    the snapshot on the mesh's first device), which is returned."""
+    b, ln = _pad_to_mesh(mesh, batch, lengths)
+    if b.shape[0] == 0:
+        return base
+    step = b.shape[0] // mesh.size
+    parts, outs = shard_partials(mesh, tuple(base.shape), base.dtype, cache)
+    for i, (dev, out) in enumerate(zip(mesh.devices, outs)):
+        update(out, to_device(b[i * step:(i + 1) * step], torch.uint8, dev),
+               to_device(ln[i * step:(i + 1) * step], torch.int32, dev))
+        if dev.type == "cuda" and step:
+            counter.launches += 1
+    gather_partials(mesh, parts, outs)
+    shard_merge(parts, base, op)
+    return base
+
+
+def _snapshot_on(mesh: Mesh, state: torch.Tensor,
+                 snapshot: Optional[ArrayLike]) -> torch.Tensor:
+    """A fresh copy of ``snapshot`` (default: the sketch's own ``state``)
+    on the mesh's first device: the merge's base, never the live state."""
+    src = state if snapshot is None else _as_tensor(snapshot)
+    return src.to(mesh.devices[0], dtype=state.dtype, copy=True)
+
+
+def sharded_hll_registers(hll: HyperLogLog, mesh: Mesh, batch: ArrayLike,
+                          lengths: ArrayLike,
+                          registers: Optional[ArrayLike] = None
+                          ) -> torch.Tensor:
+    """K8 for HLL (the reference's ``sharded_hll_registers``): the merged
+    registers on the mesh's first device, computed from the explicit
+    ``registers`` snapshot (default: the sketch's own), which nothing
+    here mutates; the sketch is not touched either."""
+    base = _snapshot_on(mesh, hll.registers, registers)
+    return _sharded_rows(
+        mesh, hll_mesh, batch, lengths, base, "max",
+        lambda out, b, ln: hll_update_rows(out, b, ln, hll.p),
+        hll._mesh_cache)
+
+
+def sharded_hll_update(hll: HyperLogLog, mesh: Mesh, batch: ArrayLike,
+                       lengths: ArrayLike) -> None:
+    """Compute-and-commit over :func:`sharded_hll_registers`."""
+    merged = sharded_hll_registers(hll, mesh, batch, lengths)
+    hll.registers = merged.to(hll.device)
+
+
+def sharded_cms_table(cms: CountMin, mesh: Mesh, batch: ArrayLike,
+                      lengths: ArrayLike,
+                      table: Optional[ArrayLike] = None) -> torch.Tensor:
+    """K8 for count-min (the reference's ``sharded_cms_table``): each
+    shard adds its rows at weight 1 into a zeroed delta; the merged table
+    (snapshot plus the deltas' sum) on the mesh's first device. The
+    explicit ``table`` snapshot (default: the sketch's own) and the
+    sketch are not mutated."""
+    base = _snapshot_on(mesh, cms.table, table)
+    return _sharded_rows(
+        mesh, cms_mesh, batch, lengths, base, "add",
+        lambda out, b, ln: cms_update_rows(out, b, ln), cms._mesh_cache)
+
+
+def sharded_cms_update(cms: CountMin, mesh: Mesh, batch: ArrayLike,
+                       lengths: ArrayLike) -> None:
+    """Compute-and-commit over :func:`sharded_cms_table`."""
+    merged = sharded_cms_table(cms, mesh, batch, lengths)
+    cms.table = merged.to(cms.device)
 
 
 def from_jax_state(state: np.ndarray, device: DeviceLike = None):

@@ -35,6 +35,7 @@ from fluentbit_tpu_torch.flux import state as tstate
 from fluentbit_tpu_torch.flux.state import FluxSpec as TSpec
 from fluentbit_tpu_torch.flux.state import FluxState as TState
 from fluentbit_tpu_torch.flux.state import WindowSpec as TWindow
+from fluentbit_tpu_torch.ops.mesh import Mesh
 
 
 def t(x):
@@ -224,9 +225,10 @@ def encode(bodies, ts0):
 
 class Pair:
     """The port's CPU state beside the reference's (host route, and the
-    mesh route when asked), fed the same bytes under one clock."""
+    mesh route when asked; the port's over a hand-built 8-shard CPU mesh
+    with ``port_mesh``), fed the same bytes under one clock."""
 
-    def __init__(self, mesh=False, **kw):
+    def __init__(self, mesh=False, port_mesh=False, **kw):
         self.clock = [1000.0]
         now = lambda: self.clock[0]  # noqa: E731
         jkw = dict(kw)
@@ -237,7 +239,10 @@ class Pair:
         self.ref = JState(JSpec("t", mesh=mesh, **jkw), now=now)
         if mesh:
             assert self.ref._mesh is not None
-        self.port = TState(TSpec("t", **tkw), now=now, device="cpu")
+        self.port = TState(TSpec("t", mesh=port_mesh, **tkw), now=now,
+                           device="cpu")
+        if port_mesh:
+            self.port._mesh = Mesh((torch.device("cpu"),) * 8, "flux")
 
     def absorb(self, bodies, ts0=1000.0):
         buf = encode(bodies, ts0)
@@ -390,15 +395,19 @@ def test_state_without_a_device_asks_for_cuda(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax",
+                                       "jax_mesh_to_port_mesh"])
 def test_snapshot_carries_across(direction, tmp_path):
     """One package absorbs the first half and is snapshotted (in memory,
     and through persist/load); the other restores it, and both absorb the
-    rest: states and closed windows stay equal."""
+    rest: states and closed windows stay equal. The mesh case: the
+    reference absorbs on its 8-device mesh, the port goes on over
+    ``Mesh((cpu,) * 8)``."""
     kw = dict(SPEC, window=("hopping", 60, 20))
-    pair = Pair(**kw)
-    src, dst = ((pair.ref, pair.port) if direction == "jax_to_port"
-                else (pair.port, pair.ref))
+    on_mesh = direction == "jax_mesh_to_port_mesh"
+    pair = Pair(mesh=on_mesh and _mesh("mesh"), port_mesh=on_mesh, **kw)
+    src, dst = ((pair.port, pair.ref) if direction == "port_to_jax"
+                else (pair.ref, pair.port))
     buf = encode(corpus(17, 150), 1000.0)
     src.absorb_events((jdecode if src is pair.ref else tdecode)(buf))
     pair.clock[0] = 1020.0

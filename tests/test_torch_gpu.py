@@ -18,6 +18,12 @@ The raw chunk path and K5: K3's and K4's counts epilogue against
 (0xFF, random) against zeroed rows, the sharded dispatch over
 ``Mesh((cuda:0,) * n)`` against the sharded plain version, and a
 65,536-record chunk (16 double-buffered segments) on cuda against cpu.
+The mesh programs of the sketches and the flux plane: ``shard_merge``
+against ``shard_merge_plain`` (max and add, int32 and int64, an int32
+add that wraps), and K8 (``sharded_hll_registers`` /
+``sharded_cms_table``), K9's and K10's mesh halves over
+``Mesh((cuda:0,) * n)`` against the unsharded kernels, with their shard
+and merge launches counted.
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -901,3 +907,119 @@ def test_raw_chunk_of_16_segments_cuda_equals_cpu(cuda_device, exclude):
     assert gpu[2:] == ((16, 16) if exclude else (16, 0))
     assert cpu[2:] == (0, 0)
     assert len(decode_events(gpu[0])) == gpu[1]
+
+
+# ---------------------------------------------------------------------------
+# the shard merge, K8, and the mesh halves of K9 and K10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["max", "add"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,shape", [(1, (7,)), (8, (512, 4096)),
+                                     (3, (4, 16384)), (2, (0,))])
+def test_shard_merge_kernel_equals_plain(cuda_device, op, dtype, n, shape):
+    gen = torch.Generator().manual_seed(n)
+    parts = torch.randint(-50, 50, (n, *shape), dtype=dtype, generator=gen)
+    base = torch.randint(-50, 50, shape, dtype=dtype, generator=gen)
+    if base.numel():
+        base.view(-1)[0] = torch.iinfo(dtype).max - 3  # an add wraps
+        parts.view(n, -1)[:, 0] = 2
+    want = base.clone()
+    tsk.shard_merge_plain(parts, want, op)
+    got = base.to(cuda_device)
+    before = tsk.shard_merge.launches
+    tsk.shard_merge(parts.to(cuda_device), got, op)
+    torch.cuda.synchronize()
+    assert tsk.shard_merge.launches - before == (1 if base.numel() else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_shard_merge_rejects_bad_tensors(cuda_device):
+    base = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="op"):
+        tsk.shard_merge(torch.zeros((2, 8), dtype=torch.int32,
+                                    device=cuda_device), base, "min")
+    with pytest.raises(ValueError, match="parts"):
+        tsk.shard_merge(torch.zeros((2, 8), dtype=torch.int64,
+                                    device=cuda_device), base, "max")
+    with pytest.raises(ValueError, match="contiguous"):
+        tsk.shard_merge(torch.zeros((2, 8), dtype=torch.int32), base, "max")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("B", [3, 4096])
+def test_sharded_sketches_equal_unsharded(cuda_device, n, B):
+    """K8 over ``Mesh((cuda:0,) * n)``: registers and tables (int32 near
+    2^31 - 1, and int64) equal K6 / K7 over the whole batch; n shard
+    launches and one merge each; snapshots unmutated."""
+    from fluentbit_tpu_torch.ops.mesh import Mesh
+
+    mesh = Mesh((cuda_device,) * n)
+    batch, lengths = sketch_rows(n + B, B, 256)
+    hll = tsk.HyperLogLog(14, cuda_device)
+    hll.registers.random_(0, 5)
+    snap = hll.registers.clone()
+    before = (tsk.hll_mesh.launches, tsk.hll_update.launches,
+              tsk.shard_merge.launches)
+    got = tsk.sharded_hll_registers(hll, mesh, batch, lengths)
+    shards = n  # the rows pad to a multiple of n: every shard has some
+    assert (tsk.hll_mesh.launches - before[0],
+            tsk.hll_update.launches - before[1],
+            tsk.shard_merge.launches - before[2]) == (shards, shards, 1)
+    want = snap.clone()
+    tsk.hll_update(want, batch.to(cuda_device), lengths.to(cuda_device), 14)
+    assert torch.equal(got, want) and torch.equal(hll.registers, snap)
+    for dtype in (torch.int32, torch.int64):
+        cms = tsk.CountMin(4, 16384, cuda_device, dtype)
+        cms.table.fill_(torch.iinfo(torch.int32).max - 2)
+        before = tsk.cms_mesh.launches
+        got = tsk.sharded_cms_table(cms, mesh, batch, lengths)
+        assert tsk.cms_mesh.launches - before == shards
+        want = cms.table.clone()
+        tsk.cms_update(want, batch.to(cuda_device), lengths.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert int(cms.table.min()) == torch.iinfo(torch.int32).max - 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("F,G,comp,B,L", [(1, 200, True, 4096, 256),
+                                          (2, 7, True, 300, 64),
+                                          (1, 7, False, 5, 16)])
+def test_flux_mesh_halves_equal_unsharded(cuda_device, n, F, G, comp, B, L):
+    """K10's mesh half over ``Mesh((cuda:0,) * n)``: counts, stacks and
+    table equal the unsharded K10, with n K10 launches and 1 + F (+1 with
+    composites) merges; K9's mesh half equals the unsharded K9."""
+    from fluentbit_tpu_torch.ops.mesh import Mesh
+
+    mesh = Mesh((cuda_device,) * n, "flux")
+    seg, valid, fields, stacks, c, cl, table = flux_case(
+        n * 10 + F + B, F, G, comp, B, L)
+    dev = cuda_device
+    args = (seg.to(dev), valid.to(dev),
+            [(b.to(dev), ln.to(dev)) for b, ln in fields])
+    want_st = [s.to(dev) for s in stacks]
+    want_tb = to(dev, table)
+    want = tfk.fused_absorb(*args, want_st, to(dev, c), to(dev, cl), want_tb,
+                            hll_p=12, n_seg=G)
+    got_st = [s.to(dev) for s in stacks]
+    got_tb = to(dev, table)
+    before = (tfk.fused_absorb.launches, tfk.flux_mesh_launches.launches,
+              tsk.shard_merge.launches)
+    got = tfk.sharded_fused_absorb(mesh, *args, got_st, to(dev, c),
+                                   to(dev, cl), got_tb, hll_p=12, n_seg=G)
+    torch.cuda.synchronize()
+    assert (tfk.fused_absorb.launches - before[0],
+            tfk.flux_mesh_launches.launches - before[1],
+            tsk.shard_merge.launches - before[2]) == (n, n, 1 + F + comp)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_st, want_st))
+    if comp:
+        assert torch.equal(got_tb, want_tb)
+    counts = tfk.sharded_segment_counts(mesh, args[0], args[1], G)
+    assert torch.equal(counts, tfk.segment_counts(args[0], args[1], G))
