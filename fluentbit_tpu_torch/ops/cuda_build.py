@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``),
 and the host codec ``csrc/codec_host.cpp`` with ``g++``, into a shared
 library with a plain C interface, under ``fluentbit_tpu_torch/_build/``
 (listed in ``.gitignore``). The library name carries a digest of the
-source and flags, so an edited source never loads a stale build. Nothing
+source, the headers it may include and the flags, so an edited source
+never loads a stale build. Nothing
 here runs at import: the first ``load`` of a library builds it, and a
 failed build raises.
 """
@@ -32,6 +33,10 @@ SOURCES = ("grep_dfa", "grep_assoc", "sketch", "utf8", "codec_host")
 
 #: the sources ``g++`` builds (``csrc/<name>.cpp``); the rest are CUDA
 HOST_SOURCES = ("codec_host",)
+
+#: the headers of ``csrc/`` the CUDA sources include (the grep kernels'
+#: bulk table copy): part of every CUDA library's digest
+HEADERS = ("bulk_copy.cuh",)
 
 #: keep the ``a``: plain sm_90 refuses wgmma/setmaxnreg in later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,8 +80,10 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(_flags(name)).encode()
+    text = source_path(name).read_bytes()
+    if name not in HOST_SOURCES:
+        text += b"".join((CSRC_DIR / h).read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(_flags(name)).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -21,6 +21,13 @@ comes from the plain torch versions below, which transcribe the
 reference's jnp programs step for step. There is no other path: a failed
 build or launch raises.
 
+The kernels walk each row only up to its length and stop at DEAD or ACC
+(exact by the DFA contract ``check_contract`` enforces), over tables of
+their own built beside the reference's (``build_stride_tables``: uint16,
+symbol-major, at the largest stride whose table fits a block's shared
+memory). ``match_stop_plain`` and ``match_assoc_cut_plain`` are those
+walks in plain torch, held against the reference by the CPU tests.
+
 K5, the sharded dispatch (``dispatch_mesh``, ``match_mesh``,
 ``match_sharded``), runs the same kernels once per shard of an
 ``ops.mesh.Mesh``: the batch axis (or, for large rule sets, the rule
@@ -41,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..regex.dfa import ACC, DFA, compile_dfa, compose_supersteps
+from ..regex.dfa import ACC, DEAD, DFA, compile_dfa, compose_supersteps
 from . import cuda_build
 from .device import ArrayLike, DeviceLike, resolve, to_device
 from .mesh import (Mesh, MeshLaunches, mesh_key, pad_to_devices,
@@ -71,6 +78,26 @@ def _env_int(name: str, default: int) -> int:
 
 #: "auto" takes the assoc kernel on an accelerator up to this many states
 _ASSOC_MAX_STATES = 64
+
+#: shared memory a block may take on Hopper (227 KB)
+_MAX_SMEM = 232448
+
+#: a kernel block's shared bytes ahead of its table: an mbarrier (16 B)
+#: and the class map (260 int32)
+_SMEM_HEAD = 16 + 260 * 4
+
+#: the stride tables' byte budgets. K3: half an SM's shared memory
+#: (228 KB, 1 KB reserved a block), so that two blocks share an SM; on
+#: the card a block's whole 227 KB lost wherever it gave a larger table
+#: (GET at stride 6, 156 KB: PERF.md §6). K4 walks every state of a
+#: row's segments, so a longer stride saves it little and each of its
+#: many blocks stages the table: 16 KB, at a stride dividing 16 (a lane
+#: packs the symbols of its own 16 bytes), stride 1 beyond that while a
+#: table stays under 65,536 entries (K4 keeps ``sym * S`` in 16 bits).
+_SCAN_TABLE_BUDGET = (228 * 1024 - 2 * 1024) // 2 - _SMEM_HEAD
+_ASSOC_TABLE_BUDGET = 16 * 1024
+_ASSOC_TABLE_FLOOR = 2 * 65535
+_ASSOC_STRIDES = (1, 2, 4)
 
 Tables = Dict[str, torch.Tensor]
 
@@ -120,6 +147,85 @@ def build_tables(dfas: Sequence[DFA], k: int) -> Dict[str, np.ndarray]:
                             + cm[w >> 8]).astype(np.int32)
         out["pair_maps"] = pair_maps
     return out
+
+
+def check_contract(dfas: Sequence[DFA]) -> None:
+    """Raise ValueError, naming the pattern, unless every DFA keeps the
+    contract the kernels' early stop rests on: DEAD and ACC map to
+    themselves on every class, and the EOL class sends every state to
+    DEAD or ACC (``compile_dfa``'s tables always do: its accept state
+    absorbs, and no pattern edge consumes EOL)."""
+    for d in dfas:
+        t = np.asarray(d.trans)
+        ok = (t.ndim == 2 and t.shape[0] > ACC
+              and bool((t[DEAD] == DEAD).all())
+              and bool((t[ACC] == ACC).all())
+              and bool(np.isin(t[:, d.eol_class], (DEAD, ACC)).all()))
+        if not ok:
+            raise ValueError(
+                f"the DFA of {d.pattern!r} breaks the grep kernels' "
+                f"contract (DEAD and ACC absorbing, EOL to DEAD or ACC)")
+
+
+def check_flat_contract(np_tables: Dict[str, Optional[np.ndarray]],
+                        k: int) -> None:
+    """``check_contract`` on a stride-k table set alone (no DFAs): each
+    rule's DEAD and ACC rows map to themselves, and every super-symbol
+    that ends in the EOL class maps every state to DEAD or ACC."""
+    flat = np_tables["trans_flat"]
+    for r in range(flat.shape[0]):
+        C, Ck = int(np_tables["C"][r]), int(np_tables["Ck"][r])
+        eol = int(np_tables["eol_cls"][r])
+        rows = flat[r, : flat.shape[1] // Ck * Ck].reshape(-1, Ck)
+        ok = (rows.shape[0] > ACC and bool((rows[DEAD] == DEAD).all())
+              and bool((rows[ACC] == ACC).all())
+              and bool(np.isin(rows[:, eol::C], (DEAD, ACC)).all()))
+        if not ok:
+            raise ValueError(f"rule {r}'s stride-{k} table breaks the grep "
+                             f"kernels' contract (DEAD and ACC absorbing, "
+                             f"EOL to DEAD or ACC)")
+
+
+def stride_for(dfa: DFA, k: int, budget: int,
+               strides: Sequence[int] = (1, 2, 3, 4, 5, 6)) -> int:
+    """The largest stride ``kp <= k`` of ``strides`` whose uint16 table
+    (``S * C^kp * 2`` bytes, symbols below 65536) fits ``budget``; 0
+    when none does."""
+    kp = 0
+    for s in range(1, k + 1):
+        cols = dfa.n_classes ** s
+        if cols > 65536 or dfa.n_states * cols * 2 > budget:
+            break
+        if s in strides:
+            kp = s
+    return kp
+
+
+def build_stride_tables(dfas: Sequence[DFA], k: int, budget: int,
+                        floor: int = 0,
+                        strides: Sequence[int] = (1, 2, 3, 4, 5, 6)
+                        ) -> Dict[str, np.ndarray]:
+    """The kernels' own tables, beside the reference's (``build_tables``):
+    ``tab16`` int16 ``[R, W]`` (read as uint16), rule r's table at its
+    stride ``kp[r]`` (``stride_for``), symbol-major so that
+    ``tab16[r, sym * n_states[r] + s]`` is the state after super-symbol
+    ``sym`` from state s; W is a multiple of 8 (16 B rows for the bulk
+    copy), at the largest of ``strides`` that fits; a rule that fits
+    ``budget`` at no stride takes stride 1 if its table fits ``floor``.
+    Empty when some rule fits at no stride: K3 then reads
+    ``trans_flat``."""
+    kps = [stride_for(d, k, budget, strides) or stride_for(d, 1, floor)
+           for d in dfas]
+    if not kps or min(kps) == 0:
+        return {}
+    tabs = [np.ascontiguousarray(compose_supersteps(d.trans, kp).T)
+            for d, kp in zip(dfas, kps)]
+    width = -(-max(t.size for t in tabs) // 8) * 8
+    tab = np.zeros((len(dfas), width), dtype=np.uint16)
+    for r, t in enumerate(tabs):
+        tab[r, : t.size] = t.reshape(-1)
+    return {"tab16": tab.view(np.int16),
+            "kp": np.asarray(kps, dtype=np.int32)}
 
 
 # ---------------------------------------------------------------------------
@@ -275,18 +381,122 @@ def match_assoc_plain(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
     return (final == ACC) & (lengths >= 0)
 
 
+def _rule_walk(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
+               k: int, r: int):
+    """Rule r's side of the kernels' stop rule: its table as int32, the
+    index of a step (``(state, sym) -> position``), and per
+    row the super-symbols ``[B, J]`` and their count ``n_sym`` =
+    min(len, L) // stride + 1 (the last symbol holds the EOL class:
+    bytes from the length on read as EOL, and never as data)."""
+    B, L = batch.shape[1:]
+    C, eol = int(t["C"][r]), int(t["eol_cls"][r])
+    if "tab16" in t:  # K3's shared half and K4: the stride table
+        ks, S = int(t["kp"][r]), int(t["n_states"][r])
+        tab = t["tab16"][r].int() & 0xFFFF
+
+        def index(state, sym):
+            return sym * S + state
+    else:  # K3's global half: trans_flat at the program's k
+        ks, Ck = k, int(t["Ck"][r])
+        tab = t["trans_flat"][r]
+
+        def index(state, sym):
+            return state * Ck + sym
+    lim = lengths[r].clamp(min=0, max=L)
+    n_sym = lim // ks + 1
+    J = int(n_sym.max()) if B else 0
+    pos = torch.arange(J * ks, device=batch.device)
+    src = batch[r][:, pos.clamp(max=max(L - 1, 0))] if L else \
+        batch.new_zeros((B, J * ks))
+    cls = t["class_maps"][r][src.long()]
+    cls = torch.where(pos[None, :] < lim[:, None], cls,
+                      torch.full_like(cls, eol)).reshape(B, J, ks)
+    sym = cls[..., 0]
+    for j in range(1, ks):
+        sym = sym * C + cls[..., j]
+    return tab, index, sym, n_sym
+
+
+def match_stop_plain(t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """K3 as ``csrc/grep_dfa.cu`` walks it, in plain torch: each row
+    steps through its own ``n_sym`` super-symbols only (bytes up to its
+    length, then the step holding EOL) and stops at DEAD or ACC; over
+    ``tab16`` at the rule's stride where the table set has it (the
+    shared half), else over ``trans_flat`` at k (the global half)."""
+    R, B, _ = batch.shape
+    out = torch.zeros((R, B), dtype=torch.bool, device=batch.device)
+    for r in range(R):
+        tab, index, sym, n_sym = _rule_walk(t, batch, lengths, k, r)
+        state = torch.full((B,), int(t["starts"][r]), dtype=torch.int32,
+                           device=batch.device)
+        for j in range(sym.shape[1]):
+            live = (j < n_sym) & (state > ACC)
+            if not bool(live.any()):
+                break
+            nxt = tab[index(state, sym[:, j]).long()]
+            state = torch.where(live, nxt, state)
+        out[r] = (state == ACC) & (lengths[r] >= 0)
+    return out
+
+
+def match_assoc_cut_plain(t: Tables, batch: torch.Tensor,
+                          lengths: torch.Tensor, S: int,
+                          segment: int) -> torch.Tensor:
+    """K4 as ``csrc/grep_assoc.cu`` walks it, in plain torch: per rule,
+    over ``tab16`` at its stride, a row's ``n_sym`` super-symbols cut
+    into ``ceil(n_sym / segment)`` segments, each walked from all S
+    states (steps past ``n_sym``, and states past the rule's own, keep
+    the identity), composed in a tree ``(f∘g)[s] = g[f[s]]`` and read at
+    ``starts``. The segments past the one holding the first EOL class,
+    which the reference composes too, are left out."""
+    if "tab16" not in t:
+        raise ValueError("the assoc walk reads the stride tables (tab16)")
+    R, B, _ = batch.shape
+    m = segment
+    out = torch.zeros((R, B), dtype=torch.bool, device=batch.device)
+    states = torch.arange(S, dtype=torch.int32, device=batch.device)
+    for r in range(R):
+        tab, index, sym, n_sym = _rule_walk(t, batch, lengths, 0, r)
+        G = -(-sym.shape[1] // m)
+        G2 = 1
+        while G2 < G:
+            G2 *= 2
+        sym = torch.cat([sym, sym.new_zeros((B, G2 * m - sym.shape[1]))], 1)
+        own = states < int(t["n_states"][r])
+        F = states[None, None, :].expand(B, G2, S)
+        for i in range(m):
+            j = torch.arange(G2, device=batch.device) * m + i  # [G2]
+            live = (j[None, :] < n_sym[:, None])[..., None] & own
+            nxt = tab[index(F.clamp(max=int(t["n_states"][r]) - 1),
+                            sym[:, j][..., None]).long()]
+            F = torch.where(live, nxt, F)
+        while F.shape[1] > 1:  # the tree: the width halves each round
+            F = torch.gather(F[:, 1::2], 2, F[:, 0::2].long())
+        final = F[:, 0, int(t["starts"][r])]
+        out[r] = (final == ACC) & (lengths[r] >= 0)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 #: the tables the kernels read, with their ranks — what a CUDA program
-#: uploads (pair_maps neither kernel reads; n_states only K4 does)
+#: uploads (pair_maps neither kernel reads): the reference's, and the
+#: stride tables (``tab16``, int16, and ``kp``) with ``n_states``
 _TABLE_DIMS = {"trans_flat": 2, "class_maps": 2, "C": 1, "Ck": 1,
-               "eol_cls": 1, "starts": 1, "n_states": 1}
-_SCAN_TABLES = tuple(n for n in _TABLE_DIMS if n != "n_states")
+               "eol_cls": 1, "starts": 1, "n_states": 1, "tab16": 2,
+               "kp": 1}
+_SCAN_TABLES = ("trans_flat", "class_maps", "C", "Ck", "eol_cls", "starts")
+_STRIDE_TABLES = ("n_states", "tab16", "kp")
+_ASSOC_TABLES = ("class_maps", "C", "eol_cls", "starts") + _STRIDE_TABLES
 
-#: shared memory a block may take on Hopper (227 KB)
-_MAX_SMEM = 232448
+#: K4's warps per block (``csrc/grep_assoc.cu`` kWarps)
+_ASSOC_WARPS = 8
+#: K4's symbols a row staged at once: 8 segments at the default 32, one
+#: chunk of the walk's registers
+_ASSOC_WINDOW = 256
 
 
 def _check_launch(kernel: str, t: Tables, batch: torch.Tensor,
@@ -304,12 +514,15 @@ def _check_launch(kernel: str, t: Tables, batch: torch.Tensor,
     if not 1 <= k <= 6 or R > 65535:
         raise ValueError(f"{kernel}: unsupported k={k} or R={R}")
     for name in names:
-        x = t[name]
-        if (x.dtype != torch.int32 or x.device != dev
+        x = t.get(name)
+        dtype = torch.int16 if name == "tab16" else torch.int32
+        if (x is None or x.dtype != dtype or x.device != dev
                 or x.dim() != _TABLE_DIMS[name] or x.shape[0] != R
                 or not x.is_contiguous()):
-            raise ValueError(f"{kernel}: table {name} must be a "
-                             f"contiguous int32 [{R}, ...] tensor on {dev}")
+            raise ValueError(f"{kernel}: table {name} must be a contiguous "
+                             f"{dtype} [{R}, ...] tensor on {dev}")
+    if "tab16" in names and t["tab16"].shape[1] % 8:
+        raise ValueError(f"{kernel}: tab16 rows must hold a multiple of 8")
     if t["class_maps"].shape[1] != 257:
         raise ValueError(f"{kernel}: class_maps must be [R, 257]")
     for name, x in (("batch", batch), ("lengths", lengths)):
@@ -329,6 +542,15 @@ def _counts_ptr(kernel: str, counts: Optional[torch.Tensor],
         raise ValueError(f"{kernel}: counts must be a contiguous int32 "
                          f"[{R}] tensor on {batch.device}")
     return counts.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _ptr(t: Tables, name: str) -> Optional[int]:
+    return t[name].data_ptr() if name in t else None
 
 
 class _Kernel:
@@ -362,87 +584,145 @@ class _Kernel:
         self.launches += 1
 
 
+def scan_block(R: int, B: int, n_sm: int) -> int:
+    """Threads (rows) of one K3 block: a row per thread, 4 warps a
+    block (each block stages its table: fewer, fuller blocks were
+    faster on the card than one warp a block, PERF.md §6), 8 where
+    4 would need more than two blocks per SM."""
+    return 32 * (4 if R * B <= 4 * 32 * 2 * n_sm else 8)
+
+
 class GrepDfaKernel(_Kernel):
     """Wrapper of ``csrc/grep_dfa.cu`` (K1–K3): checks the tensors,
-    allocates the output, launches on the current stream. With
+    allocates the output, launches on the current stream. Where the
+    table set holds ``tab16`` the kernel stages it in shared memory (its
+    shared half), else it reads ``trans_flat`` (its global half). With
     ``counts`` (int32 [R] on the same device) the kernel also adds each
     rule's matched rows into it."""
 
     source, symbol = "grep_dfa", "grep_dfa_launch"
-    argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
 
     def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
                  k: int, counts: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-        _check_launch("grep_dfa", t, batch, lengths, k, _SCAN_TABLES)
+        shared = "tab16" in t
+        _check_launch("grep_dfa", t, batch, lengths, k,
+                      _SCAN_TABLES + (_STRIDE_TABLES if shared else ()))
         counts_ptr = _counts_ptr("grep_dfa", counts, batch)
         R, B, L = batch.shape
+        width = t["tab16"].shape[1] if shared else 0
+        smem = _SMEM_HEAD + 2 * width
+        if smem > _MAX_SMEM:
+            raise ValueError(f"grep_dfa: a {2 * width} B table passes a "
+                             f"block's shared memory ({_MAX_SMEM} B)")
         out = torch.empty((R, B), dtype=torch.bool, device=batch.device)
         if R * B == 0:
             return out
+        threads = scan_block(R, B, _sm_count(batch.device.index or 0))
         vec16 = int(L % 16 == 0 and batch.data_ptr() % 16 == 0)
         self._launch(batch.device, batch.data_ptr(), lengths.data_ptr(),
-                     t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
-                     t["C"].data_ptr(), t["Ck"].data_ptr(),
-                     t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
-                     out.data_ptr(), counts_ptr, R, B, L, k,
-                     t["trans_flat"].shape[1], vec16)
+                     t["trans_flat"].data_ptr(), _ptr(t, "tab16"),
+                     t["class_maps"].data_ptr(), t["C"].data_ptr(),
+                     t["Ck"].data_ptr(), t["eol_cls"].data_ptr(),
+                     t["starts"].data_ptr(), _ptr(t, "n_states"),
+                     _ptr(t, "kp"), out.data_ptr(), counts_ptr, R, B, L, k,
+                     t["trans_flat"].shape[1], width, threads, smem, vec16)
         return out
 
 
-def assoc_launch_shape(L: int, k: int, S: int,
-                       segment: int) -> Tuple[int, int, int, int]:
-    """(Lk, G2, threads, shared bytes) of one K4 block over rows of
-    width L: the super-symbols with the reference's EOL tail, the
-    composition tree's width, one thread per (segment, state) pair up to
-    1024, and the row bytes, class map, symbols and two uint16 function
-    buffers ``[G2, S]`` in shared memory."""
-    Lk = (L + (k - L % k) % k + k) // k
-    _, G2 = segment_grid(Lk, segment)
-    threads = min(1024, max(32, -(-G2 * S // 32) * 32))
-    smem = (-(-L // 16) * 16 + 1040 + -(-Lk // 4) * 16
-            + 2 * 2 * G2 * S)
-    return Lk, G2, threads, smem
+def assoc_block(R: int, B: int, S: int, width: int, segment: int,
+                n_sm: int) -> Tuple[int, int, int, int, int]:
+    """(P, win, ngw, blocks a rule, shared bytes) of one K4 launch: P
+    lanes a row (S rounded up to 8, 16 or 32; 32 above 32 states, two
+    states a lane up to 64), so a warp walks 32 / P rows at once; a
+    row's slot holds the symbols of one window of W segments of
+    ``segment`` (``win`` = W x segment symbols; W the largest power of
+    two with ``win`` <= ``_ASSOC_WINDOW``, 1 for longer segments, halved
+    until the block fits), whatever the row's width; above 64 states one
+    row a warp, its ``ngw`` = min(W, 8) segment functions of S entries
+    in shared memory too; blocks of 8 warps, at most 8 per SM over the R
+    rules (warps loop over the rest); the class map, the ``width``-entry
+    table and every warp's slots in shared memory. The shared bytes pass
+    ``_MAX_SMEM`` when not even one segment fits."""
+    P = 8 if S <= 8 else 16 if S <= 16 else 32
+    Q = 32 // P
+    groups = -(-B // Q)
+    gx = min(-(-groups // _ASSOC_WARPS), max(1, -(-8 * n_sm // max(R, 1))))
+    wide = S > _ASSOC_MAX_STATES
+    w = 1
+    while 2 * w * segment <= _ASSOC_WINDOW:
+        w *= 2
+    while True:
+        ngw = min(w, 8) if wide else 0
+        slot = Q * w * segment + ngw * S  # a warp's uint16 entries
+        smem = _SMEM_HEAD + 2 * width + _ASSOC_WARPS * 2 * slot
+        if smem <= _MAX_SMEM or w == 1:
+            return P, w * segment, ngw, max(gx, 1), smem
+        w //= 2
+
+
+def _check_assoc_strides(kp: torch.Tensor) -> None:
+    """Raise ValueError unless every rule's stride is one K4 packs (1, 2
+    or 4: ``_ASSOC_STRIDES``, the strides TorchGrepProgram builds its
+    tables at). Read from the card once per tensor (and again after a
+    write to it), not at every launch."""
+    if getattr(kp, "_assoc_checked", None) == kp._version:
+        return
+    bad = sorted(set(kp.tolist()) - set(_ASSOC_STRIDES))
+    if bad:
+        raise ValueError(f"grep_assoc: strides {bad} in kp (the walk packs "
+                         f"{_ASSOC_STRIDES} bytes a symbol)")
+    kp._assoc_checked = kp._version
 
 
 class GrepAssocKernel(_Kernel):
     """Wrapper of ``csrc/grep_assoc.cu`` (K4, the parallel-in-time walk):
-    one block per (rule, row); checks the tensors, allocates the output,
+    warps of rows over each rule's stride table in shared memory
+    (``assoc_block``; a row's functions in registers up to 64 states, in
+    shared memory above); checks the tensors, allocates the output,
     launches on the current stream. With ``counts`` (int32 [R] on the
-    same device) the kernel also adds each rule's matched rows into
-    it."""
+    same device) the kernel also adds each rule's matched rows into it.
+    ``k`` is the program's stride (checked; the walk runs at each rule's
+    ``kp``, which must be 1, 2 or 4)."""
 
     source, symbol = "grep_assoc", "grep_assoc_launch"
-    argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] + [ctypes.c_int] * 7
+    argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
 
     def __call__(self, t: Tables, batch: torch.Tensor, lengths: torch.Tensor,
                  k: int, S: int, segment: int,
                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _check_launch("grep_assoc", t, batch, lengths, k, tuple(_TABLE_DIMS))
+        _check_launch("grep_assoc", t, batch, lengths, k, _ASSOC_TABLES)
         counts_ptr = _counts_ptr("grep_assoc", counts, batch)
         R, B, L = batch.shape
         if not 1 <= S <= 65535 or segment < 2:
             raise ValueError(f"grep_assoc: unsupported S={S} or "
                              f"segment={segment}")
-        Lk, G2, threads, smem = assoc_launch_shape(L, k, S, segment)
+        width = t["tab16"].shape[1]
+        if width > 65536:
+            raise ValueError(f"grep_assoc: a {width}-entry table (the walk "
+                             f"keeps sym * S in 16 bits: at most 65,536)")
+        _check_assoc_strides(t["kp"])
+        P, win, ngw, gx, smem = assoc_block(
+            R, B, S, width, segment, _sm_count(batch.device.index or 0))
         if smem > _MAX_SMEM:
             raise ValueError(f"grep_assoc: {smem} B of shared memory for "
-                             f"L={L}, k={k}, S={S}, segment={segment} "
-                             f"(at most {_MAX_SMEM})")
+                             f"segment={segment}, S={S} and a {2 * width} B "
+                             f"table (at most {_MAX_SMEM})")
         out = torch.empty((R, B), dtype=torch.bool, device=batch.device)
         if R * B == 0:
             return out
-        vec16 = int(L % 16 == 0 and batch.data_ptr() % 16 == 0)
         self._launch(batch.device, batch.data_ptr(), lengths.data_ptr(),
-                     t["trans_flat"].data_ptr(), t["class_maps"].data_ptr(),
-                     t["C"].data_ptr(), t["Ck"].data_ptr(),
-                     t["eol_cls"].data_ptr(), t["starts"].data_ptr(),
-                     t["n_states"].data_ptr(), out.data_ptr(), counts_ptr, R,
-                     B, L, k, t["trans_flat"].shape[1], S, segment, Lk, G2,
-                     threads, smem, vec16)
+                     t["tab16"].data_ptr(), t["class_maps"].data_ptr(),
+                     t["C"].data_ptr(), t["eol_cls"].data_ptr(),
+                     t["starts"].data_ptr(), t["n_states"].data_ptr(),
+                     t["kp"].data_ptr(), out.data_ptr(), counts_ptr, R, B, L,
+                     S, segment, width, P, win, ngw, gx, smem,
+                     int(L % 16 == 0 and batch.data_ptr() % 16 == 0))
         return out
 
 
@@ -551,12 +831,24 @@ class TorchGrepProgram:
 
     def _set_tables(self, np_tables: Dict[str, Optional[np.ndarray]]) -> None:
         """Upload the tables this device's route reads: all of them for
-        the CPU plain versions, the kernels' (no ``pair_maps``) on CUDA.
-        ``table_bytes`` is the reference's table footprint (its leaves,
-        ``pair_maps`` included where it builds them), which
-        ``mesh_variant`` weighs."""
+        the CPU plain versions, the kernels' (no ``pair_maps``) on CUDA,
+        with the kernels' stride tables (``build_stride_tables``, at the
+        resolved kernel's budget) where the DFAs are known. The DFAs'
+        contract is checked first. ``table_bytes`` is the reference's
+        table footprint (its leaves, ``pair_maps`` included where it
+        builds them), which ``mesh_variant`` weighs."""
         self.table_bytes = replicated_table_bytes(
             {n: a for n, a in np_tables.items() if n != "n_states"})
+        if self.dfas:
+            check_contract(self.dfas)
+            budget = ((_ASSOC_TABLE_BUDGET, _ASSOC_TABLE_FLOOR,
+                       _ASSOC_STRIDES)
+                      if self.kernel_resolved == "assoc"
+                      else (_SCAN_TABLE_BUDGET, 0))
+            np_tables = dict(np_tables, **build_stride_tables(
+                self.dfas, self.k, *budget))
+        else:
+            check_flat_contract(np_tables, self.k)
         cpu = self.device.type == "cpu"
         self.tables = {
             name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -757,8 +1049,13 @@ def from_jax_tables(np_tables: Dict[str, Optional[np.ndarray]], k: int,
     reference package (``GrepProgram._np``: trans_flat, C, Ck,
     class_maps, eol_cls, starts, pair_maps or None). Read ``_np`` before
     the reference program materializes: materializing frees it.
-    ``dfas`` feeds ``decision()`` and the per-rule state counts that K4
-    needs; without them the program takes the scan."""
+    ``dfas`` feeds ``decision()``, the per-rule state counts that K4
+    needs and the kernels' stride tables (``build_stride_tables`` builds
+    them from the DFAs, as for a program built here), so they must be
+    the DFAs the set was built from: a leaf the kernels or the plain
+    versions read that differs from ``build_tables(dfas, k)``'s raises
+    ValueError. Without them the program takes the scan over the
+    carried ``trans_flat``."""
     if kernel not in ("scan", "assoc", "auto"):
         raise ValueError(f"unknown grep kernel {kernel!r}")
     prog = TorchGrepProgram.__new__(TorchGrepProgram)
@@ -773,8 +1070,12 @@ def from_jax_tables(np_tables: Dict[str, Optional[np.ndarray]], k: int,
     prog._children = prog._child_idxs = prog._inv_perm = None
     prog._mesh_cache = {}
     if prog.dfas:
-        np_tables = dict(np_tables, n_states=np.asarray(
-            [d.n_states for d in prog.dfas], dtype=np.int32))
+        own = build_tables(prog.dfas, prog.k)
+        for name in _SCAN_TABLES:
+            if not np.array_equal(own[name], np_tables[name]):
+                raise ValueError(f"the carried table {name} differs from "
+                                 f"the one the DFAs give at k={prog.k}")
+        np_tables = dict(np_tables, n_states=own["n_states"])
         prog.kernel_resolved = kernel_for(kernel, prog.device,
                                           prog.max_states)
     elif kernel == "assoc":

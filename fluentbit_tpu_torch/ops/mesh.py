@@ -75,14 +75,14 @@ AXIS = "@axis"
 PARTITION_RULES: Dict[str, Tuple[Tuple[str, Tuple[Any, ...]], ...]] = {
     # batch variant: B shards across devices, every table leaf replicates
     "grep-batch": (
-        (r"^(trans_flat|class_maps|pair_maps|C|Ck|eol_cls|starts|n_states)$",
-         ()),
+        (r"^(trans_flat|class_maps|pair_maps|C|Ck|eol_cls|starts|n_states"
+         r"|tab16|kp)$", ()),
     ),
     # rule-sharded variant: each device holds 1/n of the rules, the 2-D
     # leaves and the per-rule vectors split on the rule axis
     "grep-rules": (
-        (r"^(trans_flat|class_maps|pair_maps)$", (AXIS, None)),
-        (r"^(C|Ck|eol_cls|starts|n_states)$", (AXIS,)),
+        (r"^(trans_flat|class_maps|pair_maps|tab16)$", (AXIS, None)),
+        (r"^(C|Ck|eol_cls|starts|n_states|kp)$", (AXIS,)),
     ),
     # sketch state replicates: every shard absorbs its rows into a zeroed
     # partial, merged by max (HLL) / sum (count-min) on the first device

@@ -225,3 +225,134 @@ def test_segment_floor_and_inheritance():
     assert prog.segment == 2
     assert {(c.kernel, c.segment) for c in prog._children} == {("assoc", 2)}
     assert port(["GET"], 64).decision()["kernel_resolved"] == "scan"
+
+
+# -- K4's cut walk (since the redesign) --
+
+EXCLUDE = r'HTTP/1\.1" 500 '
+CUT_PROGRAMS = {"apache2": [APACHE2], "mixed_k": [APACHE2, "GET", r"^\d+ GET"],
+                "config3": CONFIG3, "exclude": [EXCLUDE],
+                "out_of_row": OUT_OF_ROW}
+CUT_L = 80
+
+
+def cut_rows(prog, seed):
+    """Seeded rows of CUT_L bytes for ``prog``: random bytes everywhere
+    (dirty past every length), lengths of every class (-2, -1, 0, 1, each
+    stride's k - 1, k, k + 1, L - 1, L, random), then syslog and apache
+    lines the rules match and miss."""
+    R, B = len(prog.dfas), 80
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 256, size=(R, B, CUT_L), dtype=np.uint8)
+    lengths = rng.integers(-2, CUT_L + 1, size=(R, B)).astype(np.int32)
+    strides = set()
+    for leaf in prog._children or [prog]:
+        strides |= {leaf.k} | set(leaf.tables["kp"].tolist())
+    special = [-2, -1, 0, 1, CUT_L - 1, CUT_L] + sorted(
+        {v for s in strides for v in (s - 1, s, s + 1)})
+    lengths[:, : len(special)] = special
+    text = (syslog_lines(20, seed) + make_lines(20, random.Random(seed))
+            + [b"aaaaaaaaaaaa x12y", b"xWARN", b'x "GET /a HTTP/1.1" 500 7'])
+    for i, ln in enumerate(text, start=len(special)):
+        ln = ln[:CUT_L]
+        batch[:, i, : len(ln)] = np.frombuffer(ln, np.uint8)
+        lengths[:, i] = len(ln)
+    return batch, lengths
+
+
+@pytest.mark.parametrize("segment", [2, 8, 32])
+@pytest.mark.parametrize("name", sorted(CUT_PROGRAMS))
+def test_cut_walk_equals_reference(name, segment):
+    """``match_assoc_cut_plain`` (K4's walk: a row's segments up to the
+    one holding its first EOL class, over the stride table) equals the
+    reference's parallel-in-time walk over every segment of the full
+    width, dirty bytes past the length included. apache2 and the mixed
+    program walk their 690 states in plain torch; the kernel takes at
+    most 64."""
+    patterns = CUT_PROGRAMS[name]
+    prog = port(patterns, CUT_L, kernel="assoc", segment=segment)
+    batch, lengths = cut_rows(prog, seed=segment + len(name))
+    want = reference(patterns, CUT_L, kernel="assoc",
+                     segment=segment).match(batch, lengths)
+    got = np.zeros_like(want)
+    pairs = ([(prog, np.arange(len(patterns)))] if prog._children is None
+             else [(c, ix.numpy()) for c, ix in zip(prog._children,
+                                                    prog._child_idxs)])
+    for leaf, ix in pairs:
+        got[ix] = tg.match_assoc_cut_plain(
+            leaf.tables, torch.from_numpy(batch[ix]),
+            torch.from_numpy(lengths[ix]), leaf.max_states,
+            leaf.segment).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size
+
+
+def test_segments_past_the_first_eol_are_left_out_exactly():
+    """The argument of grep_assoc.cu's note, on config 3's programs at
+    K4's strides: after the super-symbol holding the first EOL class
+    every state is DEAD or ACC, and an all-EOL segment maps DEAD and ACC
+    to themselves; so composing the later segments (the reference) or
+    not (the cut walk) reads the same state at ``starts``."""
+    prog = port(CONFIG3, 512, kernel="assoc", segment=32)
+    for leaf in prog._children:
+        t = leaf.tables
+        for r, d in enumerate(leaf.dfas):
+            kp, S = int(t["kp"][r]), d.n_states
+            tab = t["tab16"][r].numpy().view(np.uint16)[
+                : d.n_classes ** kp * S].reshape(-1, S)
+            for tail in range(kp):  # 0..kp-1 byte classes, then EOL
+                for first in range(d.n_classes ** tail):
+                    sym = first
+                    for _ in range(kp - tail):
+                        sym = sym * d.n_classes + d.eol_class
+                    assert np.isin(tab[sym], (tg.DEAD, tg.ACC)).all()
+            eol_sym = sum(d.eol_class * d.n_classes ** i for i in range(kp))
+            assert tab[eol_sym][tg.DEAD] == tg.DEAD
+            assert tab[eol_sym][tg.ACC] == tg.ACC
+    # and the cut walk at the full row width equals the reference there
+    lines = syslog_lines(64, seed=3) + [b"x" * 511 + b"y", b"OOM" * 170]
+    batch, lengths = staged(lines, 512, len(CONFIG3))
+    got = prog.match(batch, lengths)
+    cut = np.concatenate([tg.match_assoc_cut_plain(
+        c.tables, torch.from_numpy(batch[ix.numpy()]),
+        torch.from_numpy(lengths[ix.numpy()]), c.max_states, 32).numpy()
+        for c, ix in zip(prog._children, prog._child_idxs)])
+    order = np.concatenate([ix.numpy() for ix in prog._child_idxs])
+    np.testing.assert_array_equal(cut[np.argsort(order)], got)
+
+
+@pytest.mark.parametrize("segment", [2, 32, 1024])
+@pytest.mark.parametrize("name", ["apache2", "config3", "exclude"])
+def test_assoc_launch_shape_does_not_grow_with_width(name, segment):
+    """K4's launch shape (``assoc_block``) for a program's own tables:
+    a row's slot holds one window of a power of two segments, at most
+    256 symbols unless one segment is longer, whatever the row's width,
+    so the block's shared memory fits at any L; above 64 states up to 8
+    segment functions fit beside it."""
+    prog = port(CUT_PROGRAMS[name], 512, kernel="assoc", segment=segment)
+    for leaf in prog._children or [prog]:
+        width = leaf.tables["tab16"].shape[1]
+        P, win, ngw, gx, smem = tg.assoc_block(
+            len(leaf.dfas), 4096, leaf.max_states, width, segment, 132)
+        assert smem <= tg._MAX_SMEM
+        w = win // segment
+        assert win == w * segment and w & (w - 1) == 0
+        assert win <= max(256, segment)
+        assert ngw == (min(w, 8) if leaf.max_states > 64 else 0)
+        assert P >= min(leaf.max_states, 32) and gx >= 1
+
+
+def test_assoc_wrapper_takes_only_its_strides():
+    """K4 packs super-symbols of 1, 2 or 4 bytes: the check its wrapper
+    makes refuses any other stride (again after a write to the tensor),
+    and every program built for K4 keeps to them."""
+    kp = torch.tensor([1, 2, 4], dtype=torch.int32)
+    tg._check_assoc_strides(kp)
+    tg._check_assoc_strides(kp)
+    kp[0] = 3
+    with pytest.raises(ValueError, match="strides"):
+        tg._check_assoc_strides(kp)
+    for patterns in CUT_PROGRAMS.values():
+        prog = port(patterns, CUT_L, kernel="assoc")
+        for leaf in prog._children or [prog]:
+            tg._check_assoc_strides(leaf.tables["kp"])

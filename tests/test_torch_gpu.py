@@ -102,12 +102,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def early_stop_rows(batch, lengths, first):
+    """Rows from ``first`` on that reach ACC or DEAD within their first
+    bytes (a literal at the front, a byte that kills an anchored
+    pattern), their bytes past that random and their length anything up
+    to L: the walk must stop there, or walk on to the same state."""
+    R, B, L = batch.shape
+    heads = [b"GET", b"DENY", b"12 GET", b"x", b"\xff", b" ",
+             b"sshd", b"kernel:", b"OOM", b"aaaaaaaaaa", b"x1y", b"WARN",
+             b"a" * 45, b"b" * 75,
+             b'1.2.3.4 - u [t] "GET / HTTP/1.1" 200 5']
+    for i, head in enumerate(heads):
+        row = first + i
+        if row >= B or len(head) > L:
+            continue
+        batch[:, row, : len(head)] = np.frombuffer(head, np.uint8)
+        # every other row ends at its head, the rest run on
+        lengths[:, row] = len(head) + (i % 2) * ((row * 7) % (L - len(head)
+                                                              + 1))
+    return batch, lengths
+
+
+def leaves_of(prog):
+    """(single-k program, its rule indices on the card) per k-group."""
+    if prog._children is None:
+        return [(prog, torch.arange(len(prog.dfas)))]
+    return list(zip(prog._children, prog._child_idxs))
+
+
+def tables_half(t, half):
+    """K3's shared half reads ``tab16``; without it, its global half."""
+    if half == "shared":
+        return t
+    return {n: v for n, v in t.items() if n not in ("tab16", "kp")}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("half", ["shared", "global"])
 @pytest.mark.parametrize("patterns,L", [([APACHE2], 512), ([APACHE2], 45),
                                         (["GET", "DENY"], 64),
-                                        (MIXED_K, 128), (MIXED_K, 0)])
+                                        (MIXED_K, 128), (MIXED_K, 0),
+                                        (OUT_OF_ROW, 100)])
 @pytest.mark.parametrize("B", [1, 17, 300])
-def test_cuda_kernel_equals_plain(cuda_device, patterns, L, B):
+def test_cuda_kernel_equals_plain(cuda_device, patterns, L, B, half):
+    """K3 against its plain version on the card and the CPU program,
+    through both halves of its table branch, over every length class,
+    rows that stop early, bytes past the length left dirty and L off a
+    multiple of 16; its counts epilogue against ``mask.sum``."""
     prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L,
                                cuda_device, kernel="scan")
     batch, lengths = random_rows(np.random.default_rng(B + L), len(patterns),
@@ -118,34 +159,54 @@ def test_cuda_kernel_equals_plain(cuda_device, patterns, L, B):
             batch[:, i, :] = 0
             batch[:, i, : len(ln)] = np.frombuffer(ln, np.uint8)
             lengths[:, i] = len(ln)
+    batch, lengths = early_stop_rows(batch, lengths, 40)
     before = tg.grep_dfa.launches
     got = prog.match(batch, lengths)
     assert tg.grep_dfa.launches - before == len(prog.decision()["k_groups"])
     cpu = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L, "cpu",
                               kernel="scan")
     np.testing.assert_array_equal(got, cpu.match(batch, lengths))
-    if prog.tables is not None:  # plain version on the card, same inputs
-        # the device program holds only the kernel's tables; the plain
+    b = torch.from_numpy(batch).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    for leaf, ix in leaves_of(prog):
+        # the device program holds only the kernels' tables; the plain
         # version gets the full set, so even k takes K2's pair tables
-        assert "pair_maps" not in prog.tables
-        plain = tg.match_plain(full_tables(prog, cuda_device),
-                               torch.from_numpy(batch).cuda(),
-                               torch.from_numpy(lengths).cuda(), prog.k)
-        np.testing.assert_array_equal(got, plain.cpu().numpy())
+        assert "pair_maps" not in leaf.tables and "tab16" in leaf.tables
+        ix = ix.to(cuda_device)
+        bb = b.index_select(0, ix).contiguous()
+        ll = ln.index_select(0, ix).contiguous()
+        t = tables_half(leaf.tables, half)
+        counts = torch.full((bb.shape[0],), 3, dtype=torch.int32,
+                            device=cuda_device)
+        mask = tg.grep_dfa(t, bb, ll, leaf.k, counts=counts)
+        plain = tg.match_plain(full_tables(leaf, cuda_device), bb, ll, leaf.k)
+        assert torch.equal(mask, plain)
+        assert torch.equal(mask, tg.match_stop_plain(t, bb, ll, leaf.k))
+        assert torch.equal(counts - 3, tg.counts_plain(plain))
+        assert torch.equal(mask, torch.from_numpy(got).cuda().index_select(
+            0, ix))
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_unaligned_batch(cuda_device):
-    """A batch view at an odd offset takes the byte-load path."""
+@pytest.mark.parametrize("half", ["shared", "global"])
+@pytest.mark.parametrize("B", [50, 40000])
+def test_cuda_kernel_unaligned_batch(cuda_device, half, B):
+    """A batch view at an odd offset takes the byte-load path; blocks of
+    4 warps (50 rows) and of 8 (40,000 rows, more than two blocks an SM
+    at 4) give the same verdicts and counts."""
     prog = tg.TorchGrepProgram([compile_dfa(APACHE2)], 64, cuda_device)
-    batch, lengths = random_rows(np.random.default_rng(1), 1, 50, 64)
+    batch, lengths = random_rows(np.random.default_rng(1), 1, B, 64)
+    batch, lengths = early_stop_rows(batch, lengths, 6)
     flat = torch.zeros(1 + batch.size, dtype=torch.uint8, device=cuda_device)
-    view = flat[1:].view(1, 50, 64)
+    view = flat[1:].view(1, B, 64)
     view.copy_(torch.from_numpy(batch))
     lt = torch.from_numpy(lengths).cuda()
-    got = tg.grep_dfa(prog.tables, view, lt, prog.k)
+    t = tables_half(prog.tables, half)
+    counts = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = tg.grep_dfa(t, view, lt, prog.k, counts=counts)
     plain = tg.match_plain(prog.tables, view, lt, prog.k)
     assert torch.equal(got, plain)
+    assert torch.equal(counts, tg.counts_plain(plain))
 
 
 def syslog_rows(R, B, L, seed):
@@ -185,8 +246,14 @@ def assoc_plain_on_card(prog, b, ln):
 @pytest.mark.parametrize("patterns,L,B", [
     (CONFIG3, 512, 300), (CONFIG3, 512, 1), (CONFIG3, 0, 17),
     (OUT_OF_ROW, 64, 300), (["GET", "DENY"], 64, 300),
-    ([r'HTTP/1\.1" 500 '], 45, 300)])
+    ([r'HTTP/1\.1" 500 '], 45, 300), (CONFIG3, 100, 300),
+    ([APACHE2], 200, 300), (["a{40}"], 100, 300),
+    (["a{40}", "b{70}"], 100, 300)])
 def test_assoc_kernel_equals_plain(cuda_device, patterns, L, B, segment):
+    """K4 against its plain version on the card, the CPU program and the
+    scan, over every length class, rows that stop early, bytes past the
+    length left dirty and L off a multiple of 16; its counts epilogue
+    against ``mask.sum``; the cut walk's plain version agrees."""
     dfas = [compile_dfa(p) for p in patterns]
     prog = tg.TorchGrepProgram(dfas, L, cuda_device, kernel="assoc",
                                segment=segment)
@@ -196,6 +263,7 @@ def test_assoc_kernel_equals_plain(cuda_device, patterns, L, B, segment):
             batch[:, 6 + i, :] = 0
             batch[:, 6 + i, : len(s)] = np.frombuffer(s, np.uint8)
             lengths[:, 6 + i] = len(s)
+    batch, lengths = early_stop_rows(batch, lengths, 70)
     groups = len(prog.decision()["k_groups"])
     before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
     got = prog.match(batch, lengths)
@@ -210,24 +278,107 @@ def test_assoc_kernel_equals_plain(cuda_device, patterns, L, B, segment):
     np.testing.assert_array_equal(got, cpu.match(batch, lengths))
     scan = tg.TorchGrepProgram(dfas, L, cuda_device, kernel="scan")
     np.testing.assert_array_equal(got, scan.match(batch, lengths))
+    for leaf, ix in leaves_of(prog):
+        ix = ix.to(cuda_device)
+        bb = b.index_select(0, ix).contiguous()
+        ll = ln.index_select(0, ix).contiguous()
+        counts = torch.full((bb.shape[0],), 3, dtype=torch.int32,
+                            device=cuda_device)
+        mask = tg.grep_assoc(leaf.tables, bb, ll, leaf.k, leaf.max_states,
+                             leaf.segment, counts=counts)
+        assert torch.equal(counts - 3, tg.counts_plain(mask))
+        assert torch.equal(mask, tg.match_assoc_cut_plain(
+            leaf.tables, bb, ll, leaf.max_states, leaf.segment))
     if B > 60 and L:
         assert 0 < got.sum() < got.size
 
 
 @pytest.mark.gpu
-def test_assoc_kernel_unaligned_batch(cuda_device):
-    """A batch view at an odd offset takes the byte-load path."""
-    prog = tg.TorchGrepProgram([compile_dfa(p) for p in ["GET", "DENY"]], 64,
+@pytest.mark.parametrize("patterns", [["GET", "DENY"], CONFIG3,
+                                      [r'HTTP/1\.1" 500 ']])
+def test_assoc_kernel_unaligned_batch(cuda_device, patterns):
+    """A batch view at an odd offset (K4 reads bytes one by one)."""
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], 64,
                                cuda_device, kernel="assoc", segment=8)
-    batch, lengths = syslog_rows(2, 70, 64, seed=5)
+    R = len(patterns)
+    batch, lengths = syslog_rows(R, 70, 64, seed=5)
+    batch, lengths = early_stop_rows(batch, lengths, 50)
     flat = torch.zeros(1 + batch.size, dtype=torch.uint8, device=cuda_device)
-    view = flat[1:].view(2, 70, 64)
+    view = flat[1:].view(R, 70, 64)
     view.copy_(torch.from_numpy(batch))
     lt = torch.from_numpy(lengths).cuda()
-    got = tg.grep_assoc(prog.tables, view, lt, prog.k, prog.max_states, 8)
-    want = tg.match_assoc_plain(prog.tables, view, lt, prog.k,
-                                prog.max_states, 8)
-    assert torch.equal(got, want)
+    for leaf, ix in leaves_of(prog):
+        ix = ix.to(cuda_device)
+        rows = torch.zeros(1 + len(ix) * 70 * 64, dtype=torch.uint8,
+                           device=cuda_device)[1:].view(len(ix), 70, 64)
+        rows.copy_(view.index_select(0, ix))
+        ll = lt.index_select(0, ix).contiguous()
+        got = tg.grep_assoc(leaf.tables, rows, ll, leaf.k, leaf.max_states, 8)
+        want = tg.match_assoc_plain(full_tables(leaf, cuda_device), rows, ll,
+                                    leaf.k, leaf.max_states, 8)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [512, 45])
+def test_assoc_wrapper_refuses_other_strides(cuda_device, L):
+    """K4 packs super-symbols of 1, 2 or 4 bytes only: table sets built
+    for the scan, at strides that do not divide 16 (Exclude at 3, WARN
+    and nginx at 5), raise before any launch."""
+    for patterns in ([r'HTTP/1\.1" 500 '], ["WARN", "nginx"]):
+        prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], L,
+                                   cuda_device, kernel="scan")
+        assert any(kp not in (1, 2, 4) for kp in prog.tables["kp"].tolist())
+        batch, lengths = syslog_rows(len(patterns), 300, L, seed=L)
+        b = torch.from_numpy(batch).cuda()
+        ln = torch.from_numpy(lengths).cuda()
+        before = tg.grep_assoc.launches
+        with pytest.raises(ValueError, match="strides"):
+            tg.grep_assoc(prog.tables, b, ln, prog.k, prog.max_states, 32)
+        assert tg.grep_assoc.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segment", [2, 32, 1024])
+@pytest.mark.parametrize("L", [4096, 40000])
+def test_assoc_kernel_wide_rows(cuda_device, L, segment):
+    """Config 3's rules over rows of a user-set ``tpu_max_record_len``
+    (4096, 40000): K4's shared memory does not grow with L, and its
+    verdicts and counts equal the plain version's, the scan's and the
+    CPU program's, with the rules' words pushed deep into the rows."""
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in CONFIG3], L,
+                               cuda_device, kernel="assoc", segment=segment)
+    batch, lengths = syslog_rows(len(CONFIG3), 96, L, seed=L + segment)
+    batch, lengths = early_stop_rows(batch, lengths, 70)
+    for i in range(6, 66, 2):  # the line after a long run of filler
+        n = int(lengths[0, i])
+        pad = (i * 997) % (L - n)
+        line = batch[:, i, :n].copy()
+        batch[:, i, :pad] = ord(".")
+        batch[:, i, pad:pad + n] = line
+        lengths[:, i] = pad + n
+    before = tg.grep_assoc.launches
+    got = prog.match(batch, lengths)
+    assert tg.grep_assoc.launches - before == len(prog.decision()["k_groups"])
+    b = torch.from_numpy(batch).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    np.testing.assert_array_equal(
+        got, assoc_plain_on_card(prog, b, ln).cpu().numpy())
+    scan = tg.TorchGrepProgram([compile_dfa(p) for p in CONFIG3], L,
+                               cuda_device, kernel="scan")
+    np.testing.assert_array_equal(got, scan.match(batch, lengths))
+    cpu = tg.TorchGrepProgram([compile_dfa(p) for p in CONFIG3], L, "cpu")
+    np.testing.assert_array_equal(got, cpu.match(batch, lengths))
+    for leaf, ix in leaves_of(prog):
+        ix = ix.to(cuda_device)
+        bb = b.index_select(0, ix).contiguous()
+        ll = ln.index_select(0, ix).contiguous()
+        counts = torch.zeros(bb.shape[0], dtype=torch.int32,
+                             device=cuda_device)
+        mask = tg.grep_assoc(leaf.tables, bb, ll, leaf.k, leaf.max_states,
+                             segment, counts=counts)
+        assert torch.equal(counts, tg.counts_plain(mask))
+    assert 0 < got[:, 6:66:2].sum() < got[:, 6:66:2].size
 
 
 @pytest.mark.gpu
@@ -256,6 +407,12 @@ def test_assoc_wrapper_rejects_bad_tensors(cuda_device):
                       prog.max_states, 32)
     with pytest.raises(ValueError, match="shared memory"):
         tg.grep_assoc(prog.tables, b.cuda(), ln.cuda(), prog.k, 60000, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        tg.grep_assoc(prog.tables, b.cuda(), ln.cuda(), prog.k,
+                      prog.max_states, 1 << 20)
+    with pytest.raises(ValueError, match="tab16"):
+        tg.grep_assoc({n: v for n, v in prog.tables.items() if n != "tab16"},
+                      b.cuda(), ln.cuda(), prog.k, prog.max_states, 32)
 
 
 @pytest.mark.gpu

@@ -7,6 +7,7 @@ exactly — symbols are integers and verdicts booleans. The CUDA kernel
 is held against the plain version in tests/test_torch_gpu.py.
 """
 
+import dataclasses
 import functools
 import random
 
@@ -229,6 +230,22 @@ def test_from_jax_tables(patterns):
     np.testing.assert_array_equal(got, ref.match(batch, lengths))
 
 
+def test_from_jax_tables_refuses_other_dfas():
+    """The kernels' stride tables come from ``dfas``: a carried set that
+    the DFAs do not give (another pattern's, or an edited table) raises
+    instead of walking different tables on the card and the CPU."""
+    L = 96
+    ref, np_t = jax_tables(["GET", "DENY"], L)
+    with pytest.raises(ValueError, match="differs"):
+        tg.from_jax_tables(np_t, ref.k, L, device="cpu",
+                           dfas=[compile_dfa(p) for p in ["GET", "DENX"]])
+    edited = dict(np_t, trans_flat=np_t["trans_flat"].copy())
+    edited["trans_flat"][0, 5] ^= 1
+    with pytest.raises(ValueError, match="trans_flat"):
+        tg.from_jax_tables(edited, ref.k, L, device="cpu",
+                           dfas=[compile_dfa(p) for p in ["GET", "DENY"]])
+
+
 @pytest.mark.parametrize("patterns", [[APACHE2], MIXED_K, ["GET", "DENY"]])
 def test_decision_matches_reference(patterns):
     ref = GrepProgram([jax_compile_dfa(p) for p in patterns], 128)
@@ -253,3 +270,172 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         tg.grep_dfa(prog.tables, torch.from_numpy(batch),
                     torch.from_numpy(lengths), prog.k)
+
+
+# -- the kernels' stop rule and stride tables (K3 since the redesign) --
+
+#: conf/baseline3-rewrite.conf's rules (k = 4, 5, 6 children), config 1's
+#: Exclude rule, and a k = 6 program whose rules differ widely in S and C
+CONFIG3 = ["sshd", "kernel:", r"systemd\[1\]", "ERROR", "WARN", "nginx",
+           r"cron\[\d+\]", ".*OOM.*"]
+EXCLUDE = r'HTTP/1\.1" 500 '
+OUT_OF_ROW = ["a{10}", "WARN", "x[0-9]+y"]
+STOP_PROGRAMS = {"apache2": [APACHE2], "mixed_k": MIXED_K,
+                 "config3": CONFIG3, "exclude": [EXCLUDE],
+                 "out_of_row": OUT_OF_ROW}
+STOP_L = 96
+
+
+def leaves(prog):
+    """(single-k program, its rule indices) for each k-group."""
+    if prog._children is None:
+        return [(prog, np.arange(len(prog.dfas)))]
+    return [(c, ix.numpy()) for c, ix in zip(prog._children, prog._child_idxs)]
+
+
+def stop_rows(prog, seed):
+    """Seeded rows of STOP_L bytes for ``prog``: random bytes everywhere,
+    so every row is dirty past its length; lengths of every class (-2,
+    -1, 0, 1, each stride's k - 1, k, k + 1, L - 1, L, random); then
+    text rows the rules match and miss."""
+    R, B = len(prog.dfas), 96
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 256, size=(R, B, STOP_L), dtype=np.uint8)
+    lengths = rng.integers(-2, STOP_L + 1, size=(R, B)).astype(np.int32)
+    strides = {leaf.k for leaf, _ in leaves(prog)}
+    for leaf, _ in leaves(prog):
+        strides |= set(leaf.tables["kp"].tolist())
+    special = [-2, -1, 0, 1, STOP_L - 1, STOP_L] + sorted(
+        {v for s in strides for v in (s - 1, s, s + 1)})
+    lengths[:, : len(special)] = special
+    text = make_lines(40, seed) + [
+        b"Oct 17 sshd[22]: WARN x", b"kernel: cron[7] OOM", b"aaaaaaaaaaaa x12y",
+        b'10.0.0.2 - - [t] "GET /b HTTP/1.1" 500 7', b"12 GET",
+        b"systemd[1]: nginx ERROR", b"x" * STOP_L]
+    for i, ln in enumerate(text, start=len(special)):
+        batch[:, i, : len(ln)] = np.frombuffer(ln[:STOP_L], np.uint8)
+        lengths[:, i] = min(len(ln), STOP_L)
+    return batch, lengths
+
+
+@functools.lru_cache(maxsize=None)
+def stop_case(name):
+    """(port program on the CPU, rows, lengths, the reference's
+    verdicts on JAX's CPU backend)."""
+    patterns = STOP_PROGRAMS[name]
+    prog = tg.TorchGrepProgram([compile_dfa(p) for p in patterns], STOP_L,
+                               "cpu", kernel="scan")
+    batch, lengths = stop_rows(prog, seed=len(name))
+    ref = GrepProgram([jax_compile_dfa(p) for p in patterns], STOP_L)
+    return prog, batch, lengths, ref.match(batch, lengths)
+
+
+@pytest.mark.parametrize("half", ["shared", "global"])
+@pytest.mark.parametrize("name", sorted(STOP_PROGRAMS))
+def test_stop_walk_equals_reference(name, half):
+    """``match_stop_plain`` (K3's walk: a row's own super-symbols only,
+    stopping at DEAD/ACC) over the stride table (the kernel's shared
+    half) or over ``trans_flat`` at k (its global half) equals the
+    reference's full-width scan, dirty bytes past the length included."""
+    prog, batch, lengths, want = stop_case(name)
+    got = np.zeros_like(want)
+    for leaf, ix in leaves(prog):
+        t = dict(leaf.tables)
+        if half == "global":
+            t = {n: v for n, v in t.items() if n not in ("tab16", "kp")}
+        else:
+            assert (t["kp"] >= 1).all() and (t["kp"] <= leaf.k).all()
+        got[ix] = tg.match_stop_plain(t, torch.from_numpy(batch[ix]),
+                                      torch.from_numpy(lengths[ix]),
+                                      leaf.k).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size
+
+
+def test_stride_tables_are_the_composed_dfa():
+    """``tab16`` holds each rule's composed table at its stride,
+    symbol-major, at the largest stride whose table fits the budget
+    (apache2: 690 states, 8 classes: stride 2 within half an SM's 228 KB);
+    none at all when a rule fits at no stride; and the reference's
+    tables stay exactly as they were (``build_tables``)."""
+    dfa = compile_dfa(APACHE2)
+    prog = tg.TorchGrepProgram([dfa], 512, "cpu", kernel="scan")
+    assert prog.tables["kp"].tolist() == [2]
+    tab = prog.tables["tab16"][0].numpy().view(np.uint16)
+    want = tg.compose_supersteps(dfa.trans, 2).T.reshape(-1)
+    np.testing.assert_array_equal(tab[: want.size], want)
+    assert tab.size % 8 == 0 and not tab[want.size:].any()
+    assert tg.stride_for(dfa, 3, tg._SCAN_TABLE_BUDGET) == 2
+    assert tg.stride_for(dfa, 3, 690 * 8 * 2 - 1) == 0
+    assert tg.build_stride_tables([dfa], 3, 1000) == {}
+    assoc = tg.TorchGrepProgram([compile_dfa(p) for p in CONFIG3], 512,
+                                "cpu", kernel="assoc")
+    # K4's 16 KB budget at strides dividing 16, rule by rule:
+    # systemd\[1\] (12 states, 11 classes) and nginx (7, 6) fit at
+    # stride 2, sshd (6, 5) at 4 (5 would fit, but does not divide 16)
+    assert [c.tables["kp"].tolist() for c in assoc._children] == [
+        [2], [2, 2], [4, 4, 4, 2, 4]]
+    for c in assoc._children:
+        assert c.tables["kp"].tolist() == [
+            tg.stride_for(d, c.k, tg._ASSOC_TABLE_BUDGET, (1, 2, 4))
+            for d in c.dfas]
+    # past the budget at every stride, K4 keeps stride 1 under 65,536
+    # entries (apache2: 690 x 8)
+    assert tg.build_stride_tables([dfa], 3, 1000, tg._ASSOC_TABLE_FLOOR)[
+        "kp"].tolist() == [1]
+    assert tg.build_stride_tables([dfa], 3, 1000, 690 * 8 * 2 - 1) == {}
+    assert set(tg.build_tables([dfa], 3)) == {
+        "trans_flat", "C", "Ck", "class_maps", "eol_cls", "starts",
+        "n_states"}
+    assert prog.table_bytes == tg.replicated_table_bytes(
+        {n: a for n, a in tg.build_tables([dfa], 3).items()
+         if n != "n_states"})
+
+
+#: every pattern the port's tests compile into grep programs
+CONTRACT_PATTERNS = sorted(set(
+    ["abc", r"^\d+ GET", APACHE2, r"a*b|c$", "GET", r"^\d", "x*", "a",
+     r"^\d+$", "ab+c", "DENY", r"^$", "keepme", "^drop", r"^ERROR", ".*",
+     r"([a-z]+)-(\d+)", r"(?<svc>[a-z]+)-(\d+)", EXCLUDE, "a{10}",
+     "x[0-9]+y"] + CONFIG3))
+
+
+@pytest.mark.parametrize("pattern", CONTRACT_PATTERNS)
+def test_dfa_contract_holds(pattern):
+    """DEAD and ACC absorb, the EOL class sends every state to DEAD or
+    ACC — so a walk may stop at DEAD/ACC and after the first EOL class —
+    for every pattern the tests compile; at the rule's stride, an all-EOL
+    super-step maps DEAD and ACC to themselves."""
+    dfa = compile_dfa(pattern)
+    tg.check_contract([dfa])
+    t = dfa.trans
+    assert (t[tg.DEAD] == tg.DEAD).all() and (t[tg.ACC] == tg.ACC).all()
+    assert np.isin(t[:, dfa.eol_class], (tg.DEAD, tg.ACC)).all()
+    prog = tg.TorchGrepProgram([dfa], 64, "cpu")
+    kp, S = int(prog.tables["kp"][0]), dfa.n_states
+    tab = prog.tables["tab16"][0].numpy().view(np.uint16)
+    eol_sym = sum(dfa.eol_class * dfa.n_classes ** i for i in range(kp))
+    after = tab[eol_sym * S: eol_sym * S + S]
+    assert np.isin(after, (tg.DEAD, tg.ACC)).all()
+    assert after[tg.DEAD] == tg.DEAD and after[tg.ACC] == tg.ACC
+
+
+def test_contract_breach_raises_by_name():
+    """A hand-made table that breaks the contract is refused when the
+    program builds its tables, naming the pattern; so is a carried-over
+    stride-k table set that breaks it."""
+    good = compile_dfa("GET")
+    for breach in ("dead", "acc", "eol"):
+        trans = good.trans.copy()
+        if breach == "dead":
+            trans[tg.DEAD, 0] = 2
+        elif breach == "acc":
+            trans[tg.ACC, -1] = tg.DEAD
+        else:
+            trans[2, good.eol_class] = 2
+        bad = dataclasses.replace(good, trans=trans, pattern=f"bad-{breach}")
+        with pytest.raises(ValueError, match=f"bad-{breach}"):
+            tg.TorchGrepProgram([bad], 32, "cpu")
+        with pytest.raises(ValueError, match="contract"):
+            tg.check_flat_contract(tg.build_tables([bad], 1), 1)
+    tg.check_flat_contract(tg.build_tables([good], 3), 3)
