@@ -52,7 +52,13 @@ Phases (any failure exits non-zero):
    ``cms_update`` (4 x 16384 int32, 4 x 512 int64, 4 x 16384 int32 with
    weights) against their plain torch versions on the card at the main
    path's [4096, 256] and at [65536, 256], registers and tables exactly
-   equal, with CUDA-event times of both;
+   equal, with CUDA-event times of both; and K6's grouped form
+   (``hll_update_groups``, one launch for every group) against
+   ``hll_update_groups_plain`` at the flux wide append's shape (4096 rows
+   of 256 B, 600 groups, p = 12), at G = 1, at 65536 rows, at 2000
+   groups (pointers from a device array), and where
+   atomics collide (every row in one group, every row one value) or a
+   segment id names no group, with times, host enqueue and bound;
 6. pipeline: BASELINE config 4 (http input → log_to_metrics cardinality
    over ``user`` and frequency over ``path`` → prometheus_exporter), 64
    POSTs of 4096 records, on ``device="cuda"`` and then ``"cpu"``: the
@@ -65,7 +71,9 @@ Phases (any failure exits non-zero):
    shape (4096 rows x 256 B, one distinct field plus composites, 200
    groups, p = 12, count-min 4 x 16384 int32) and at 65536 rows with 512
    groups, plus edge cases (all rows invalid, L = 0, an unaligned batch,
-   two fields), and ``segment_counts`` (K9) at 4096 and 65536 rows,
+   two fields, ten fields: two launches) and the contended cases (every
+   row in one group, every field row one value, every composite one
+   value), and ``segment_counts`` (K9) at 4096 and 65536 rows,
    against their plain torch versions on the card, counts, stacks and
    tables exactly equal, with CUDA-event times of both and of
    ``torch.bincount`` beside K9;
@@ -79,7 +87,8 @@ Phases (any failure exits non-zero):
    devices, agree with a check computed here from Python (window folds,
    HLL registers, estimates within 3 sigma, top-k within count-min's
    bound), and K10 must have launched once per append of <= 512 groups
-   and K6 once per group of the wide append; then the cuda run again
+   and K6's grouped form once per distinct field on the wide append (the
+   one-array form never), whose host steps are reported; then the cuda run again
    with the state's ``_mesh`` set to ``Mesh((cuda:0,) * 8)`` (the
    filter's ``mesh`` key on one card): rows and states equal to the
    unsharded run, 8 K10 shard launches and 3 shard merges per append;
@@ -994,20 +1003,28 @@ def sketch_rows(np, seed: int, B: int):
 
 
 def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None,
-                    extra_bytes: int = 0) -> tuple:
+                    extra_bytes: int = 0, seg=None, groups: int = 1) -> tuple:
     """Least time for one sketch update of these rows. Bytes: each row's
     bytes before its length, every length (and weight) once, and each
     state word the rows touch read once and written once (plus
-    ``extra_bytes``: a sharded call's merge), over HBM's rate.
-    Operations, for a row with a length: an xor and a multiply per byte,
-    the finaliser (8), and for HLL index and rank (5), for count-min the
-    second hash (9) and per depth row a multiply, an add and a modulo
-    (3), over the int32 peak. The larger bounds it."""
+    ``extra_bytes``: a sharded call's merge), over HBM's rate; K6's
+    grouped form (``seg``) also reads the segment ids and the ``groups``
+    array pointers once, and its rows count only where their segment
+    names a group. Operations, for a row with a length: an xor and a
+    multiply per byte, the finaliser (8), and for HLL index and rank
+    (5), for count-min the second hash (9) and per depth row a multiply,
+    an add and a modulo (3), over the int32 peak. The larger bounds
+    it."""
     valid = ln >= 0
-    used = ln.clamp(min=0, max=b.shape[1]).long()
+    if seg is not None:
+        valid = valid & (seg >= 0) & (seg < groups)
+        extra_bytes += 4 * seg.numel() + 8 * groups
+    used = torch.where(valid, ln, 0).clamp(max=b.shape[1]).long()
     n_valid = int(valid.sum())
     if p is not None:
         idx, _ = tsk.hll_index_rank_plain(b, ln, p)
+        if seg is not None:  # a word is a (group, register) pair
+            idx = idx + (seg.long() << p)
         words = int(torch.unique(idx[valid]).numel())
         per_row = 8 + 5
     else:
@@ -1081,6 +1098,70 @@ def phase_sketch_kernels(np, torch, tsk, seed: int) -> list:
             if launches != 1 or res["state_nonzero"] == 0:
                 raise SystemExit(f"{name}: bad launch or empty state: {res}")
             results.append(res)
+    return results + hll_groups_cases(np, torch, tsk, seed)
+
+
+def hll_groups_cases(np, torch, tsk, seed: int) -> list:
+    """K6's grouped form (``hll_update_groups``) against
+    ``hll_update_groups_plain`` on the card, register for register: at
+    the flux wide append's shape (4096 rows of 256 B, 600 groups, p =
+    12), at G = 1 (the same rows into one array), at 65536 rows, and the
+    contended cases (every row in one group of 600; every row one value),
+    with CUDA-event times, host enqueue and bound for the timed ones."""
+    dev = torch.device("cuda")
+    cases = [("wide", RECORDS, FLUX_WIDE, "cycle", True),
+             ("g1", RECORDS, 1, "zeros", True),
+             ("wide_65536", 65536, FLUX_WIDE, "cycle", True),
+             # more groups than the kernel takes by value: a device array
+             ("g2000", RECORDS, 2000, "cycle", True),
+             ("one_group", RECORDS, FLUX_WIDE, "one_group", False),
+             ("one_value", RECORDS, FLUX_WIDE, "one_value", False),
+             ("out_of_range", RECORDS, 7, "out_of_range", False)]
+    results = []
+    for i, (label, B, G, kind, timed) in enumerate(cases):
+        batch, lengths = sketch_rows(np, seed + 31 * i + 5, B)
+        if kind == "one_value":
+            batch[:] = batch[3]
+            lengths[:] = 77
+        rng = np.random.default_rng(seed + i)
+        seg = (np.arange(B) % G if kind in ("cycle", "one_value")
+               else np.zeros(B) if kind == "zeros"
+               else np.full(B, G // 2) if kind == "one_group"
+               else rng.integers(-3, G + 3, size=B))
+        b = torch.from_numpy(batch).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        sg = torch.from_numpy(seg.astype(np.int32)).to(dev)
+        start = [torch.zeros(1 << FLUX_P, dtype=torch.int32, device=dev)
+                 for _ in range(G)]
+        got = [r.clone() for r in start]
+        want = [r.clone() for r in start]
+        before = tsk.hll_update_groups.launches
+        tsk.hll_update_groups(got, b, ln, sg, FLUX_P)
+        launches = tsk.hll_update_groups.launches - before
+        tsk.hll_update_groups_plain(want, b, ln, sg, FLUX_P)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        res = {"kernel": "hll_update_groups", "case": label, "p": FLUX_P,
+               "groups": G, "shape": [B, SKETCH_L], "launches": launches,
+               "max_abs_err": err, "rows_counted": int((ln >= 0).sum()),
+               "state_nonzero": sum(int((w != 0).sum()) for w in want)}
+        if timed:
+            res["ms"] = cuda_ms(torch, lambda: tsk.hll_update_groups(
+                got, b, ln, sg, FLUX_P), 200)
+            res["host_enqueue_ms"] = host_ms(
+                torch, lambda: tsk.hll_update_groups(got, b, ln, sg, FLUX_P),
+                200)
+            res["plain_ms"] = cuda_ms(torch, lambda: tsk.hll_update_groups_plain(
+                want, b, ln, sg, FLUX_P), 3)
+            res["bound_ms"], res["bound_by"] = sketch_bound_ms(
+                torch, tsk, b, ln, start[0], None, FLUX_P, seg=sg, groups=G)
+        log("sketch-vs-plain: " + json.dumps(res))
+        if err != 0 or launches != 1 or res["state_nonzero"] == 0:
+            raise SystemExit(f"hll_update_groups disagrees with its plain "
+                             f"version, did not launch once or set nothing: "
+                             f"{res}")
+        results.append(res)
     return results
 
 
@@ -1265,16 +1346,23 @@ CLOCK0 = 1_000_000.0
 
 def flux_case(np, torch, seed: int, B: int, G: int, F: int, comp: bool,
               L: int = FLUX_L, invalid: bool = False,
-              unaligned: bool = False) -> dict:
+              unaligned: bool = False, contend: str = "") -> dict:
     """Flux absorb inputs on the card from a seed: segment ids Zipf(1.1)
     over G groups, F fields and the composites of ``sketch_rows`` (cut to
-    width L), register stacks starting at zero."""
+    width L), register stacks starting at zero. ``contend`` puts every
+    row in one group ("one_group"), makes every field row one value
+    ("one_value") or every composite one value ("one_composite")."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     seg = zipf_choice(np, rng, G, 1.1, B).astype(np.int32)
+    if contend == "one_group":
+        seg[:] = 0
 
     def rows(k):
         batch, lengths = sketch_rows(np, seed + k, B)
+        if contend == ("one_composite" if k == 99 else "one_value"):
+            batch[:] = batch[3]
+            lengths[:] = 77
         if invalid:
             lengths[:] = -1
         b = torch.from_numpy(np.ascontiguousarray(batch[:, :L])).to(dev)
@@ -1347,7 +1435,14 @@ def phase_flux_kernels(np, torch, tsk, tfk, seed: int) -> list:
              ("L0", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True, L=0)),
              ("unaligned", dict(B=RECORDS - 3, G=FLUX_TENANTS, F=1,
                                 comp=True, unaligned=True)),
-             ("two_fields", dict(B=RECORDS, G=FLUX_TENANTS, F=2, comp=True))]
+             ("two_fields", dict(B=RECORDS, G=FLUX_TENANTS, F=2, comp=True)),
+             ("one_group", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True,
+                                contend="one_group")),
+             ("one_value", dict(B=RECORDS, G=FLUX_TENANTS, F=1, comp=True,
+                                contend="one_value")),
+             ("one_composite", dict(B=RECORDS, G=FLUX_TENANTS, F=1,
+                                    comp=True, contend="one_composite")),
+             ("ten_fields", dict(B=RECORDS, G=FLUX_TENANTS, F=10, comp=True))]
     results = []
     for i, (label, cfg) in enumerate(cases):
         case = flux_case(np, torch, seed + 7 * i, **cfg)
@@ -1378,9 +1473,12 @@ def phase_flux_kernels(np, torch, tsk, tfk, seed: int) -> list:
                 tfk.fused_absorb_plain, case, st, tb), 3)
             res["bound_ms"], res["bound_by"] = flux_bound_ms(torch, tsk, case)
         log("flux-vs-plain: " + json.dumps(res))
-        if err != 0 or launches != 1:
+        # eight fields a launch: a further launch for each next eight
+        want_launches = max(1, -(-cfg["F"] // tfk.FIELDS_PER_LAUNCH))
+        if err != 0 or launches != want_launches:
             raise SystemExit(f"fused_absorb disagrees with its plain version "
-                             f"or did not launch once: {res}")
+                             f"or did not launch {want_launches} time(s): "
+                             f"{res}")
         if not cfg.get("invalid") and (res["registers_set"] == 0
                                        or res["table_total"] == 0):
             raise SystemExit(f"fused_absorb: empty state: {res}")
@@ -1526,7 +1624,7 @@ def run_flux(np, torch, flb, device: str, appends: list, mesh=None) -> dict:
         ctx.stop()
     drained = [c.get_bytes() for c in plug._emitter_ins.pool.drain()]
     return {"out": out, "drained": drained, "wall": wall, "snaps": snaps,
-            "close": close_s,
+            "close": close_s, "distinct": list(plug.state.spec.distinct),
             "peak_device_mib": (torch.cuda.max_memory_allocated() / 2**20
                                 if device == "cuda" else None),
             "exposition": [ln for ln in text.splitlines()
@@ -1628,10 +1726,12 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
     n_records = sum(len(r) for r, _ in appends)
     tfk.fused_absorb.launches = tfk.segment_counts.launches = 0
     tsk.hll_update.launches = tsk.cms_update.launches = 0
+    tsk.hll_update_groups.launches = 0
     gpu = run_flux(np, torch, flb, "cuda", appends)
     launches = {"flux_absorb": tfk.fused_absorb.launches,
                 "segment_counts": tfk.segment_counts.launches,
                 "hll_update": tsk.hll_update.launches,
+                "hll_update_groups": tsk.hll_update_groups.launches,
                 "cms_update": tsk.cms_update.launches}
     cpu = run_flux(np, torch, flb, "cpu", appends)
     # the filter's mesh key on a hand-built 8-shard mesh of the one card
@@ -1680,9 +1780,16 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
     main_k7 = next(r for r in sketch_results if r["kernel"] == "cms_update"
                    and r["shape"][0] == RECORDS and r.get("w") == CMS_W
                    and not r.get("weighted"))
+    wide_k6 = next(r for r in sketch_results
+                   if r["kernel"] == "hll_update_groups"
+                   and r["case"] == "wide")
     busy_ms = (main_k10["ms"] * launches["flux_absorb"]
                + main_k6["ms"] * launches["hll_update"]
+               + wide_k6["ms"] * launches["hll_update_groups"]
                + main_k7["ms"] * launches["cms_update"])
+    # the wide append is the last absorb: its host steps, in ms
+    wide_steps = {k: v * 1e3 for k, v in gpu["steps"][-1].items()}
+    n_distinct = len(gpu["distinct"])
     snaps_equal = (len(gpu["snaps"]) == len(cpu["snaps"]) and all(
         flux_snapshot_print(np, a) == flux_snapshot_print(np, b)
         for a, b in zip(gpu["snaps"], cpu["snaps"])))
@@ -1707,15 +1814,17 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
            "mesh_lines_per_s": n_records / meshed["wall"],
            "exposition_lines": len(gpu["exposition"]),
            "launches": launches,
-           "expected_launches": {"flux_absorb": APPENDS,
-                                 "hll_update": wide_groups, "cms_update": 1},
+           "expected_launches": {"flux_absorb": APPENDS, "hll_update": 0,
+                                 "hll_update_groups": n_distinct,
+                                 "cms_update": 1},
+           "wide_groups": wide_groups, "wide_append_steps_ms": wide_steps,
+           "cpu_wide_append_steps_ms": {
+               k: v * 1e3 for k, v in cpu["steps"][-1].items()},
            **check,
            "lines_per_s": n_records / gpu["wall"],
            "cpu_lines_per_s": n_records / cpu["wall"],
            "p50_ms": p50(gpu), "cpu_p50_ms": p50(cpu),
            "peak_device_mib": gpu["peak_device_mib"],
-           # K6's 600 launches of ~7 rows each are charged at its
-           # 4096-row time: an upper bound
            "device_busy_share": busy_ms / (gpu["wall"] * 1e3),
            "k10_busy_share": (main_k10["ms"] * launches["flux_absorb"]
                               / (gpu["wall"] * 1e3)), "card": card}
@@ -1729,8 +1838,12 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
         failed.append("mesh_launches")
     if check["n_failures"]:
         failed.append("independent_check")
+    # the wide append (600 groups) takes one grouped K6 per distinct
+    # field, never the one-array form
     if (launches["flux_absorb"] != APPENDS
-            or launches["hll_update"] != wide_groups
+            or launches["hll_update"] != 0
+            or launches["hll_update_groups"] != n_distinct
+            or n_distinct < 1
             or launches["cms_update"] != 1 or wide_groups <= 512):
         failed.append("launches")
     if failed:
@@ -3210,6 +3323,22 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "variants": cases})
+    # K6's grouped form: the flux state's branch above 512 groups (the
+    # reference runs it per group on the host, flux/state.py:476-492)
+    grouped = [r for r in sketches if r["kernel"] == "hll_update_groups"]
+    wide_k6 = next(r for r in grouped if r["case"] == "wide")
+    kernels["kernels"].append({
+        "name": "hll_update_groups", "route": "cuda",
+        "source": "fluentbit_tpu_torch/csrc/sketch.cu",
+        "replaces": "fluentbit_tpu/ops/sketch.py:137",
+        "fuses": ["fluentbit_tpu/flux/state.py:488"],
+        "launches": flux["launches"]["hll_update_groups"],
+        "max_abs_err": max(r["max_abs_err"] for r in grouped),
+        "ms": wide_k6["ms"], "plain_ms": wide_k6["plain_ms"],
+        "bound_ms": wide_k6["bound_ms"], "bound_by": wide_k6["bound_by"],
+        "host_enqueue_ms": wide_k6["host_enqueue_ms"],
+        "library_ms": None, "shape": wide_k6["shape"],
+        "groups": wide_k6["groups"], "variants": grouped})
     k10 = [r for r in flux_kernels if r["kernel"] == "fused_absorb"]
     k9 = [r for r in flux_kernels if r["kernel"] == "segment_counts"]
     main_k10 = next(r for r in k10 if r["case"] == "main")

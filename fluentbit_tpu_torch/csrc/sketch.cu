@@ -3,7 +3,11 @@
 //
 // Replaces four device programs of the reference package:
 //   K6 HyperLogLog._update_impl (ops/sketch.py:137) with _fnv1a_scan (:40),
-//      _mix (:66) and hll_index_rank (:76): registers.at[idx].max(rank)
+//      _mix (:66) and hll_index_rank (:76): registers.at[idx].max(rank).
+//      One launch serves any number of register arrays: row i updates the
+//      array of its group seg[i] (the flux state's branch above 512
+//      groups, whose reference runs it per group on the host,
+//      flux/state.py:476); the single-array call is G = 1.
 //   K7 CountMin._update_impl (ops/sketch.py:267) with CountMin._hashes
 //      (:260): table.at[r, cols[r]].add((lengths >= 0) * weight) for each
 //      depth row
@@ -21,30 +25,52 @@
 // assembled stacks and a copy of the table, and commits after it
 // returns: snapshot in, commit on finish.)
 //
-// One thread per staged row. The thread hashes bytes [0, length) of its
-// row (FNV-1a 32 then the murmur3 fmix32 finaliser, in native uint32
-// arithmetic; a negative length hashes no byte and its row changes
-// nothing), then does one integer atomic per sketch row it touches:
-// atomicMax into a register (HLL) or atomicAdd into a counter (count-min).
-// Integer atomics give the same state in any order, so the result equals
-// the reference's scatter bit for bit.
+// Every row is hashed over bytes [0, length) (FNV-1a 32 then the murmur3
+// fmix32 finaliser, in native uint32 arithmetic; a negative length hashes
+// no byte and its row changes nothing) and scattered with integer atomics
+// (max into a register, add into a counter). Integer max and add give the
+// same state in any order and any grouping, so the result equals the
+// reference's scatter bit for bit.
 //
-// What bounds it on an H100: the work is tiny. A 4096-row append reads at
-// most 1 MiB of row bytes and 16 KiB of lengths, and makes 4096 (HLL) or
-// 16384 (count-min, d = 4) atomics into a 64 KiB / 256 KiB state that
-// stays in L2. Bytes bound it at well under a microsecond; in practice a
-// launch of 16 blocks is latency-bound: each thread walks a chain of up to
-// 256 dependent multiply-xor steps, and 4096 threads fill only a few SMs.
-// The design keeps that chain free of other memory traffic (16 B row loads
-// that stop at the row's length, the hash in registers) and makes one
-// atomic per row and depth. Privatised registers in shared memory and a
-// warp-cooperative hash are later levers.
-//
-// K10 is the same per-row work laid out as a 2-D grid: y picks counts,
-// one distinct field or the composites, so a flux append (4096 rows, one
-// field plus composites) runs 3 x 16 blocks in one launch, latency-bound
-// like K6/K7. Its stack (200 groups x 2^12 registers, 3.2 MiB) and table
-// (256 KiB) stay in L2; a row touches one register and d counters.
+// What bounds K6 and K10 on an H100: neither bytes nor operations. A
+// 4096-row append reads at most 1 MiB of row bytes (0.3 us at HBM's rate)
+// and makes ~1M integer operations (0.03 us); the state (K6: 2^p words;
+// K10: 200 groups x 2^12 registers, 3.2 MiB, and a 256 KiB table) stays
+// in L2. What costs is latency: each row's FNV-1a chain of up to L
+// dependent xor-multiply steps (~6 cycles each; the step does not
+// compose into a shorter form, so the chain stays serial in one thread),
+// the row's loads in front of it, and the launch. The design:
+//   - a block is one warp of 32 rows, so 4096 rows are 128 blocks and
+//     reach most of the 132 SMs (K10's tasks in blockIdx.y: 3 x 128);
+//   - each lane loads its row's first kHead = 32 bytes into registers
+//     before anything waits: the length, the segment id and that head
+//     are independent loads, and an identifier or a short composite
+//     needs no more (config 4's user ids are 11 bytes; copying a whole
+//     window before the lengths were known moved 256 B a row for them);
+//   - the rest of a longer row goes to shared memory with cp.async (16 B
+//     pieces, coalesced: the 32 rows are contiguous in [B, L]), started
+//     once the lengths are in, up to kWin bytes a row at a time and only
+//     as far as the warp's longest row, every piece in flight at once. A
+//     row's slot is kSlot = kWin + 16 bytes, an odd number of 16 B
+//     pieces, so the 8 lanes of a quarter-warp's 16 B shared loads hit
+//     distinct banks; each lane reads its next piece before it hashes
+//     the current;
+//   - a warp walks only as many windows as its longest row needs;
+//   - K10's contended atomics are folded in the warp first (a Zipf group
+//     or value puts many lanes of a warp on one count, register or
+//     counter): lanes on one word combine by __reduce_max_sync /
+//     __reduce_add_sync (a popcount for unit weights) into one atomic.
+//     The first live lane's word folds; in a launch of kMatchRows rows or
+//     more every word does, found by __match_any_sync (see warp_fold). A
+//     block is one warp, so a shared-memory copy of the counts would
+//     gather no more lanes than this. K6 does not fold: an HLL counts
+//     values of high cardinality (config 4's user ids), where the fold
+//     cost K6 more on the card than it saved on the smoke's Zipf rows;
+//   - K6's register arrays and K10's field descriptors travel by value
+//     in the kernel's parameters (__grid_constant__), so a launch needs
+//     no copy to the card first (K6 above 1024 groups excepted).
+// K7 keeps its one-thread-per-row loop (row_hash below) until it moves to
+// this design.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +80,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr uint32_t kFnvOffset = 0x811C9DC5u;
 constexpr uint32_t kFnvPrime = 0x01000193u;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // murmur3 fmix32 (reference _mix)
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -68,7 +95,7 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 // fmix32(FNV-1a 32 over row[0, n)), n = clamp(length, 0, L): the
 // reference _fnv1a_scan, whose mask is pos < lengths. Pad bytes past n
 // are never read. vec16: L % 16 == 0 and a 16 B aligned batch, so the row
-// is read 16 bytes at a time.
+// is read 16 bytes at a time. (K7's one-thread-per-row path.)
 __device__ __forceinline__ uint32_t row_hash(const uint8_t* __restrict__ row,
                                              int length, int L, int vec16) {
   const int n = length < 0 ? 0 : (length > L ? L : length);
@@ -92,20 +119,246 @@ __device__ __forceinline__ uint32_t row_hash(const uint8_t* __restrict__ row,
   return fmix32(h);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K6 and K10: a warp of 32 rows, staged through shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kWarp = 32;
+constexpr int kWin = 256;          // bytes of a row staged at a time
+constexpr int kSlot = kWin + 16;   // 17 pieces of 16 B: odd, conflict-free
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of bytes [w0 + lo, w0 + hi) of rows r0 .. r0 + 31 (those
+// below B; clipped to L) into stage, byte w0 + c of row i at i * kSlot + c;
+// lo and hi are multiples of 16, 0 <= lo < hi <= kWin. vec16 (L % 16 ==
+// 0, 16 B aligned batch): asynchronous 16 B pieces, completed by
+// cp_async_wait_all; else byte copies. Every lane of the warp calls it.
+__device__ __forceinline__ void stage_range(uint8_t* stage,
+                                            const uint8_t* __restrict__ batch,
+                                            int r0, int B, int L, int w0,
+                                            int lo, int hi, int vec16,
+                                            int lane) {
+  const int rows = min(kWarp, B - r0);
+  hi = min(hi, L - w0);
+  if (rows <= 0 || hi <= lo) return;
+  const uint8_t* src = batch + static_cast<long long>(r0) * L + w0;
+  if (vec16) {
+    // a lane copies piece `col` of every step-th row: neighbouring lanes
+    // take neighbouring pieces, and no division is left in the loop
+    const int pieces = (hi - lo) >> 4;  // 1 .. 16
+    const int step = kWarp / pieces;
+    if (lane >= step * pieces) return;
+    const int col = lo + ((lane % pieces) << 4);
+    for (int row = lane / pieces; row < rows; row += step) {
+      cp_async16(stage + row * kSlot + col,
+                 src + static_cast<long long>(row) * L + col);
+    }
+  } else {
+    for (int row = 0; row < rows; ++row) {
+      for (int col = lo + lane; col < hi; col += kWarp) {
+        stage[row * kSlot + col] = __ldg(src + static_cast<long long>(row) * L
+                                         + col);
+      }
+    }
+  }
+}
+
+// The first kHead bytes of a lane's own row, in registers, loaded before
+// its length is known (vec16 only: 16 B loads inside [B, L]; bytes past
+// the length are masked when hashed). An identifier or a short composite
+// needs no more; longer rows stage the rest of a window once the lengths
+// are in, only as far as the warp's longest row.
+constexpr int kHead = 32;
+
+struct Head {
+  uint4 a, b;  // bytes [0, 16) and [16, 32)
+};
+
+__device__ __forceinline__ Head load_head(const uint8_t* __restrict__ batch,
+                                          int row, int B, int L, int vec16) {
+  Head hd{};
+  if (vec16 && row < B && L > 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(
+        batch + static_cast<long long>(row) * L);
+    hd.a = __ldg(p);
+    if (L >= kHead) hd.b = __ldg(p + 1);
+  }
+  return hd;
+}
+
+__device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
+
+__device__ __forceinline__ uint32_t fnv_piece(uint32_t h, const uint4 v,
+                                              int count) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    if (q < count) {
+      h = (h ^ ((words[q >> 2] >> ((q & 3) * 8)) & 0xFFu)) * kFnvPrime;
+    }
+  }
+  return h;
+}
+
+// FNV-1a 32 over the first count (0 .. kWin) bytes of a staged slot,
+// carrying h. The next piece is read before the current one is hashed;
+// a slot has kWin / 16 + 1 pieces, so that read stays inside it.
+__device__ __forceinline__ uint32_t fnv_slot(uint32_t h, const uint8_t* slot,
+                                             int count) {
+  const uint4* piece = reinterpret_cast<const uint4*>(slot);
+  const int full = count >> 4;
+  uint4 cur = piece[0];
+  for (int j = 0; j < full; ++j) {
+    const uint4 next = piece[j + 1];
+    h = fnv_piece(h, cur, 16);
+    cur = next;
+  }
+  return fnv_piece(h, cur, count & 15);
+}
+
+// fmix32(FNV-1a 32) of bytes [0, n) of row r0 + lane, n in [0, L] (0 for
+// a lane with no row), hd its load_head. With vec16 the head is hashed
+// from registers and a warp whose rows all fit it touches no shared
+// memory; otherwise the warp stages and walks as many windows as its
+// longest row needs, each only as wide as that row. Every lane calls it.
+__device__ __forceinline__ uint32_t warp_row_hash(uint8_t* stage,
+                                                  const uint8_t* __restrict__
+                                                      batch,
+                                                  int r0, int B, int L,
+                                                  int vec16, int n,
+                                                  const Head& hd, int lane) {
+  const int longest = __reduce_max_sync(kFull, n);
+  uint32_t h = kFnvOffset;
+  int lo = 0;  // bytes of window 0 already hashed
+  if (vec16) {
+    h = fnv_piece(h, hd.a, min(n, 16));
+    h = fnv_piece(h, hd.b, min(max(n - 16, 0), 16));
+    if (longest <= kHead) return fmix32(h);
+    lo = kHead;
+  }
+  stage_range(stage, batch, r0, B, L, 0, lo, round16(min(longest, kWin)),
+              vec16, lane);
+  const uint8_t* slot = stage + lane * kSlot;
+  for (int w0 = 0;; w0 += kWin) {
+    cp_async_wait_all();
+    __syncwarp();
+    h = fnv_slot(h, slot + lo, max(min(n - w0, kWin) - lo, 0));
+    if (w0 + kWin >= longest) break;
+    lo = 0;
+    __syncwarp();  // every lane is done with the window before it is reused
+    stage_range(stage, batch, r0, B, L, w0 + kWin, 0,
+                round16(min(longest - w0 - kWin, kWin)), vec16, lane);
+  }
+  return fmix32(h);
+}
+
+// The warp's fold of contended atomics. By default the lanes on the first
+// live lane's word (a hot group count, register or counter) fold into one
+// atomic from that lane, and every other live lane makes its own: one
+// broadcast and one ballot. With every_word, __match_any_sync groups
+// every word of the warp, one atomic per word. K10 takes every_word from
+// kMatchRows rows: with many warps on an SM the match's latency hides,
+// while the atomics on a hot group count grow with the rows (on the card,
+// the match cost K10 more than it saved at 4096 rows, and saved more than
+// it cost at 65536).
+constexpr int kMatchRows = 16384;
+
+struct WarpFold {
+  unsigned same;  // the live lanes on this lane's word, if folded
+  bool lead;      // this lane makes the folded atomic
+  bool folded;    // this lane's update is in a folded atomic
+};
+
+template <typename K>
+__device__ __forceinline__ WarpFold warp_fold(unsigned live_mask, K key,
+                                              int lane, bool every_word) {
+  if (every_word) {
+    const unsigned same = __match_any_sync(live_mask, key);
+    return {same, lane == __ffs(same) - 1, true};
+  }
+  const int first = __ffs(live_mask) - 1;
+  const K first_key = __shfl_sync(live_mask, key, first);
+  const unsigned same = __ballot_sync(live_mask, key == first_key);
+  return {same, lane == first, key == first_key};
+}
+
+// *addr = max(*addr, rank) for each live lane. Every lane calls it.
+__device__ __forceinline__ void warp_scatter_max(bool live, int32_t* addr,
+                                                 int rank, int lane,
+                                                 bool every_word) {
+  const unsigned live_mask = __ballot_sync(kFull, live);
+  if (!live) return;
+  const WarpFold f = warp_fold(
+      live_mask, reinterpret_cast<unsigned long long>(addr), lane,
+      every_word);
+  if (!f.folded) {
+    atomicMax(addr, rank);
+    return;
+  }
+  const int top = __reduce_max_sync(f.same, rank);
+  if (f.lead) atomicMax(addr, top);
+}
+
+// HLL register index and rank of a hash at precision p (1 <= p <= 24).
+// __clz(0) is 32: rest == 0 saturates at the largest rank, 33 - p.
+__device__ __forceinline__ uint32_t hll_index(uint32_t h, int p) {
+  return h >> (32 - p);
+}
+__device__ __forceinline__ int hll_rank(uint32_t h, int p) {
+  return min(__clz(h << p) + 1, 33 - p);
+}
+
+// K6's register arrays by value, in the kernel's parameters: N pointers,
+// N = 1 (one array) or kGroupsByValue (up to 1024 groups, 8 KB). No copy
+// to the card before a launch; but the parameters travel with every
+// launch, and a 31 KB block of them (CUDA 12.1's limit) cost more than
+// the kernel, so above kGroupsByValue groups the pointers come from a
+// device array instead (the N = 1 kernel with by_value = 0).
+constexpr int kGroupsByValue = 1024;
+
+template <int N>
+struct RegPtrs {
+  int32_t* p[N];
+};
+
+// K6 (hll_update_launch): a block is one warp of 32 rows. Row b updates
+// register array seg[b] of the G (with seg null, array 0): regs.p[s]
+// (by_value, G <= N), else group_regs[s] (a device array of G). A
+// segment id outside [0, G) changes nothing.
+template <int N>
+__global__ void __launch_bounds__(kWarp)
 hll_update_kernel(const uint8_t* __restrict__ batch,
                   const int32_t* __restrict__ lengths,
-                  int32_t* __restrict__ registers, int B, int L, int p,
-                  int vec16) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int length = lengths[b];
-  if (length < 0) return;  // rank 0: registers are >= 0, nothing changes
-  const uint32_t h = row_hash(batch + (long long)b * L, length, L, vec16);
-  const uint32_t idx = h >> (32 - p);
-  // __clz(0) is 32: rest == 0 saturates at the largest rank, 33 - p
-  const int rank = min(__clz(h << p) + 1, 33 - p);
-  atomicMax(registers + idx, rank);
+                  const int32_t* __restrict__ seg,
+                  int32_t* const* __restrict__ group_regs,
+                  const __grid_constant__ RegPtrs<N> regs, int by_value,
+                  int G, int B, int L, int p, int vec16) {
+  __shared__ __align__(16) uint8_t stage[kWarp * kSlot];
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * kWarp;
+  const int b = r0 + lane;
+  const bool in = b < B;
+  // three independent loads: length, segment id and the row's bytes
+  const int length = in ? __ldg(lengths + b) : -1;
+  const int s = (in && seg != nullptr) ? __ldg(seg + b) : 0;
+  const Head hd = load_head(batch, b, B, L, vec16);
+  const bool live = length >= 0 &&
+                    static_cast<unsigned>(s) < static_cast<unsigned>(G);
+  int32_t* base = nullptr;
+  if (live) base = by_value ? regs.p[N == 1 ? 0 : s] : group_regs[s];
+  const uint32_t h = warp_row_hash(stage, batch, r0, B, L, vec16,
+                                   live ? min(length, L) : 0, hd, lane);
+  if (live) atomicMax(base + hll_index(h, p), hll_rank(h, p));
 }
 
 // T is int (int32 table) or unsigned long long (int64 table: two's
@@ -140,57 +393,97 @@ struct FluxField {
   int32_t* stack;           // i32 [n_seg, 2^p]
 };
 
+// the distinct fields one launch takes by value (a spec with more takes
+// another launch for each further kMaxFields)
+constexpr int kMaxFields = 8;
+
+// K10's arguments, passed by value as one __grid_constant__ parameter:
+// no descriptor array to copy to the card before a launch.
+struct FluxArgs {
+  const int32_t* seg;       // i32 [B]
+  const int32_t* valid;     // i32 [B]
+  int32_t* counts;          // i32 [n_seg]; null: no counts task
+  int B, n_seg;
+  FluxField fields[kMaxFields];
+  int F, L, p, vec16;
+  int has_comp;             // 0: no composites task
+  const uint8_t* comp;      // u8 [Bc, W]
+  const int32_t* comp_len;  // i32 [Bc]
+  int32_t* table;           // i32 [d, w]
+  int Bc, W, comp_vec16, d, w;
+};
+
 // K10: the flux plane's fused absorb (reference flux/kernels.py:189
-// build_fused_absorb). blockIdx.y picks the task, each thread one row:
-//   y = 0        group counts, counts[seg[i]] += valid[i] (K9, :80)
-//   y = 1..F     distinct field y-1: stack[seg[i], idx] max= rank (K6's
-//                index and rank; a negative length is rank 0, a no-op)
-//   y = F + 1    the composites' weight-1 count-min update (K7's columns)
+// build_fused_absorb). A block is one warp of 32 rows; blockIdx.y picks
+// the task:
+//   counts (first, when a.counts is set)  counts[seg[i]] += valid[i] (K9)
+//   field f (the next a.F)  stack_f[seg[i], idx] max= rank (K6's index and
+//                           rank; a negative length is rank 0, a no-op)
+//   composites (last, when a.has_comp)  K7's weight-1 count-min update
 // A segment id outside [0, n_seg) changes nothing (the reference's
-// scatter drops out-of-range updates). With F = 0 and no composites this
-// is K9's counts-only launch.
-__global__ void __launch_bounds__(kThreads)
-flux_absorb_kernel(const int32_t* __restrict__ seg,
-                   const int32_t* __restrict__ valid, int B, int n_seg,
-                   int32_t* __restrict__ counts,
-                   const FluxField* __restrict__ fields, int F, int L, int p,
-                   int vec16, const uint8_t* __restrict__ comp,
-                   const int32_t* __restrict__ comp_len, int Bc, int W,
-                   int comp_vec16, int32_t* __restrict__ table, int d,
-                   int w) {
-  const int task = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (task == 0) {
-    if (i >= B) return;
-    const int s = seg[i];
-    const int v = valid[i];
-    if (v != 0 && static_cast<unsigned>(s) < static_cast<unsigned>(n_seg)) {
-      atomicAdd(counts + s, v);
+// scatter drops out-of-range updates). With no fields and no composites
+// this is K9's counts-only launch.
+__global__ void __launch_bounds__(kWarp)
+flux_absorb_kernel(const __grid_constant__ FluxArgs a) {
+  __shared__ __align__(16) uint8_t stage[kWarp * kSlot];
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * kWarp;
+  const int task = static_cast<int>(blockIdx.y) - (a.counts != nullptr);
+  const bool every_word = max(a.B, a.Bc) >= kMatchRows;
+  if (task < a.F) {
+    if (r0 >= a.B) return;  // the whole warp
+    const int i = r0 + lane;
+    const bool in = i < a.B;
+    const int s = in ? __ldg(a.seg + i) : 0;
+    const bool seg_ok = static_cast<unsigned>(s) <
+                        static_cast<unsigned>(a.n_seg);
+    if (task < 0) {  // counts
+      const int v = in ? __ldg(a.valid + i) : 0;
+      const bool live = v != 0 && seg_ok;
+      const unsigned live_mask = __ballot_sync(kFull, live);
+      if (!live) return;
+      const WarpFold fold = warp_fold(live_mask, s, lane, every_word);
+      if (!fold.folded) {
+        atomicAdd(a.counts + s, v);
+        return;
+      }
+      const int sum = __reduce_add_sync(fold.same, v);
+      if (fold.lead) atomicAdd(a.counts + s, sum);
+      return;
     }
+    const FluxField f = a.fields[task];
+    const int length = in ? __ldg(f.lengths + i) : -1;
+    const Head hd = load_head(f.batch, i, a.B, a.L, a.vec16);
+    const bool live = length >= 0 && seg_ok;
+    const uint32_t h = warp_row_hash(stage, f.batch, r0, a.B, a.L, a.vec16,
+                                     live ? min(length, a.L) : 0, hd, lane);
+    int32_t* const addr =
+        live ? f.stack + (static_cast<long long>(s) << a.p) + hll_index(h, a.p)
+             : nullptr;
+    warp_scatter_max(live, addr, hll_rank(h, a.p), lane, every_word);
     return;
   }
-  if (task <= F) {
-    if (i >= B) return;
-    const FluxField f = fields[task - 1];
-    const int length = f.lengths[i];
-    if (length < 0) return;
-    const int s = seg[i];
-    if (static_cast<unsigned>(s) >= static_cast<unsigned>(n_seg)) return;
-    const uint32_t h = row_hash(f.batch + (long long)i * L, length, L, vec16);
-    const uint32_t idx = h >> (32 - p);
-    const int rank = min(__clz(h << p) + 1, 33 - p);
-    atomicMax(f.stack + ((long long)s << p) + idx, rank);
-    return;
-  }
-  if (i >= Bc) return;
-  const int length = comp_len[i];
-  if (length < 0) return;
-  const uint32_t h1 = row_hash(comp + (long long)i * W, length, W, comp_vec16);
+  if (r0 >= a.Bc) return;
+  const int i = r0 + lane;
+  const bool in = i < a.Bc;
+  const int length = in ? __ldg(a.comp_len + i) : -1;
+  const Head hd = load_head(a.comp, i, a.Bc, a.W, a.comp_vec16);
+  const bool live = length >= 0;
+  const uint32_t h1 = warp_row_hash(stage, a.comp, r0, a.Bc, a.W,
+                                    a.comp_vec16, live ? min(length, a.W) : 0,
+                                    hd, lane);
   const uint32_t h2 = fmix32(h1) | 1u;
-  for (int r = 0; r < d; ++r) {
+  const unsigned live_mask = __ballot_sync(kFull, live);
+  if (!live) return;
+  for (int r = 0; r < a.d; ++r) {
+    // the uint32 wrap comes before the modulo, as in the reference
     const uint32_t col = (h1 + static_cast<uint32_t>(r) * h2) %
-                         static_cast<uint32_t>(w);
-    atomicAdd(table + (long long)r * w + col, 1);
+                         static_cast<uint32_t>(a.w);
+    const WarpFold fold = warp_fold(live_mask, col, lane, every_word);
+    if (!fold.folded || fold.lead) {
+      atomicAdd(a.table + static_cast<long long>(r) * a.w + col,
+                fold.folded ? __popc(fold.same) : 1);
+    }
   }
 }
 
@@ -238,22 +531,48 @@ shard_merge_kernel(const S* __restrict__ parts, int n, S* __restrict__ base,
 
 int grid_for(int B) { return (B + kThreads - 1) / kThreads; }
 
+int warps_for(int B) { return (B + kWarp - 1) / kWarp; }
+
 }  // namespace
 
 // Plain-C launchers (bound with ctypes). Pointers are device pointers of
-// contiguous tensors: batch u8 [B, L], lengths i32 [B], registers i32
-// [2^p], weights i32 [B] or null (unit weights), table i32 or i64 [d, w]
-// (table_i64 = 1 for i64). Each launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 on success; nothing is
-// launched when B == 0).
+// contiguous tensors unless said otherwise: batch u8 [B, L], lengths i32
+// [B], registers i32 [2^p], weights i32 [B] or null (unit weights), table
+// i32 or i64 [d, w] (table_i64 = 1 for i64). Each launches on `stream`,
+// does not synchronise, and returns cudaGetLastError() (0 on success;
+// nothing is launched when there is no row).
+
+// K6. regs: a HOST array of G pointers (each to i32 [2^p]), taken by
+// value when G <= kGroupsByValue (G = 1 for one array, seg null); else
+// group_regs, a device array of the G pointers (regs may be null). seg
+// i32 [B] when G > 1.
 extern "C" int hll_update_launch(const void* batch, const void* lengths,
-                                 void* registers, int B, int L, int p,
-                                 int vec16, void* stream) {
-  if (B <= 0) return 0;
-  hll_update_kernel<<<grid_for(B), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(batch), static_cast<const int32_t*>(lengths),
-      static_cast<int32_t*>(registers), B, L, p, vec16);
+                                 const void* seg, const void* const* regs,
+                                 const void* group_regs, int G, int B, int L,
+                                 int p, int vec16, void* stream) {
+  if (B <= 0 || G <= 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* bt = static_cast<const uint8_t*>(batch);
+  const auto* ln = static_cast<const int32_t*>(lengths);
+  const auto* sg = static_cast<const int32_t*>(seg);
+  const auto dev = static_cast<int32_t* const*>(group_regs);
+  const bool by_value = regs != nullptr && G <= kGroupsByValue;
+  if (!by_value && dev == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (by_value && G > 1) {
+    RegPtrs<kGroupsByValue> many{};
+    for (int g = 0; g < G; ++g) {
+      many.p[g] = static_cast<int32_t*>(const_cast<void*>(regs[g]));
+    }
+    hll_update_kernel<kGroupsByValue><<<warps_for(B), kWarp, 0, st>>>(
+        bt, ln, sg, nullptr, many, 1, G, B, L, p, vec16);
+  } else {
+    RegPtrs<1> one{};
+    if (by_value) one.p[0] = static_cast<int32_t*>(const_cast<void*>(regs[0]));
+    hll_update_kernel<1><<<warps_for(B), kWarp, 0, st>>>(
+        bt, ln, sg, dev, one, by_value, G, B, L, p, vec16);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,26 +596,56 @@ extern "C" int cms_update_launch(const void* batch, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10 / K9. seg, valid i32 [B]; counts i32 [n_seg], zeroed by the caller;
-// fields: a device array of F FluxField (null when F = 0), each batch
-// u8 [B, L]; comp u8 [Bc, W] and comp_len i32 [Bc] (null and Bc = 0 for
-// no composites); table i32 [d, w]. Every output is updated in place.
-// Nothing is launched when B and Bc are both 0.
+// K10 / K9: one launch. seg, valid i32 [B]; counts i32 [n_seg], or null
+// for no counts task; fields: a HOST array of 3 * F pointers (batch u8
+// [B, L], lengths i32 [B], stack i32 [n_seg, 2^p] for each field), F <=
+// kMaxFields (cudaErrorInvalidValue otherwise; the caller splits a longer
+// spec); comp u8 [Bc, W] and comp_len i32 [Bc], table i32 [d, w] (Bc = 0
+// or a null table for no composites). Every output is updated in place.
+// Nothing is launched when there is no task or no row.
 extern "C" int flux_absorb_launch(const void* seg, const void* valid, int B,
-                                  int n_seg, void* counts, const void* fields,
-                                  int F, int L, int p, int vec16,
-                                  const void* comp, const void* comp_len,
-                                  int Bc, int W, int comp_vec16, void* table,
-                                  int d, int w, void* stream) {
-  const int rows = B > Bc ? B : Bc;
-  if (rows <= 0) return 0;
-  const dim3 grid(grid_for(rows), F + (Bc > 0 ? 2 : 1));
-  flux_absorb_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(seg), static_cast<const int32_t*>(valid), B,
-      n_seg, static_cast<int32_t*>(counts),
-      static_cast<const FluxField*>(fields), F, L, p, vec16,
-      static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_len),
-      Bc, W, comp_vec16, static_cast<int32_t*>(table), d, w);
+                                  int n_seg, void* counts,
+                                  const void* const* fields, int F, int L,
+                                  int p, int vec16, const void* comp,
+                                  const void* comp_len, int Bc, int W,
+                                  int comp_vec16, void* table, int d, int w,
+                                  void* stream) {
+  if (F < 0 || F > kMaxFields) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FluxArgs a{};
+  a.seg = static_cast<const int32_t*>(seg);
+  a.valid = static_cast<const int32_t*>(valid);
+  a.counts = static_cast<int32_t*>(counts);
+  a.B = B;
+  a.n_seg = n_seg;
+  for (int k = 0; k < F; ++k) {
+    a.fields[k].batch = static_cast<const uint8_t*>(fields[3 * k]);
+    a.fields[k].lengths = static_cast<const int32_t*>(fields[3 * k + 1]);
+    a.fields[k].stack = static_cast<int32_t*>(
+        const_cast<void*>(fields[3 * k + 2]));
+  }
+  a.F = F;
+  a.L = L;
+  a.p = p;
+  a.vec16 = vec16;
+  // (comp itself may be null: a [Bc, 0] batch has no bytes)
+  const bool has_comp = table != nullptr && Bc > 0;
+  a.has_comp = has_comp;
+  a.comp = static_cast<const uint8_t*>(comp);
+  a.comp_len = static_cast<const int32_t*>(comp_len);
+  a.table = static_cast<int32_t*>(table);
+  a.Bc = has_comp ? Bc : 0;
+  a.W = W;
+  a.comp_vec16 = comp_vec16;
+  a.d = d;
+  a.w = w;
+  const int tasks = (counts != nullptr) + F + (has_comp ? 1 : 0);
+  const int rows = B > a.Bc ? B : a.Bc;
+  if (tasks == 0 || rows <= 0) return 0;
+  const dim3 grid(warps_for(rows), tasks);
+  flux_absorb_kernel<<<grid, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

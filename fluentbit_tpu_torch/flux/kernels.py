@@ -128,6 +128,12 @@ def _check_i32(name: str, arg: str, x: torch.Tensor, shape: tuple,
                          f"{list(shape)} on {dev}")
 
 
+#: distinct fields one K10 launch takes (``kMaxFields`` of
+#: ``csrc/sketch.cu``, which refuses more): a spec with more fields takes
+#: one more launch for each further chunk
+FIELDS_PER_LAUNCH = 8
+
+
 class _FluxLaunch(_SketchKernel):
     """``flux_absorb_launch`` of ``csrc/sketch.cu``, built and bound at
     first use."""
@@ -181,25 +187,27 @@ class _FluxLaunch(_SketchKernel):
             counts = torch.zeros((n_seg,), dtype=torch.int32, device=dev)
         else:
             _check_i32(name, "counts", counts, (n_seg,), dev)
-        ptrs = None
-        if fields:
-            # FluxField {batch, lengths, stack} per field, as a device array
-            # (pinned, so the copy is asynchronous on the launch's stream)
-            ptrs = torch.tensor(
-                [[b.data_ptr(), ln.data_ptr(), st.data_ptr()]
-                 for (b, ln), st in zip(fields, stacks)],
-                dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
-        vec16 = int(all(_vec16(b) for b, _ in fields))
         if max(B, Bc) == 0:
             return counts
-        self._launch(dev, seg.data_ptr(), valid.data_ptr(), B, n_seg,
-                     counts.data_ptr(),
-                     None if ptrs is None else ptrs.data_ptr(), len(fields),
-                     L, hll_p, vec16,
-                     None if comp is None else comp.data_ptr(),
-                     None if comp_len is None else comp_len.data_ptr(),
-                     Bc, W, comp_vec16,
-                     None if table is None else table.data_ptr(), d, w)
+        # the field descriptors go by value in the kernel's parameters, at
+        # most FIELDS_PER_LAUNCH a launch: the first launch also counts
+        # and takes the composites, a further one each next chunk of fields
+        pairs = list(zip(fields, stacks))
+        for k in range(0, max(len(pairs), 1), FIELDS_PER_LAUNCH):
+            chunk = pairs[k:k + FIELDS_PER_LAUNCH]
+            first = k == 0
+            descr = (ctypes.c_void_p * (3 * len(chunk)))(
+                *[x for (b, ln), st in chunk
+                  for x in (b.data_ptr(), ln.data_ptr(), st.data_ptr())])
+            vec16 = int(all(_vec16(b) for (b, _), _ in chunk))
+            has_comp = first and comp is not None
+            self._launch(dev, seg.data_ptr(), valid.data_ptr(), B, n_seg,
+                         counts.data_ptr() if first else None, descr,
+                         len(chunk), L, hll_p, vec16,
+                         comp.data_ptr() if has_comp else None,
+                         comp_len.data_ptr() if has_comp else None,
+                         Bc if has_comp else 0, W, comp_vec16,
+                         table.data_ptr() if has_comp else None, d, w)
         return counts
 
 

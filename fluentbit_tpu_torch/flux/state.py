@@ -25,8 +25,10 @@ instead: K10 per shard, then the merges. Either runs on freshly
 assembled register stacks and a copy of the table, and the state
 commits them only after the launch has returned (snapshot in, commit on
 finish): a launch that raises leaves the state as it was. Above the cap, counts come from
-``host_segment_counts`` and each group's registers take
-``HyperLogLog.update`` (K6), the composites ``CountMin.update`` (K7).
+``host_segment_counts``, each distinct field is one
+``ops.sketch.hll_update_groups_rows`` (K6's grouped form: every group's own
+registers in one launch), and the composites one ``CountMin.update``
+(K7).
 Every route gives the same state bit for bit, and the same state as the
 reference package; snapshots (plain Python and numpy) carry across
 between the two packages both ways.
@@ -51,6 +53,7 @@ import torch
 
 from ..ops.batch import assemble
 from ..ops.device import DeviceLike, resolve, to_device
+from ..ops import sketch
 from ..ops.sketch import CountMin, HyperLogLog, estimate_registers
 from . import kernels
 
@@ -469,16 +472,19 @@ class FluxState:
             counts = self._fused_absorb(groups, seg, strcols, comp,
                                         comp_len)
         else:
-            if single:
-                counts = np.asarray([n_rows], dtype=np.int32)
-            else:
-                ones = np.ones((seg.shape[0],), dtype=np.int32)
-                counts = kernels.host_segment_counts(seg, ones, n_groups)
+            # above the cap (the reference's host branch): host counts,
+            # ONE grouped K6 per distinct field over the column as staged,
+            # straight into each group's own registers, and one K7
+            ones = np.ones((seg.shape[0],), dtype=np.int32)
+            counts = kernels.host_segment_counts(seg, ones, n_groups)
+            dev = self.device
+            seg_t = to_device(seg.astype(np.int32), torch.int32, dev)
             for f in self.spec.distinct:
                 b, ln = strcols[f]
-                for gid, g in enumerate(groups):
-                    gb, gl = gslice(gid, b, ln)
-                    g.hlls[f].update(gb, gl)
+                sketch.hll_update_groups_rows(
+                    [g.hlls[f].registers for g in groups],
+                    to_device(b, torch.uint8, dev),
+                    to_device(ln, torch.int32, dev), seg_t, self.spec.hll_p)
             if comp is not None:
                 self.cms.update(comp, comp_len)
             t0 = self._step("launch", t0)

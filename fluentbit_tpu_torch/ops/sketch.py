@@ -21,6 +21,11 @@ twins (``add_cpu``), bit-identical to both. There is no other path: a
 failed build or launch raises. The flux plane's fused absorb
 (``flux/kernels.py``) reuses the plain hashes and the launcher base.
 
+K6 also has a grouped form, ``hll_update_groups``: one launch updates
+any number of register arrays, row i going to ``registers[seg[i]]``
+(the flux state's branch above its group cap); the one-array
+``hll_update`` is the same kernel with G = 1.
+
 K8, the sharded updates (``sharded_hll_registers`` / ``sharded_cms_table``
 and their committing forms), run over an ``ops.mesh.Mesh``: the rows pad
 to a multiple of the shard count (zero bytes, length -1), each shard
@@ -117,6 +122,28 @@ def hll_update_plain(registers: torch.Tensor, batch: torch.Tensor,
     registers.scatter_reduce_(0, idx, rank, "amax", include_self=True)
 
 
+def hll_update_groups_plain(registers: Sequence[torch.Tensor],
+                            batch: torch.Tensor, lengths: torch.Tensor,
+                            seg: torch.Tensor, p: int) -> None:
+    """K6's grouped form in torch ops: for each group g, ``registers[g]``
+    takes :func:`hll_update_plain` of the rows whose ``seg`` is g, in
+    place. A segment id outside ``[0, len(registers))`` changes nothing.
+    The rows are hashed once and each group's are scattered, which is the
+    same state (max is order-free)."""
+    G = len(registers)
+    if G == 0 or batch.shape[0] == 0:
+        return
+    idx, rank = hll_index_rank_plain(batch, lengths, p)
+    seg = seg.long()
+    key = torch.where((seg >= 0) & (seg < G), seg, G)  # G: dropped
+    order = torch.argsort(key, stable=True)
+    sizes = torch.bincount(key, minlength=G + 1).tolist()
+    for regs, rows in zip(registers, torch.split(order, sizes)):
+        if rows.numel():
+            regs.scatter_reduce_(0, idx[rows], rank[rows], "amax",
+                                 include_self=True)
+
+
 def shard_merge_plain(parts: torch.Tensor, base: torch.Tensor,
                       op: str) -> None:
     """Fold the shards' partials ``parts`` ``[n, ...]`` into ``base``
@@ -206,30 +233,82 @@ class _SketchKernel:
         self.launches += 1
 
 
+def _check_registers(name: str, registers: torch.Tensor, p: int,
+                     dev: torch.device) -> None:
+    if (registers.dtype != torch.int32 or tuple(registers.shape) != (1 << p,)
+            or registers.device != dev or not registers.is_contiguous()):
+        raise ValueError(f"{name}: registers must be contiguous int32 "
+                         f"[{1 << p}] on {dev}")
+
+
+def _check_p(name: str, p: int) -> None:
+    if not 1 <= p <= 24:
+        raise ValueError(f"{name}: unsupported precision p={p}")
+
+
 class HllUpdateKernel(_SketchKernel):
     """K6: ``registers`` int32 ``[2^p]`` takes the max rank of each row of
     ``batch`` u8 ``[B, L]`` / ``lengths`` i32 ``[B]``, in place, on the
-    current stream."""
+    current stream (the kernel's one-array case, G = 1)."""
 
     symbol = "hll_update_launch"
-    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
     def __call__(self, registers: torch.Tensor, batch: torch.Tensor,
                  lengths: torch.Tensor, p: int) -> None:
         dev = registers.device
         _check_rows("hll_update", batch, lengths, dev)
-        if not 1 <= p <= 24:
-            raise ValueError(f"hll_update: unsupported precision p={p}")
-        if (registers.dtype != torch.int32
-                or tuple(registers.shape) != (1 << p,)
-                or not registers.is_contiguous()):
-            raise ValueError(f"hll_update: registers must be contiguous "
-                             f"int32 [{1 << p}]")
+        _check_p("hll_update", p)
+        _check_registers("hll_update", registers, p, dev)
         B, L = batch.shape
         if B == 0:
             return
+        self._launch(dev, batch.data_ptr(), lengths.data_ptr(), None,
+                     (ctypes.c_void_p * 1)(registers.data_ptr()), None, 1, B,
+                     L, p, _vec16(batch))
+
+
+#: register arrays K6's grouped form takes by value in the kernel's
+#: parameters (``kGroupsByValue`` of ``csrc/sketch.cu``); more groups go
+#: through a device array of pointers, copied to the card first
+GROUPS_BY_VALUE = 1024
+
+
+class HllUpdateGroupsKernel(HllUpdateKernel):
+    """K6's grouped form, one launch for any number of register arrays:
+    row i of ``batch`` u8 ``[B, L]`` / ``lengths`` i32 ``[B]`` updates
+    ``registers[seg[i]]`` (each int32 ``[2^p]``, a tensor of its own) in
+    place, on the current stream; a ``seg`` outside ``[0,
+    len(registers))`` changes nothing."""
+
+    def __call__(self, registers: Sequence[torch.Tensor], batch: torch.Tensor,
+                 lengths: torch.Tensor, seg: torch.Tensor,
+                 p: int) -> None:
+        dev = registers[0].device if registers else seg.device
+        name = "hll_update_groups"
+        _check_rows(name, batch, lengths, dev)
+        _check_p(name, p)
+        if (seg.dtype != torch.int32 or seg.shape != lengths.shape
+                or not seg.is_contiguous()):
+            raise ValueError(f"{name}: seg must be contiguous int32 [B] on "
+                             f"{dev}")
+        for regs in registers:
+            _check_registers(name, regs, p, dev)
+        B, L = batch.shape
+        G = len(registers)
+        if B == 0 or G == 0:
+            return
+        ptrs = [r.data_ptr() for r in registers]
+        by_value = by_device = None
+        if G <= GROUPS_BY_VALUE:  # in the kernel's parameters
+            by_value = (ctypes.c_void_p * G)(*ptrs)
+        else:  # a device array, pinned so that the copy is asynchronous
+            by_device = torch.tensor(ptrs, dtype=torch.int64).pin_memory(
+            ).to(dev, non_blocking=True)
         self._launch(dev, batch.data_ptr(), lengths.data_ptr(),
-                     registers.data_ptr(), B, L, p, _vec16(batch))
+                     seg.data_ptr(), by_value,
+                     None if by_device is None else by_device.data_ptr(), G,
+                     B, L, p, _vec16(batch))
 
 
 class CmsUpdateKernel(_SketchKernel):
@@ -303,6 +382,7 @@ class ShardMergeKernel(_SketchKernel):
 
 #: the process's sketch kernel wrappers (one build, one launch count each)
 hll_update = HllUpdateKernel()
+hll_update_groups = HllUpdateGroupsKernel()
 cms_update = CmsUpdateKernel()
 shard_merge = ShardMergeKernel()
 #: K8's shard launches (``hll_update`` / ``cms_update`` count them too)
@@ -318,6 +398,19 @@ def hll_update_rows(registers: torch.Tensor, batch: torch.Tensor,
         hll_update_plain(registers, batch, lengths, p)
     else:
         hll_update(registers, batch, lengths, p)
+
+
+def hll_update_groups_rows(registers: Sequence[torch.Tensor],
+                           batch: torch.Tensor, lengths: torch.Tensor,
+                           seg: torch.Tensor, p: int) -> None:
+    """The plain version for CPU registers, the kernel for everything else
+    (which raises off CUDA)."""
+    if not registers:
+        return
+    if registers[0].device.type == "cpu":
+        hll_update_groups_plain(registers, batch, lengths, seg, p)
+    else:
+        hll_update_groups(registers, batch, lengths, seg, p)
 
 
 def cms_update_rows(table: torch.Tensor, batch: torch.Tensor,

@@ -9,7 +9,8 @@ twin exactly (tolerance 0). Whole states must equal the reference's
 (``mesh=True``) — groups, counts, column stats (floats compared bit for
 bit), registers, table, candidates and counters — over tumbling,
 hopping and event-time windows with an injected clock, on both sides of
-the 512-group cap. Snapshots restore across the two packages both ways.
+the 512-group cap (above it, one grouped K6 per distinct field).
+Snapshots restore across the two packages both ways.
 The CUDA kernel is held against the plain versions in
 tests/test_torch_gpu.py.
 """
@@ -35,6 +36,7 @@ from fluentbit_tpu_torch.flux import state as tstate
 from fluentbit_tpu_torch.flux.state import FluxSpec as TSpec
 from fluentbit_tpu_torch.flux.state import FluxState as TState
 from fluentbit_tpu_torch.flux.state import WindowSpec as TWindow
+from fluentbit_tpu_torch.ops import sketch as tsk
 from fluentbit_tpu_torch.ops.mesh import Mesh
 
 
@@ -318,27 +320,44 @@ def test_event_time_windows_equal_reference():
     assert pair.drain()
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_both_sides_of_the_group_cap_equal_reference(route, monkeypatch):
-    """600 tenants in one append take the unfused route (per-group K6,
-    one K7); the next append's few tenants take the fused one."""
-    calls = []
-    fused = tk.fused_absorb
+def wide_then_narrow(route, distinct, monkeypatch):
+    """600 tenants in one append take the unfused route (one grouped K6
+    per distinct field over all 600 groups, one K7); the next append's
+    few tenants take the fused one. Both states equal the reference's
+    after each append and at the window's close."""
+    calls, grouped = [], []
+    fused, by_group = tk.fused_absorb, tsk.hll_update_groups_rows
     monkeypatch.setattr(tk, "fused_absorb",
                         lambda *a, **kw: calls.append(1) or fused(*a, **kw))
+    monkeypatch.setattr(tsk, "hll_update_groups_rows", lambda regs, *a: (
+        grouped.append(len(regs)) or by_group(regs, *a)))
     wide = [f"t{i:03d}" for i in range(600)]
     pair = Pair(mesh=_mesh(route), window=("tumbling", 60),
-                group_by=("tenant",), distinct=("user",), numeric=("size",),
+                group_by=("tenant",), distinct=distinct, numeric=("size",),
                 topk_field="user", max_len=16)
     bodies = corpus(13, 700, users=900)
     for i, body in enumerate(bodies[:-1]):
         body["tenant"] = wide[i % 600]
     pair.absorb(bodies)
-    assert len(pair.port._groups) > tstate.FluxState._FUSED_MAX_GROUPS
+    n_groups = len(pair.port._groups)
+    assert n_groups > tstate.FluxState._FUSED_MAX_GROUPS
     assert calls == []
+    assert grouped == [n_groups] * len(distinct)  # one launch per field
     pair.absorb(corpus(14, 50))
     assert calls == [1]
+    assert grouped == [n_groups] * len(distinct)
     assert pair.tick(1060.0)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_both_sides_of_the_group_cap_equal_reference(route, monkeypatch):
+    wide_then_narrow(route, ("user",), monkeypatch)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_wide_append_one_grouped_update_per_field(route, monkeypatch):
+    """Two distinct fields above the cap: two grouped K6 calls."""
+    wide_then_narrow(route, ("user", "tenant"), monkeypatch)
 
 
 def test_absorb_batch_equals_reference():

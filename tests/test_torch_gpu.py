@@ -13,6 +13,9 @@ rows and the edge cases (L = 0, rows at -1 / -2, full ASCII rows,
 invalid first bytes, unaligned and strided views); filter_parser on
 ``cuda`` against ``cpu`` for json and apache2, and K3's launches on
 config 2r (tail → parser apache2: one per append of >= 64 records).
+K6's grouped form (``hll_update_groups``) against
+``hll_update_groups_plain``, and both sketch kernels and K10 where
+atomics collide (one group, one value, one composite, Zipf groups).
 The raw chunk path and K5: K3's and K4's counts epilogue against
 ``mask.sum``, verdicts over rows whose bytes past the length are dirty
 (0xFF, random) against zeroed rows, the sharded dispatch over
@@ -520,6 +523,94 @@ def test_cms_kernel_equals_plain(cuda_device, d, w, dtype, B, L, weighted):
     assert torch.equal(table.cpu(), want)
 
 
+def group_regs(G, p, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 3, (1 << p,), dtype=torch.int32, generator=gen)
+            for _ in range(G)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,B,L,seg_kind", [
+    (1, 4096, 256, "zeros"), (600, 4096, 256, "cycle"),  # the wide append
+    (600, 65536, 256, "cycle"), (7, 300, 17, "out_of_range"),
+    (2000, 4096, 64, "cycle"),          # pointers from a device array
+    (5, 200, 600, "random"),            # three windows of a row
+    (3, 100, 0, "random"), (600, 4096, 256, "one_group")])
+def test_hll_groups_kernel_equals_plain(cuda_device, G, B, L, seg_kind):
+    """K6's grouped form against hll_update_groups_plain, bit for bit:
+    one launch for every group; a segment id outside [0, G) changes
+    nothing; one group taking every row is the contended case."""
+    p = 12
+    batch, lengths = sketch_rows(G + B + L, B, L)
+    rng = np.random.default_rng(B + G)
+    seg = {"zeros": np.zeros(B), "cycle": np.arange(B) % G,
+           "out_of_range": rng.integers(-3, G + 3, size=B),
+           "random": rng.integers(0, G, size=B),
+           "one_group": np.full(B, G // 2)}[seg_kind]
+    seg = torch.from_numpy(seg.astype(np.int32))
+    start = group_regs(G, p, B)
+    want = [r.clone() for r in start]
+    tsk.hll_update_groups_plain(want, batch, lengths, seg, p)
+    got = [r.to(cuda_device) for r in start]
+    before = tsk.hll_update_groups.launches
+    tsk.hll_update_groups(got, batch.to(cuda_device),
+                          lengths.to(cuda_device), seg.to(cuda_device), p)
+    assert tsk.hll_update_groups.launches - before == 1
+    plain = [r.to(cuda_device) for r in start]  # the plain version on the card
+    tsk.hll_update_groups_plain(plain, batch.to(cuda_device),
+                                lengths.to(cuda_device),
+                                seg.to(cuda_device), p)
+    torch.cuda.synchronize()
+    for g, w, q in zip(got, want, plain):
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(q.cpu(), w)
+    if L:  # (at L = 0 every row is the empty value, often below the start)
+        assert any(not torch.equal(w, s) for w, s in zip(want, start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(4096, 256), (65536, 256), (300, 40)])
+def test_hll_kernels_one_value_contended(cuda_device, B, L):
+    """Every row the same value: every live lane of a warp targets one
+    register (K6 makes one atomic per lane). The one-array
+    and grouped forms (one group, G = 1) both equal the plain version."""
+    batch, lengths = sketch_rows(B, B, L)
+    batch[:] = batch[7]
+    lengths[:] = L // 2
+    lengths[::5] = -1
+    for p in (4, 14):
+        start = torch.zeros(1 << p, dtype=torch.int32)
+        want = start.clone()
+        tsk.hll_update_plain(want, batch, lengths, p)
+        one = start.to(cuda_device)
+        tsk.hll_update(one, batch.to(cuda_device), lengths.to(cuda_device), p)
+        grouped = [start.to(cuda_device)]
+        tsk.hll_update_groups(grouped, batch.to(cuda_device),
+                              lengths.to(cuda_device),
+                              torch.zeros(B, dtype=torch.int32,
+                                          device=cuda_device), p)
+        torch.cuda.synchronize()
+        assert torch.equal(one.cpu(), want)
+        assert torch.equal(grouped[0].cpu(), want)
+        assert int(want.max()) > 0
+
+
+@pytest.mark.gpu
+def test_hll_groups_wrapper_rejects_bad_tensors(cuda_device):
+    batch, lengths = sketch_rows(4, 8, 16)
+    b, ln = batch.to(cuda_device), lengths.to(cuda_device)
+    seg = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    regs = [torch.zeros(1 << 10, dtype=torch.int32, device=cuda_device)]
+    with pytest.raises(ValueError, match="registers"):
+        tsk.hll_update_groups(regs + [torch.zeros(100, dtype=torch.int32,
+                                                  device=cuda_device)],
+                              b, ln, seg, 10)
+    with pytest.raises(ValueError, match="seg"):
+        tsk.hll_update_groups(regs, b, ln, seg.long(), 10)
+    with pytest.raises(ValueError, match="precision"):
+        tsk.hll_update_groups(regs, b, ln, seg, 30)
+
+
 @pytest.mark.gpu
 def test_sketch_kernels_unaligned_batch(cuda_device):
     """A batch view at an odd offset takes the byte-load path."""
@@ -649,6 +740,69 @@ def test_fused_absorb_kernel_unaligned_batch(cuda_device):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got_stacks[0].cpu(), want_stacks[0])
     assert torch.equal(got_table.cpu(), want_table)
+
+
+def zipf_seg(rng, B, G):
+    """Segment ids Zipf(1.1) over G groups, as flux's tenants."""
+    prob = np.arange(1, G + 1, dtype=np.float64) ** -1.1
+    return rng.choice(G, size=B, p=prob / prob.sum()).astype(np.int32)
+
+
+CONTENDED = ["zipf", "one_group", "one_value", "one_composite", "zipf_wide",
+             "ten_fields", "two_windows"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CONTENDED)
+def test_fused_absorb_kernel_contended(cuda_device, case):
+    """K10 against its plain version where atomics collide: Zipf(1.1)
+    segment ids (flux's tenants), every row in one group (the counts
+    combined per warp), every row one value (one register per group),
+    every composite one value (one counter per depth row); ten fields
+    (a second launch for the fields past the first eight); rows of two
+    staging windows."""
+    B, G, F, L = 4096, 200, 1, 256
+    if case == "zipf_wide":
+        B, G = 65536, 512
+    if case == "ten_fields":
+        B, F, L = 1000, 10, 64
+    if case == "two_windows":
+        B, L = 1000, 400
+    seg, valid, fields, stacks, c, cl, table = flux_case(
+        CONTENDED.index(case), F, G, True, B, L)
+    rng = np.random.default_rng(B + G)
+    seg = torch.from_numpy(zipf_seg(rng, B, G))
+    valid[:] = 1
+    valid[::7] = 0
+    if case == "one_group":
+        seg[:] = 3
+    if case == "one_value":
+        for b, ln in fields:
+            b[:] = b[9]
+            ln[:] = 40
+    if case == "one_composite":
+        c[:] = c[9]
+        cl[:] = 40
+    want_stacks = [s.clone() for s in stacks]
+    want_table = table.clone()
+    want = tfk.fused_absorb_plain(seg, valid, fields, want_stacks, c, cl,
+                                  want_table, hll_p=12, n_seg=G)
+    got_stacks = [s.to(cuda_device) for s in stacks]
+    got_table = table.to(cuda_device)
+    before = tfk.fused_absorb.launches
+    got = tfk.fused_absorb(
+        seg.to(cuda_device), valid.to(cuda_device),
+        [(b.to(cuda_device), ln.to(cuda_device)) for b, ln in fields],
+        got_stacks, c.to(cuda_device), cl.to(cuda_device), got_table,
+        hll_p=12, n_seg=G)
+    assert tfk.fused_absorb.launches - before == (2 if F > 8 else 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for g, w in zip(got_stacks, want_stacks):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_table.cpu(), want_table)
+    if case == "one_composite":
+        assert int((want_table - table).max()) == int((cl >= 0).sum())
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 """The port's sketches (K6 HyperLogLog, K7 count-min) against the reference's.
 
 ``fluentbit_tpu_torch.ops.sketch`` on the CPU runs the plain torch
-versions of the two kernels (``hll_update_plain``, ``cms_update_plain``)
-and the host twins (``add_cpu``); registers, tables, hashes and
+versions of the two kernels (``hll_update_plain``, ``cms_update_plain``,
+and K6's grouped form ``hll_update_groups_plain``) and the host twins
+(``add_cpu``); registers, tables, hashes and
 estimates must equal the reference package's exactly (tolerance 0:
 integers compared with ``np.array_equal``, estimates with ``==``). The
 reference runs its jit on JAX's CPU backend (``device_registers`` /
@@ -100,6 +101,57 @@ def test_hll_update_from_state_equals_reference(p, L):
     ref = jsk.HyperLogLog(p=p)
     ref.registers = want.copy()
     assert port.estimate() == ref.estimate()
+
+
+# (groups G, rows B, width L, case): segment ids in [0, G) unless the
+# case says otherwise; make_rows gives lengths -2, -1, 0, 1, L and random
+GROUP_CASES = [(1, 256, 256, "plain"), (7, 300, 17, "plain"),
+               (600, 1500, 16, "plain"), (7, 300, 17, "out_of_range"),
+               (7, 200, 0, "plain"), (7, 301, 33, "unaligned"),
+               (7, 256, 64, "one_group")]
+
+
+@pytest.mark.parametrize("G,B,L,case", GROUP_CASES)
+def test_hll_update_groups_plain_equals_reference(G, B, L, case):
+    """K6's grouped form on the CPU (``hll_update_groups_rows``, which
+    takes ``hll_update_groups_plain`` for CPU registers) against the
+    reference's ``HyperLogLog._update_impl`` run one group at a time: group g's
+    registers from their own start, over the rows whose segment is g
+    (every other row's length set to -1, which changes nothing). Segment
+    ids outside [0, G), negative ones included, change nothing."""
+    p = 10
+    rng = np.random.default_rng(G * 1000 + B + L)
+    batch, lengths = make_rows(G + B + L, B, L)
+    seg = rng.integers(0, G, size=B).astype(np.int32)
+    if case == "out_of_range":
+        seg = rng.integers(-3, G + 3, size=B).astype(np.int32)
+        assert (seg < 0).any() and (seg >= G).any()
+    elif case == "one_group":
+        seg[:] = G // 2
+    state = rng.integers(0, 34 - p, size=(G, 1 << p)).astype(np.int32)
+    state[:, : (1 << p) // 2] = 0
+    ref = jax_hll(p)
+    want = [np.asarray(ref.device_registers(
+        batch, np.where(seg == g, lengths, -1).astype(np.int32), wait=True,
+        registers=state[g])) for g in range(G)]
+    regs = [t(state[g].copy()) for g in range(G)]
+    rows = t(batch)
+    if case == "unaligned":  # a view at an odd offset
+        flat = torch.zeros(1 + batch.size, dtype=torch.uint8)
+        rows = flat[1:].view(B, L)
+        rows.copy_(t(batch))
+    before = tsk.hll_update_groups.launches
+    tsk.hll_update_groups_rows(regs, rows, t(lengths), t(seg), p)
+    assert tsk.hll_update_groups.launches == before  # CPU: the plain version
+    for g in range(G):
+        assert np.array_equal(regs[g].numpy(), want[g]), g
+    if case == "one_group":
+        others = [g for g in range(G) if g != G // 2]
+        assert all(np.array_equal(regs[g].numpy(), state[g]) for g in others)
+    if G == 1:  # the one-array form is the same update
+        one = t(state[0].copy())
+        tsk.hll_update_plain(one, t(batch), t(lengths), p)
+        assert np.array_equal(one.numpy(), want[0])
 
 
 @pytest.mark.parametrize("d,w", [(4, 512), (4, 16384)])
@@ -200,13 +252,24 @@ def test_kernel_wrappers_raise_off_cuda():
     batch, lengths = make_rows(1, 32, 16)
     regs = torch.zeros(1 << 10, dtype=torch.int32)
     table = torch.zeros((4, 512), dtype=torch.int32)
-    before = (tsk.hll_update.launches, tsk.cms_update.launches)
+    before = (tsk.hll_update.launches, tsk.cms_update.launches,
+              tsk.hll_update_groups.launches)
     with pytest.raises(ValueError, match="CUDA"):
         tsk.hll_update(regs, t(batch), t(lengths), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk.hll_update_groups([regs], t(batch), t(lengths),
+                              torch.zeros(32, dtype=torch.int32), 10)
+    meta = t(batch).to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk.hll_update_groups([regs.to("meta")], meta, t(lengths).to("meta"),
+                              t(lengths).to("meta"), 10)
     with pytest.raises(ValueError, match="CUDA"):
         tsk.cms_update(table, t(batch), t(lengths))
     tsk.hll_update_rows(regs, t(batch), t(lengths), 10)
     tsk.cms_update_rows(table, t(batch), t(lengths))
-    assert (tsk.hll_update.launches, tsk.cms_update.launches) == before
+    tsk.hll_update_groups_rows([regs], t(batch), t(lengths),
+                               torch.zeros(32, dtype=torch.int32), 10)
+    assert (tsk.hll_update.launches, tsk.cms_update.launches,
+            tsk.hll_update_groups.launches) == before
     assert int(regs.max()) > 0 and int(table.sum()) == 4 * int(
         (lengths >= 0).sum())
