@@ -58,7 +58,11 @@ Phases (any failure exits non-zero):
    of 256 B, 600 groups, p = 12), at G = 1, at 65536 rows, at 2000
    groups (pointers from a device array), and where
    atomics collide (every row in one group, every row one value) or a
-   segment id names no group, with times, host enqueue and bound;
+   segment id names no group, with times, host enqueue and bound; and
+   ``cms_update`` (4 x 16384) on config 4's own ``path`` rows,
+   unweighted and weighted, on one value in every row (unweighted and
+   weighted, int32) and on an int64 table whose sum on one word passes
+   2^32, with times, host enqueue and bound;
 6. pipeline: BASELINE config 4 (http input → log_to_metrics cardinality
    over ``user`` and frequency over ``path`` → prometheus_exporter), 64
    POSTs of 4096 records, on ``device="cuda"`` and then ``"cpu"``: the
@@ -108,10 +112,14 @@ Phases (any failure exits non-zero):
    lines, the emit counter must count the rerouted lines, K4 must have
    launched 3 times per tail append of >= 64 records and the scan never;
 11. K11 against plain: ``utf8_validate`` against ``utf8_validate_plain``
-   on the card, verdict for verdict, over config 2's raw lines at the
-   main path's [4096, 512] and at [65536, 512], and the edge cases (L =
-   0, every row at -1 / -2, full 512-byte ASCII rows, rows invalid at
-   byte 0, an unaligned view), with CUDA-event times of both;
+   and ``utf8_validate_pieces_plain`` on the card, verdict for verdict,
+   over config 2's raw lines at the main path's [4096, 512] and at
+   [65536, 512], wide rows of several 512 B windows at [1024, 4096], an
+   odd width on the byte path at [4096, 300], multi-byte sequences
+   across every 16 B piece boundary and the window boundary (cut by the
+   length there too), every row empty (the launch's floor), and the
+   edge cases (L = 0, every row at -1 / -2, full 512-byte ASCII rows,
+   rows invalid at byte 0, an unaligned view), with CUDA-event times;
 12. pipeline: BASELINE config 2 (``conf/baseline2-parser.yaml``: tail
    ``read_from_head`` over an NDJSON file → parser json with
    reserve_data → null, plus lib) over 131,072 lines made from the seed,
@@ -1042,7 +1050,7 @@ def sketch_bound_ms(torch, tsk, b, ln, state, weights, p=None,
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def phase_sketch_kernels(np, torch, tsk, seed: int) -> list:
+def phase_sketch_kernels(np, torch, tsk, assemble, seed: int) -> list:
     dev = torch.device("cuda")
     cases = [("hll_update", {"p": HLL_P}), ("hll_update", {"p": 10}),
              ("cms_update", {"d": CMS_D, "w": CMS_W, "dtype": torch.int32}),
@@ -1098,7 +1106,73 @@ def phase_sketch_kernels(np, torch, tsk, seed: int) -> list:
             if launches != 1 or res["state_nonzero"] == 0:
                 raise SystemExit(f"{name}: bad launch or empty state: {res}")
             results.append(res)
-    return results + hll_groups_cases(np, torch, tsk, seed)
+    return (results + hll_groups_cases(np, torch, tsk, seed)
+            + cms_cases(np, torch, tsk, assemble, seed))
+
+
+def cms_cases(np, torch, tsk, assemble, seed: int) -> list:
+    """K7 against ``cms_update_plain`` on the card, table for table, at
+    4 x 16384: config 4's own ``path`` rows (its first POST, staged at
+    256 B as the frequency filter stages them), unweighted and weighted;
+    one value in every row, the most contended case (every live lane of
+    a warp on one word of each depth row), unweighted and with weights
+    from -3 up; and an int64 table whose weighted sum on that one word
+    passes 2^32. With CUDA-event times, host enqueue and bound."""
+    dev = torch.device("cuda")
+    _bodies, _users, paths = make_posts(np, seed)
+    staged = assemble(paths[:RECORDS], SKETCH_L)
+    one, one_len = sketch_rows(np, seed + 11, RECORDS)
+    one[:] = one[3]
+    one_len[:] = 77
+    one_len[::9] = -1
+    rng = np.random.default_rng(seed + 7)
+    small = rng.integers(-3, 1 << 16, size=RECORDS)
+    large = rng.integers(-(1 << 21), 1 << 23, size=RECORDS)
+    cases = [("path", staged.batch, staged.lengths, None, torch.int32),
+             ("path_weighted", staged.batch, staged.lengths, small,
+              torch.int32),
+             ("one_value", one, one_len, None, torch.int32),
+             ("one_value_weighted", one, one_len, small, torch.int32),
+             ("int64_past_2_32", one, one_len, large, torch.int64)]
+    results = []
+    for label, batch, lengths, wts, dtype in cases:
+        b = torch.from_numpy(batch).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        weights = (None if wts is None
+                   else torch.from_numpy(wts.astype(np.int32)).to(dev))
+        state = torch.zeros((CMS_D, CMS_W), dtype=dtype, device=dev)
+        got, want = state.clone(), state.clone()
+        before = tsk.cms_update.launches
+        tsk.cms_update(got, b, ln, weights)
+        launches = tsk.cms_update.launches - before
+        tsk.cms_update_plain(want, b, ln, weights)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        bms, by = sketch_bound_ms(torch, tsk, b, ln, state, weights)
+        res = {"kernel": "cms_update", "case": label, "d": CMS_D,
+               "w": CMS_W, "dtype": str(dtype).split(".")[-1],
+               "weighted": weights is not None, "shape": list(batch.shape),
+               "launches": launches, "max_abs_err": err,
+               "rows_counted": int((ln >= 0).sum()),
+               "state_nonzero": int((want != 0).sum()),
+               "state_max": int(want.max()),
+               "ms": cuda_ms(torch, lambda: tsk.cms_update(got, b, ln,
+                                                           weights), 200),
+               "host_enqueue_ms": host_ms(torch, lambda: tsk.cms_update(
+                   got, b, ln, weights), 200),
+               "plain_ms": cuda_ms(torch, lambda: tsk.cms_update_plain(
+                   want, b, ln, weights), 5),
+               "bound_ms": bms, "bound_by": by}
+        log("sketch-vs-plain: " + json.dumps(res))
+        if err != 0 or launches != 1 or res["state_nonzero"] == 0:
+            raise SystemExit(f"cms_update on {label} disagrees with its "
+                             f"plain version, did not launch once or set "
+                             f"nothing: {res}")
+        if label == "int64_past_2_32" and res["state_max"] < 1 << 32:
+            raise SystemExit(f"cms_update on {label}: no word passed 2^32: "
+                             f"{res}")
+        results.append(res)
+    return results
 
 
 def hll_groups_cases(np, torch, tsk, seed: int) -> list:
@@ -1295,9 +1369,13 @@ def phase_config4(np, torch, tsk, flb, seed: int, card: str,
         return {step: statistics.median(s[i] for s in f.step_seconds) * 1e3
                 for i, step in enumerate(("stage", "launch", "readback"))}
 
-    main_ms = {r["kernel"]: r["ms"] for r in sketch_results
-               if r["shape"][0] == RECORDS and r.get("p", HLL_P) == HLL_P
-               and r.get("w", CMS_W) == CMS_W and not r.get("weighted")}
+    # each kernel at this path's own rows: K6 at [4096, 256], K7 on the
+    # first POST's path rows
+    main_ms = {"hll_update": next(
+        r["ms"] for r in sketch_results if r["kernel"] == "hll_update"
+        and r["shape"][0] == RECORDS and r["p"] == HLL_P),
+        "cms_update": next(r["ms"] for r in sketch_results
+                           if r.get("case") == "path")}
     busy_ms = sum(main_ms[k] * launches[k] for k in launches)
     res = {"records": n_records, "posts": len(bodies),
            "render_equal_cpu": gpu["text"] == cpu["text"],
@@ -2941,38 +3019,104 @@ def utf8_bound_ms(np, tu, batch, lengths) -> tuple:
     return bound + (staged_ms, walked)
 
 
+#: multi-byte sequences the straddle rows place across piece boundaries:
+#: 2-, 3- and 4-byte valid ones, a UTF-16 surrogate, an overlong and a
+#: code point above U+10FFFF
+STRADDLE_SEQS = ("\u00e9".encode(), "\u65e5".encode(), "\U0001f389".encode(),
+                 b"\xed\xa0\x80", b"\xe0\x80\x80", b"\xf4\x90\x80\x80")
+
+
+def straddle_rows(np, width: int):
+    """[R, width] ASCII rows and their lengths, each with one sequence of
+    ``STRADDLE_SEQS`` split j bytes before a 16 B piece boundary (every
+    split): at every boundary of the row, or at the 512 B window
+    boundary (the middle piece boundary where the row is narrower) alone;
+    each row at its full length, cut at that boundary (inside the
+    sequence), just after the sequence, at 512, past the width, 0, -1
+    and -2 (the copy in tests/test_torch_gpu.py makes the same rows; the
+    smoke imports nothing from tests/)."""
+    rows, lengths = [], []
+    middle = 512 if width > 512 else (width // 32) * 16
+    for seq in STRADDLE_SEQS:
+        for j in range(1, len(seq)):
+            for every in (True, False):
+                row = np.full(width, ord("a"), np.uint8)
+                bounds = (range(16, width, 16) if every else [middle])
+                placed = [b for b in bounds
+                          if b >= j and b - j + len(seq) <= width]
+                for b in placed:
+                    row[b - j:b - j + len(seq)] = np.frombuffer(seq, np.uint8)
+                cut = placed[0] if placed else 0
+                for n in (width, cut, cut - j + len(seq), 512, width + 5, 0,
+                          -1, -2):
+                    rows.append(row)
+                    lengths.append(n)
+    return np.stack(rows), np.array(lengths, np.int32)
+
+
+def wide_rows(np, raw_lines: list, B: int, width: int):
+    """[B, width] rows of config 2's raw lines joined by spaces, each cut
+    at a length drawn in [0, width] (inside a multi-byte sequence at
+    times), so that rows end in every window."""
+    rng = np.random.default_rng(width)
+    batch = np.full((B, width), ord(" "), np.uint8)
+    lengths = rng.integers(0, width + 1, size=B).astype(np.int32)
+    text = b" ".join(raw_lines[:4 * B])
+    starts = rng.integers(0, max(len(text) - width, 1), size=B)
+    for i, at in enumerate(starts):
+        chunk = text[at:at + width]
+        batch[i, :len(chunk)] = np.frombuffer(chunk, np.uint8)
+    lengths[:4] = [width, -1, -2, 0]
+    return batch, lengths
+
+
 def utf8_cases(np, assemble, raw_lines: list) -> list:
-    """(case, batch, lengths, view): config 2's raw lines at [4096, 512]
-    (the main path's shape) and [65536, 512], and the edge cases."""
+    """(case, batch, lengths, view, timed): config 2's raw lines at
+    [4096, 512] (the main path's shape) and [65536, 512], wide rows of
+    several windows at [1024, 4096], an odd width on the byte path at
+    [4096, 300], the straddle rows at widths 1024 and 300, every row
+    empty (K11's floor), and the edge cases."""
     cases = []
     for B in (UTF8_B, 65536):
         staged = assemble(raw_lines[:B], L)
-        cases.append(("config2_lines", staged.batch, staged.lengths, None))
+        cases.append(("config2_lines", staged.batch, staged.lengths, None,
+                      True))
+    batch, lengths = wide_rows(np, raw_lines, 1024, 4096)
+    cases.append(("wide_rows", batch, lengths, None, True))
+    staged = assemble(raw_lines[:4096], 300)
+    cases.append(("odd_width", staged.batch, staged.lengths, None, True))
+    for width in (1024, 300):
+        batch, lengths = straddle_rows(np, width)
+        cases.append(("straddle", batch, lengths, None, False))
+    cases.append(("empty_rows", np.full((4096, L), 0x61, np.uint8),
+                  np.zeros(4096, np.int32), None, True))
     cases.append(("L0", np.zeros((300, 0), np.uint8),
-                  np.array([0, -1, -2] * 100, np.int32), None))
+                  np.array([0, -1, -2] * 100, np.int32), None, False))
     cases.append(("negative_lengths", np.full((4096, L), 0x41, np.uint8),
-                  np.array([-1, -2] * 2048, np.int32), None))
+                  np.array([-1, -2] * 2048, np.int32), None, False))
     cases.append(("full_ascii", np.full((4096, L), 0x61, np.uint8),
-                  np.full(4096, L, np.int32), None))
+                  np.full(4096, L, np.int32), None, True))
     bad = np.full((4096, L), 0x61, np.uint8)
     bad[:, 0] = np.array([0x80, 0xC0, 0xFF, 0xF5] * 1024, np.uint8)
     cases.append(("invalid_at_byte_0", bad, np.full(4096, L, np.int32),
-                  None))
+                  None, False))
     staged = assemble(raw_lines[:4096], L)
-    cases.append(("unaligned", staged.batch, staged.lengths, "unaligned"))
+    cases.append(("unaligned", staged.batch, staged.lengths, "unaligned",
+                  False))
     return cases
 
 
 def phase_utf8_kernels(np, torch, tu, assemble, raw_lines: list) -> list:
-    """K11 against ``utf8_validate_plain`` on the card, verdict for
-    verdict: config 2's raw lines at [4096, 512] and [65536, 512], L =
-    0, every row at -1 / -2, full 512-byte ASCII rows (no early exit),
-    rows invalid at byte 0, an unaligned view; with CUDA-event times of
-    both."""
+    """K11 against ``utf8_validate_plain`` (the reference's column scan)
+    and ``utf8_validate_pieces_plain`` (the kernel's piece maps and
+    windows) on the card, verdict for verdict: every case of
+    ``utf8_cases``, with CUDA-event times of the kernel and the column
+    scan for the timed ones."""
     dev = torch.device("cuda")
     v = tu.Utf8Validator(dev)
     results = []
-    for case, batch, lengths, view in utf8_cases(np, assemble, raw_lines):
+    for case, batch, lengths, view, timed in utf8_cases(np, assemble,
+                                                         raw_lines):
         b = torch.from_numpy(batch).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
         if view == "unaligned":
@@ -2983,17 +3127,20 @@ def phase_utf8_kernels(np, torch, tu, assemble, raw_lines: list) -> list:
         got = tu.utf8_validate(v.class_map, v.trans, b, ln)
         launches = tu.utf8_validate.launches - before
         plain = tu.utf8_validate_plain(v.class_map, v.trans, b, ln)
+        by_pieces = tu.utf8_validate_pieces_plain(v.class_map, v.trans, b,
+                                                  ln)
         torch.cuda.synchronize()
         mism = int((got != plain).sum())
+        mism_pieces = int((got != by_pieces).sum())
         B, width = batch.shape
         bms, by, staged_ms, walked = utf8_bound_ms(np, tu, batch, lengths)
         res = {"case": case, "shape": [B, width], "launches": launches,
-               "mismatches": mism,
+               "mismatches": mism, "mismatches_pieces_plain": mism_pieces,
                "max_abs_err": int((got.int() - plain.int()).abs().max()),
                "valid_rows": int(got.sum()), "bytes_walked": walked,
                "bound_ms": bms, "bound_by": by,
                "bound_staged_bytes_ms": staged_ms}
-        if case in ("config2_lines", "full_ascii"):
+        if timed:
             iters = 20 if B >= 65536 else 100
             call = lambda: tu.utf8_validate(v.class_map, v.trans, b, ln)
             res["ms"] = cuda_ms(torch, call, iters)
@@ -3003,15 +3150,17 @@ def phase_utf8_kernels(np, torch, tu, assemble, raw_lines: list) -> list:
         else:
             res.update(ms=None, host_enqueue_ms=None, plain_ms=None)
         log("utf8-vs-plain: " + json.dumps(res))
-        if mism or launches != 1:
+        if mism or mism_pieces or launches != 1:
             raise SystemExit(f"utf8_validate on {case} {[B, width]}: {mism} "
-                             f"rows differ from plain, {launches} launches")
+                             f"rows differ from plain, {mism_pieces} from "
+                             f"the pieces plain, {launches} launches")
         want = {"negative_lengths": 0, "invalid_at_byte_0": 0,
-                "full_ascii": B}.get(case)
+                "full_ascii": B, "empty_rows": B}.get(case)
         if want is not None and res["valid_rows"] != want:
             raise SystemExit(f"utf8_validate on {case}: {res['valid_rows']} "
                              f"valid rows, expected {want}")
-        if case == "config2_lines" and not 0 < res["valid_rows"] < B:
+        if (case in ("config2_lines", "wide_rows", "odd_width", "straddle")
+                and not 0 < res["valid_rows"] < B):
             raise SystemExit(f"degenerate verdicts on {case}: {res}")
         results.append(res)
     return results
@@ -3044,7 +3193,7 @@ def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
         gpu = run_config2(flb, "cuda", path, "json")
         cpu = run_config2(flb, "cpu", path, "json")
     got, ref = (parsed_records(decode_events, r["chunks"]) for r in (gpu, cpu))
-    # the K11 path: 64 launches of [4096, 512] over the raw lines
+    # the K11 path: 32 launches of [4096, 512] over the raw lines
     v = tu.Utf8Validator("cuda")
     tu.utf8_validate.launches = 0
     t0 = time.perf_counter()
@@ -3222,7 +3371,7 @@ def main() -> int:
     # the redesigned kernels' full ptxas report (registers, shared
     # memory, spills per instantiation)
     log("ptxas: " + json.dumps({n: cuda_build.libraries.build_log[n]["ptxas"]
-                                for n in ("grep_dfa", "grep_assoc")}))
+                                for n in ("sketch", "utf8")}))
 
     seconds = {}
     mark = [time.perf_counter()]
@@ -3246,7 +3395,7 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh, np, torch, tg, tmesh, compile_dfa, flb,
                  chunks, args.seed, env["card"])
     sketches = timed("sketch_kernels", phase_sketch_kernels, np, torch, tsk,
-                     args.seed)
+                     assemble, args.seed)
     config4 = timed("config4", phase_config4, np, torch, tsk, flb, args.seed,
                     env["card"], sketches)
     flux_kernels = timed("flux_kernels", phase_flux_kernels, np, torch, tsk,

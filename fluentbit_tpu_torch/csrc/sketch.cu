@@ -32,14 +32,15 @@
 // same state in any order and any grouping, so the result equals the
 // reference's scatter bit for bit.
 //
-// What bounds K6 and K10 on an H100: neither bytes nor operations. A
+// What bounds K6, K7 and K10 on an H100: neither bytes nor operations. A
 // 4096-row append reads at most 1 MiB of row bytes (0.3 us at HBM's rate)
 // and makes ~1M integer operations (0.03 us); the state (K6: 2^p words;
-// K10: 200 groups x 2^12 registers, 3.2 MiB, and a 256 KiB table) stays
-// in L2. What costs is latency: each row's FNV-1a chain of up to L
-// dependent xor-multiply steps (~6 cycles each; the step does not
-// compose into a shorter form, so the chain stays serial in one thread),
-// the row's loads in front of it, and the launch. The design:
+// K7: a d x w table, 256 KiB at 4 x 16384 int32; K10: 200 groups x 2^12
+// registers, 3.2 MiB, and a 256 KiB table) stays in L2. What costs is
+// latency: each row's FNV-1a chain of up to L dependent xor-multiply
+// steps (~6 cycles each; the step does not compose into a shorter form,
+// so the chain stays serial in one thread), the row's loads in front of
+// it, the atomics on a hot word, and the launch. The design:
 //   - a block is one warp of 32 rows, so 4096 rows are 128 blocks and
 //     reach most of the 132 SMs (K10's tasks in blockIdx.y: 3 x 128);
 //   - each lane loads its row's first kHead = 32 bytes into registers
@@ -56,12 +57,16 @@
 //     distinct banks; each lane reads its next piece before it hashes
 //     the current;
 //   - a warp walks only as many windows as its longest row needs;
-//   - K10's contended atomics are folded in the warp first (a Zipf group
-//     or value puts many lanes of a warp on one count, register or
-//     counter): lanes on one word combine by __reduce_max_sync /
-//     __reduce_add_sync (a popcount for unit weights) into one atomic.
-//     The first live lane's word folds; in a launch of kMatchRows rows or
-//     more every word does, found by __match_any_sync (see warp_fold). A
+//   - K7's and K10's contended atomics are folded in the warp first (a
+//     Zipf group or value puts many lanes of a warp on one count,
+//     register or counter; config 4's paths are Zipf(1.1)):
+//     lanes on one word combine by __reduce_max_sync / __reduce_add_sync
+//     (a popcount for unit weights) into one atomic. The first live
+//     lane's word folds; in a launch of kMatchRows rows or more every
+//     word does, found by __match_any_sync (see warp_fold). K7 and K10's
+//     composites task are one device function (warp_cms_add), and K7's
+//     weights sum exactly: an int32 table's mod 2^32, as its atomicAdd
+//     wraps, an int64 table's in two 16-bit halves (warp_weight_sum). A
 //     block is one warp, so a shared-memory copy of the counts would
 //     gather no more lanes than this. K6 does not fold: an HLL counts
 //     values of high cardinality (config 4's user ids), where the fold
@@ -69,8 +74,6 @@
 //   - K6's register arrays and K10's field descriptors travel by value
 //     in the kernel's parameters (__grid_constant__), so a launch needs
 //     no copy to the card first (K6 above 1024 groups excepted).
-// K7 keeps its one-thread-per-row loop (row_hash below) until it moves to
-// this design.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,35 +95,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// fmix32(FNV-1a 32 over row[0, n)), n = clamp(length, 0, L): the
-// reference _fnv1a_scan, whose mask is pos < lengths. Pad bytes past n
-// are never read. vec16: L % 16 == 0 and a 16 B aligned batch, so the row
-// is read 16 bytes at a time. (K7's one-thread-per-row path.)
-__device__ __forceinline__ uint32_t row_hash(const uint8_t* __restrict__ row,
-                                             int length, int L, int vec16) {
-  const int n = length < 0 ? 0 : (length > L ? L : length);
-  uint32_t h = kFnvOffset;
-  if (vec16) {
-    for (int base = 0; base < n; base += 16) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + base));
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        if (base + q < n) {
-          h = (h ^ ((words[q >> 2] >> ((q & 3) * 8)) & 0xFFu)) * kFnvPrime;
-        }
-      }
-    }
-  } else {
-    for (int pos = 0; pos < n; ++pos) {
-      h = (h ^ __ldg(row + pos)) * kFnvPrime;
-    }
-  }
-  return fmix32(h);
-}
-
 // ---------------------------------------------------------------------------
-// K6 and K10: a warp of 32 rows, staged through shared memory
+// K6, K7 and K10: a warp of 32 rows, staged through shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int kWarp = 32;
@@ -227,10 +203,12 @@ __device__ __forceinline__ uint32_t fnv_slot(uint32_t h, const uint8_t* slot,
 }
 
 // fmix32(FNV-1a 32) of bytes [0, n) of row r0 + lane, n in [0, L] (0 for
-// a lane with no row), hd its load_head. With vec16 the head is hashed
-// from registers and a warp whose rows all fit it touches no shared
-// memory; otherwise the warp stages and walks as many windows as its
-// longest row needs, each only as wide as that row. Every lane calls it.
+// a lane with no row), hd its load_head: the reference's _fnv1a_scan,
+// whose mask is pos < lengths (pad bytes past n are never hashed). With
+// vec16 the head is hashed from registers and a warp whose rows all fit
+// it touches no shared memory; otherwise the warp stages and walks as
+// many windows as its longest row needs, each only as wide as that row.
+// Every lane calls it.
 __device__ __forceinline__ uint32_t warp_row_hash(uint8_t* stage,
                                                   const uint8_t* __restrict__
                                                       batch,
@@ -361,28 +339,87 @@ hll_update_kernel(const uint8_t* __restrict__ batch,
   if (live) atomicMax(base + hll_index(h, p), hll_rank(h, p));
 }
 
-// T is int (int32 table) or unsigned long long (int64 table: two's
-// complement addition is the same bit pattern as signed).
+// The exact sum of the weights of the lanes in `mask` (every one of them
+// calls it), as a table word. int32: one reduction over uint32, which
+// wraps mod 2^32 as the atomicAdds it replaces do. int64: a sum of 32
+// int32 weights passes 32 bits, where __reduce_add_sync alone would wrap,
+// so the weight v = hi * 2^16 + lo (hi = v >> 16 signed, lo its low 16
+// bits) is summed in two halves that cannot overflow (|sum hi| <= 2^20,
+// sum lo < 2^21) and joined in 64 bits.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ T warp_weight_sum(unsigned mask, int32_t v);
+template <>
+__device__ __forceinline__ int warp_weight_sum<int>(unsigned mask,
+                                                    int32_t v) {
+  return static_cast<int>(__reduce_add_sync(mask, static_cast<unsigned>(v)));
+}
+template <>
+__device__ __forceinline__ unsigned long long
+warp_weight_sum<unsigned long long>(unsigned mask, int32_t v) {
+  const int hi = __reduce_add_sync(mask, v >> 16);
+  const unsigned lo = __reduce_add_sync(mask, static_cast<unsigned>(v) &
+                                                  0xFFFFu);
+  return static_cast<unsigned long long>(
+      static_cast<long long>(hi) * 65536LL + static_cast<long long>(lo));
+}
+
+// The count-min update of a warp of 32 rows (K7, and K10's composites
+// task with unit weights): a live lane adds its weight v (1 when unit) at
+// column (h1 + r * h2) % w of each depth row r < d, h2 = fmix32(h1) | 1
+// (odd: full-period double hashing), the uint32 wrap before the modulo as
+// in the reference's CountMin._hashes. Lanes on one word fold into one
+// atomic (warp_fold; every word when every_word). T is int (int32 table)
+// or unsigned long long (int64 table: two's complement addition is the
+// same bit pattern as signed, so a weight is sign-extended). Every lane
+// calls it.
+template <typename T>
+__device__ __forceinline__ void warp_cms_add(T* __restrict__ table, int d,
+                                             int w, uint32_t h1, bool live,
+                                             int32_t v, bool unit, int lane,
+                                             bool every_word) {
+  const uint32_t h2 = fmix32(h1) | 1u;
+  const unsigned live_mask = __ballot_sync(kFull, live);
+  if (!live) return;
+  for (int r = 0; r < d; ++r) {
+    const uint32_t col = (h1 + static_cast<uint32_t>(r) * h2) %
+                         static_cast<uint32_t>(w);
+    const WarpFold fold = warp_fold(live_mask, col, lane, every_word);
+    T add = static_cast<T>(static_cast<long long>(unit ? 1 : v));
+    // a lane alone on its word adds its own weight: no reduction (with
+    // every word matched, each of up to 32 groups would run its own)
+    if (fold.folded && (fold.same & (fold.same - 1)) != 0) {
+      add = unit ? T(__popc(fold.same)) : warp_weight_sum<T>(fold.same, v);
+    }
+    if (!fold.folded || fold.lead) {
+      atomicAdd(table + static_cast<long long>(r) * w + col, add);
+    }
+  }
+}
+
+// K7 (cms_update_launch): a block is one warp of 32 rows. Row b adds
+// weights[b] (1 when weights is null) to each depth row of the table
+// when lengths[b] >= 0 (the reference's (lengths >= 0) * weight). T as
+// in warp_cms_add.
+template <typename T>
+__global__ void __launch_bounds__(kWarp)
 cms_update_kernel(const uint8_t* __restrict__ batch,
                   const int32_t* __restrict__ lengths,
                   const int32_t* __restrict__ weights, T* __restrict__ table,
                   int B, int L, int d, int w, int vec16) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int length = lengths[b];
-  if (length < 0) return;  // weight 0
-  const uint32_t h1 = row_hash(batch + (long long)b * L, length, L, vec16);
-  const uint32_t h2 = fmix32(h1) | 1u;  // odd: full-period double hashing
-  const T weight = static_cast<T>(static_cast<long long>(
-      weights != nullptr ? weights[b] : 1));
-  for (int r = 0; r < d; ++r) {
-    // the uint32 wrap comes before the modulo, as in the reference
-    const uint32_t col = (h1 + static_cast<uint32_t>(r) * h2) %
-                         static_cast<uint32_t>(w);
-    atomicAdd(table + (long long)r * w + col, weight);
-  }
+  __shared__ __align__(16) uint8_t stage[kWarp * kSlot];
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * kWarp;
+  const int b = r0 + lane;
+  const bool in = b < B;
+  // three independent loads: length, weight and the row's bytes
+  const int length = in ? __ldg(lengths + b) : -1;
+  const int32_t v = (in && weights != nullptr) ? __ldg(weights + b) : 1;
+  const Head hd = load_head(batch, b, B, L, vec16);
+  const bool live = length >= 0;
+  const uint32_t h1 = warp_row_hash(stage, batch, r0, B, L, vec16,
+                                    live ? min(length, L) : 0, hd, lane);
+  warp_cms_add<T>(table, d, w, h1, live, v, weights == nullptr, lane,
+                  B >= kMatchRows);
 }
 
 // One distinct field of the flux absorb: its staged rows and the register
@@ -472,19 +509,7 @@ flux_absorb_kernel(const __grid_constant__ FluxArgs a) {
   const uint32_t h1 = warp_row_hash(stage, a.comp, r0, a.Bc, a.W,
                                     a.comp_vec16, live ? min(length, a.W) : 0,
                                     hd, lane);
-  const uint32_t h2 = fmix32(h1) | 1u;
-  const unsigned live_mask = __ballot_sync(kFull, live);
-  if (!live) return;
-  for (int r = 0; r < a.d; ++r) {
-    // the uint32 wrap comes before the modulo, as in the reference
-    const uint32_t col = (h1 + static_cast<uint32_t>(r) * h2) %
-                         static_cast<uint32_t>(a.w);
-    const WarpFold fold = warp_fold(live_mask, col, lane, every_word);
-    if (!fold.folded || fold.lead) {
-      atomicAdd(a.table + static_cast<long long>(r) * a.w + col,
-                fold.folded ? __popc(fold.same) : 1);
-    }
-  }
+  warp_cms_add<int>(a.table, a.d, a.w, h1, live, 1, true, lane, every_word);
 }
 
 // The shard merge: base[i] = max(base[i], parts[s][i]) (op 0, HLL
@@ -528,8 +553,6 @@ shard_merge_kernel(const S* __restrict__ parts, int n, S* __restrict__ base,
     base[i] = acc;
   }
 }
-
-int grid_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 int warps_for(int B) { return (B + kWarp - 1) / kWarp; }
 
@@ -586,11 +609,11 @@ extern "C" int cms_update_launch(const void* batch, const void* lengths,
   const auto* ln = static_cast<const int32_t*>(lengths);
   const auto* wt = static_cast<const int32_t*>(weights);
   if (table_i64) {
-    cms_update_kernel<unsigned long long><<<grid_for(B), kThreads, 0, s>>>(
+    cms_update_kernel<unsigned long long><<<warps_for(B), kWarp, 0, s>>>(
         bt, ln, wt, static_cast<unsigned long long*>(table), B, L, d, w,
         vec16);
   } else {
-    cms_update_kernel<int><<<grid_for(B), kThreads, 0, s>>>(
+    cms_update_kernel<int><<<warps_for(B), kWarp, 0, s>>>(
         bt, ln, wt, static_cast<int*>(table), B, L, d, w, vec16);
   }
   return static_cast<int>(cudaGetLastError());

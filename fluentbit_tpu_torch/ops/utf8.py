@@ -21,7 +21,10 @@ On a CUDA tensor the verdict comes from the hand-written kernel
 ``csrc/utf8.cu`` (``utf8_validate``, K11 of the reference); on a CPU
 tensor from the plain torch version ``utf8_validate_plain``, a column
 loop of table gathers as the reference's ``lax.scan``. There is no other
-path: a failed build or launch raises.
+path: a failed build or launch raises. ``utf8_validate_pieces_plain``
+computes the verdict the way the kernel does (transition maps of 16 B
+pieces, composed in order, 512 B windows) and is what the kernel is held
+against on the card, beside ``utf8_validate_plain``.
 """
 
 from __future__ import annotations
@@ -116,6 +119,95 @@ def utf8_validate_plain(class_map: torch.Tensor, trans: torch.Tensor,
     state = torch.full((B,), OK, dtype=torch.long, device=batch.device)
     for t in range(L):
         state = flat[state * N_CLASSES + cls[:, t]]
+    return (state == OK) & (lengths >= 0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's form of the walk: maps of 16 B pieces, composed in order
+# ---------------------------------------------------------------------------
+
+#: bytes of a piece, and pieces of a window (a warp's 32 lanes)
+PIECE = 16
+WINDOW_PIECES = 32
+
+#: A piece's transition map, packed: nibble s (bits 4s .. 4s + 3) is the
+#: state that state s (OK .. F4S) reaches over the piece. DEAD is
+#: absorbing, so it has no nibble, and a nibble of 8 or more is DEAD.
+IDENTITY_MAP = 0x76543210
+#: the map of an all-ASCII piece: OK to OK, every other state to DEAD
+ASCII_MAP = 0x88888880
+
+_MAP_SHIFTS = 4 * torch.arange(DEAD, dtype=torch.int64)
+
+
+def unpack_maps(maps: torch.Tensor) -> torch.Tensor:
+    """int64 packed maps ``[...]`` → the image of each state below DEAD,
+    int64 ``[..., 8]`` (DEAD as 8)."""
+    shifts = _MAP_SHIFTS.to(maps.device)
+    return ((maps.long()[..., None] >> shifts) & 15).clamp(max=DEAD)
+
+
+def pack_maps(images: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`unpack_maps` (images of 8 or more as DEAD)."""
+    shifts = _MAP_SHIFTS.to(images.device)
+    return (images.long().clamp(max=DEAD) << shifts).sum(-1)
+
+
+def _follow(images: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+    """``images[..., s]`` for each state s of ``states`` (same leading
+    dims), DEAD for DEAD."""
+    picked = torch.gather(images, -1, states.clamp(max=DEAD - 1))
+    return torch.where(states >= DEAD, DEAD, picked)
+
+
+def compose_maps(first: torch.Tensor, then: torch.Tensor) -> torch.Tensor:
+    """The packed map of ``first`` followed by ``then``: state s goes to
+    ``then[first[s]]``, and to DEAD where ``first`` sends it there."""
+    return pack_maps(_follow(unpack_maps(then), unpack_maps(first)))
+
+
+def piece_maps(trans: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """Packed maps of pieces given as byte classes ``[..., n]``: each
+    state below DEAD walked over the n classes (``trans`` int32 [9 * 12],
+    whose DEAD row is all DEAD)."""
+    flat = trans.long().reshape(-1)
+    state = torch.arange(DEAD, dtype=torch.int64, device=cls.device)
+    state = state.expand(*cls.shape[:-1], DEAD)
+    for k in range(cls.shape[-1]):
+        state = flat[state * N_CLASSES + cls[..., k:k + 1].long()]
+    return pack_maps(state)
+
+
+def utf8_validate_pieces_plain(class_map: torch.Tensor, trans: torch.Tensor,
+                               batch: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """K11's verdict the way ``csrc/utf8.cu`` computes it, in torch ops
+    on any device (same arguments and result as
+    :func:`utf8_validate_plain`). Bytes at or past a row's length count
+    as ASCII, and the row is cut into 16 B pieces (the last padded with
+    ASCII); each piece's packed map comes from walking its bytes from
+    every state; a window's 32 maps compose in a pairwise tree, in
+    order, as the warp's shuffles do; and the windows take the carried
+    state from OK through the one that holds the row's length."""
+    B, L = batch.shape
+    dev = batch.device
+    n_pieces = -(-L // PIECE)
+    windows = -(-n_pieces // WINDOW_PIECES)
+    cls = class_map.long()[batch.long()]  # [B, L]
+    pos = torch.arange(L, device=dev)
+    cls = torch.where(pos[None, :] >= lengths[:, None].long(), _ASCII, cls)
+    width = windows * WINDOW_PIECES * PIECE
+    cls = torch.nn.functional.pad(cls, (0, width - L), value=_ASCII)
+    maps = piece_maps(trans, cls.view(B, windows, WINDOW_PIECES, PIECE))
+    while maps.shape[-1] > 1:  # [B, windows, 32] -> [B, windows, 1]
+        maps = compose_maps(maps[..., 0::2], maps[..., 1::2])
+    images = unpack_maps(maps[..., 0])  # [B, windows, 8]
+    n = lengths.long().clamp(min=0, max=L)
+    used = -(-n // (WINDOW_PIECES * PIECE))  # windows up to the length
+    state = torch.full((B,), OK, dtype=torch.int64, device=dev)
+    for w in range(windows):
+        step = _follow(images[:, w], state[:, None])[:, 0]
+        state = torch.where(used > w, step, state)
     return (state == OK) & (lengths >= 0)
 
 

@@ -12,7 +12,8 @@ platform gate forced open, as its own test does. Config 2 (tail over an
 NDJSON file → parser json, reserve_data → null + lib) and its regex form
 (apache2) run end to end through both packages' lib APIs over a small
 seeded file. A JSON value with a lone surrogate escape raises the same
-exception in both packages' ``push``.
+exception in both packages' ``push``, and so does a ``Types`` integer
+cast of a number past 64 bits (OverflowError).
 """
 
 import json
@@ -391,3 +392,29 @@ def test_unencodable_values_raise_in_both(log):
         finally:
             ctx.stop()
     assert errors[0] is errors[1]
+
+
+def test_integer_cast_past_64_bits_raises_in_both():
+    """apache2 with ``Types code:integer`` on a 20-digit status code: the
+    cast gives an int that msgpack cannot encode (above 2^64 - 1), so
+    ``push`` raises OverflowError in both packages (the reference's own
+    behaviour, kept), and nothing reaches the output."""
+    line = LINE.replace('" 200 ', '" 99999999999999999999 ')
+    assert line != LINE
+    for create, kw in ((fluentbit_tpu.create, {}),
+                       (fluentbit_tpu_torch.create, {"device": "cpu"})):
+        got = []
+        ctx = create(flush="50ms", grace="1", **kw)
+        ctx.parser("apache2", **PARSERS["apache2"])
+        ffd = ctx.input("lib", tag="t")
+        ctx.filter("parser", match="t", key_name="log", parser="apache2")
+        ctx.output("lib", match="*",
+                   callback=lambda data, tag: got.append(data))
+        ctx.start()
+        try:
+            with pytest.raises(OverflowError):
+                ctx.push(ffd, json.dumps({"log": line}))
+            ctx.flush_now()
+        finally:
+            ctx.stop()
+        assert got == []

@@ -7,10 +7,15 @@ config 3 append (the own-emitter re-entry adds none); ``hll_update`` (K6) and
 the flux plane's ``fused_absorb`` (K10) and ``segment_counts`` (K9)
 against ``fused_absorb_plain`` / ``segment_counts_plain``, and K10's
 launch count across a pipeline append. Registers, stacks, tables and
-counts equal exactly (integer atomics are order-free). ``utf8_validate``
-(K11) against ``utf8_validate_plain``, verdict for verdict, over random
-rows and the edge cases (L = 0, rows at -1 / -2, full ASCII rows,
-invalid first bytes, unaligned and strided views); filter_parser on
+counts equal exactly (integer atomics are order-free); K7 where every
+row is one value (weights negative, or an int64 sum past 2^32).
+``utf8_validate`` (K11) against ``utf8_validate_plain`` and
+``utf8_validate_pieces_plain``, verdict for verdict, over random rows
+(L up to 4096: several 512 B windows), multi-byte sequences across
+every 16 B piece and window boundary, each kind of invalid byte at
+every offset of a piece, and the edge cases (L = 0, rows at -1 / -2,
+full ASCII rows, invalid first bytes, unaligned and strided views);
+filter_parser on
 ``cuda`` against ``cpu`` for json and apache2, and K3's launches on
 config 2r (tail → parser apache2: one per append of >= 64 records).
 K6's grouped form (``hll_update_groups``) against
@@ -523,6 +528,46 @@ def test_cms_kernel_equals_plain(cuda_device, d, w, dtype, B, L, weighted):
     assert torch.equal(table.cpu(), want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,weights", [(torch.int32, None),
+                                           (torch.int32, "negative"),
+                                           (torch.int64, "negative"),
+                                           (torch.int64, "past_2_32")])
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_cms_kernel_one_value_contended(cuda_device, dtype, weights, B):
+    """Every row one value: every live lane of every warp on one word of
+    each depth row, folded in the warp (from 16384 rows by
+    ``__match_any_sync``). Weights mostly negative, or (int64) large
+    enough that the sum on that word passes 2^32: the warp's sum is
+    exact in 64 bits."""
+    batch, lengths = sketch_rows(B, B, 64)
+    batch[:] = batch[7]
+    lengths[:] = 40
+    lengths[::7] = -1
+    gen = torch.Generator().manual_seed(B)
+    wts = None
+    if weights == "negative":
+        wts = torch.randint(-(1 << 12), 1 << 8, (B,), dtype=torch.int32,
+                            generator=gen)
+    elif weights == "past_2_32":
+        wts = torch.randint(1 << 20, 1 << 23, (B,), dtype=torch.int32,
+                            generator=gen)
+        wts[::5] = -(1 << 21)
+    start = torch.zeros((4, 16384), dtype=dtype)
+    table = start.to(cuda_device)
+    tsk.cms_update(table, batch.to(cuda_device), lengths.to(cuda_device),
+                   None if wts is None else wts.to(cuda_device))
+    want = start.clone()
+    tsk.cms_update_plain(want, batch, lengths, wts)
+    torch.cuda.synchronize()
+    assert torch.equal(table.cpu(), want)
+    assert int((want != 0).sum()) == 4  # one word in each depth row
+    if weights == "past_2_32":
+        assert int(want.max()) > 1 << 32
+    elif weights == "negative":
+        assert int(want.min()) < 0
+
+
 def group_regs(G, p, seed):
     gen = torch.Generator().manual_seed(seed)
     return [torch.randint(0, 3, (1 << p,), dtype=torch.int32, generator=gen)
@@ -875,6 +920,8 @@ def utf8_rows(seed, B, L):
 
 
 def utf8_both(dev, batch, lengths):
+    """The kernel's verdicts, held against both plain versions (the
+    column scan and the kernel's piece maps) on the card."""
     v = tu.Utf8Validator(dev)
     b = batch if isinstance(batch, torch.Tensor) else \
         torch.from_numpy(batch).to(dev)
@@ -883,29 +930,118 @@ def utf8_both(dev, batch, lengths):
     got = tu.utf8_validate(v.class_map, v.trans, b, ln)
     assert tu.utf8_validate.launches - before == (1 if b.shape[0] else 0)
     plain = tu.utf8_validate_plain(v.class_map, v.trans, b, ln)
+    pieces = tu.utf8_validate_pieces_plain(v.class_map, v.trans, b, ln)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), pieces.cpu().numpy())
     return got.cpu().numpy()
+
+
+# strict_utf8 and straddle_rows are shared with tests/test_torch_utf8.py,
+# which imports them from here: this file runs on the card, where JAX is
+# not installed
+
+
+def strict_utf8(v):
+    try:
+        v.decode("utf-8")
+        return True
+    except UnicodeDecodeError:
+        return False
+
+
+#: 2-, 3- and 4-byte valid sequences, a surrogate, an overlong and a code
+#: point above U+10FFFF
+STRADDLE_SEQS = ("é".encode(), "日".encode(), "🎉".encode(), b"\xed\xa0\x80",
+                 b"\xe0\x80\x80", b"\xf4\x90\x80\x80")
+
+
+def straddle_rows(width):
+    """ASCII rows, each with one sequence split j bytes before a 16 B
+    piece boundary (every split), at every boundary of the row or at the
+    512 B window boundary alone (the middle boundary of a narrower row),
+    at lengths: full, cut at that boundary, just after the sequence, 512,
+    past the width, 0, -1 and -2."""
+    rows, lengths = [], []
+    middle = 512 if width > 512 else (width // 32) * 16
+    for seq in STRADDLE_SEQS:
+        for j in range(1, len(seq)):
+            for every in (True, False):
+                row = np.full(width, ord("a"), np.uint8)
+                bounds = range(16, width, 16) if every else [middle]
+                placed = [b for b in bounds
+                          if b >= j and b - j + len(seq) <= width]
+                for b in placed:
+                    row[b - j:b - j + len(seq)] = np.frombuffer(seq, np.uint8)
+                cut = placed[0] if placed else 0
+                for n in (width, cut, cut - j + len(seq), 512, width + 5, 0,
+                          -1, -2):
+                    rows.append(row)
+                    lengths.append(n)
+    return np.stack(rows), np.array(lengths, np.int32)
+
+
+def oracle(batch, lengths):
+    L = batch.shape[1]
+    return np.array([n >= 0 and strict_utf8(bytes(r[:min(n, L)]))
+                     for r, n in zip(batch, lengths)])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L", [(1, 0), (17, 1), (300, 17), (300, 512),
-                                 (4096, 512)])
+                                 (4096, 512), (300, 1024), (64, 4096)])
 def test_utf8_kernel_equals_plain(cuda_device, B, L):
     batch, lengths, vals = utf8_rows(B + L, B, L)
     got = utf8_both(cuda_device, batch, lengths)
-
-    def strict(v):
-        try:
-            v.decode("utf-8")
-            return True
-        except UnicodeDecodeError:
-            return False
-
-    want = [v is not None and len(v) <= L and strict(v) for v in vals]
+    want = [v is not None and len(v) <= L and strict_utf8(v) for v in vals]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         got, tu.Utf8Validator("cpu").validate(batch, lengths))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [17, 300, 512, 1024, 4096])
+def test_utf8_kernel_straddle_rows(cuda_device, L):
+    """Sequences across every piece boundary and the window boundary, cut
+    by the length at a boundary: the 16 B path (L % 16 == 0) and the
+    byte path."""
+    batch, lengths = straddle_rows(L)
+    got = utf8_both(cuda_device, batch, lengths)
+    want = oracle(batch, lengths)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()
+
+
+#: an invalid byte of each kind: a lone continuation, C0/C1, F5-FF, and a
+#: surrogate's ED A0
+INVALID = (b"\x80", b"\xc0\xaf", b"\xc1\xbf", b"\xf5", b"\xff",
+           b"\xed\xa0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [512, 1024, 300])
+def test_utf8_kernel_invalid_byte_at_every_offset(cuda_device, L):
+    """Each kind of invalid byte at every offset mod 16 of a piece, in
+    pieces all along the row (both windows at L = 1024), after valid
+    2- to 4-byte text; and the same rows cut just before it (valid)."""
+    text = ("aé日🎉" * 4).encode()
+    rows, lengths = [], []
+    for kind in INVALID:
+        for piece in range(0, (L - len(text) - 2) // 16):
+            for m in range(16):
+                at = 16 * piece + m
+                if at < len(text) or at + len(kind) > L:
+                    continue
+                row = np.full(L, ord("b"), np.uint8)
+                row[:len(text)] = np.frombuffer(text, np.uint8)
+                row[at:at + len(kind)] = np.frombuffer(kind, np.uint8)
+                rows += [row, row]
+                lengths += [L, at]
+    batch, lengths = np.stack(rows), np.array(lengths, np.int32)
+    got = utf8_both(cuda_device, batch, lengths)
+    want = oracle(batch, lengths)
+    np.testing.assert_array_equal(got, want)
+    assert not want[0::2].any() and want[1::2].all()
 
 
 @pytest.mark.gpu
