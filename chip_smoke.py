@@ -159,7 +159,26 @@ Phases (any failure exits non-zero):
    states of (a), (b) and (c) equal; COUNT(*) and AVG equal to (d) and
    to Python folds; ``uniq`` equal to the estimate of registers built
    from scratch and within max(3, 10%) of (d)'s exact count; K10 once
-   per append in (a), 8 times plus 2 merges per append in (b).
+   per append in (a), 8 times plus 2 merges per append in (b);
+17. pipeline: BASELINE config 5 (forward → kubernetes with Merge_Log On
+   and Buffer_Size 0 → grep Exclude ``log health-check`` → null) over
+   262,144 records of k8s container logs made from the seed (256 pods
+   in 16 namespaces, a ``.meta`` preload cache for 90% of them,
+   PackedForward messages of 256-4096 entries, half gzip, ~1% of the
+   records in Message / Forward mode and messages below 32 records, ~1%
+   of the chunks resent), sent over loopback TCP by four client
+   processes that await every ack: (a) ``conf/baseline5-k8s.conf``
+   loaded as written through the port's loader, only its Port set to 0,
+   on cuda; (b) the same chain with the cache and a lib output on cuda
+   and then cpu. The records of (b) must be equal between the devices
+   and to a check computed here (Python ``re`` on the tag, the
+   ``.meta`` JSON, ``json.loads`` of the trimmed ``log`` with the
+   record's keys winning, ``"health-check"`` searched in ``log``);
+   every resent chunk must be absorbed once; K4 (the Exclude rule has
+   14 states, so "auto" takes it) must have launched once per append of
+   >= 32 records in (a) and (b) and K3 never; lines/s, the p50 steps of
+   kubernetes and of grep's device match, and K4 at config 5's own
+   [1, Bp, 512] rows against its plain version, with times and bound.
 
 Phases 3 and 4 pin K3: phase 3 builds its programs with
 ``kernel="scan"``; in phase 4 config 1's Exclude rule (16 states) takes
@@ -177,6 +196,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gzip
 import json
 import logging
 import math
@@ -185,6 +205,7 @@ import random
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -3325,6 +3346,439 @@ def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
     return res
 
 
+# config 5 (conf/baseline5-k8s.conf: forward → kubernetes with Merge_Log
+# On and Buffer_Size 0 → grep Exclude log health-check → null): edge
+# agents' traffic over loopback TCP, pods in namespaces, a preload cache
+K8S_RECORDS = 262_144
+K8S_PODS = 256
+K8S_NAMESPACES = 16
+K8S_NODES = 32
+K8S_CONNS = 4
+K8S_TAG_ZIPF_S = 1.1
+K8S_SMALL_SHARE = 0.01   # records in Message / Forward / < 32-record messages
+K8S_RESEND_SHARE = 0.01  # chunks resent with the same id
+K8S_EXCLUDE = "health-check"
+K8S_INVALID = "\u0001INVALID\u0001"  # 9 bytes, swapped for invalid UTF-8
+K8S_INVALID_BYTES = b"bad\xff\xfe\xc3(x\x80"
+CONFIG5_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "conf", "baseline5-k8s.conf")
+# the tag regex written here in Python's syntax, for the independent check
+K8S_TAG_PY = re.compile(
+    r"^kube\.var\.log\.containers\."
+    r"(?P<pod_name>[a-z0-9](?:[-a-z0-9.]*[a-z0-9])?)_"
+    r"(?P<namespace_name>[^_]+)_(?P<container_name>.+)-"
+    r"(?P<docker_id>[a-f0-9]{12,64})\.log$")
+# an edge agent: sends each framed message, then waits for its ack bytes
+K8S_CLIENT = r"""
+import socket, struct, sys
+data = open(sys.argv[1], "rb").read()
+s = socket.create_connection(("127.0.0.1", int(sys.argv[2])))
+pos = 0
+while pos < len(data):
+    (n,) = struct.unpack_from(">I", data, pos)
+    msg = data[pos + 4:pos + 4 + n]
+    pos += 4 + n
+    (n,) = struct.unpack_from(">I", data, pos)
+    ack = data[pos + 4:pos + 4 + n]
+    pos += 4 + n
+    s.sendall(msg)
+    got = b""
+    while len(got) < len(ack):
+        part = s.recv(len(ack) - len(got))
+        if not part:
+            sys.exit("the server closed the connection before an ack")
+        got += part
+    if got != ack:
+        sys.exit("wrong ack %r for %r" % (got, ack))
+s.close()
+"""
+
+
+def k8s_log(rng: random.Random, i: int) -> str:
+    """One Docker/CRI ``log`` value: ~55% JSON application lines of
+    80-400 B, ~40% plain text, ~3% kubelet probes with ``health-check``,
+    ~2% stack traces over 512 B; ~0.5% carry invalid UTF-8."""
+    r = rng.random()
+    if r < 0.55:
+        body = {"level": rng.choice(["info", "warn", "error", "debug"]),
+                "ts": f"2024-05-01T12:{i % 60:02d}:{(i * 7) % 60:02d}Z",
+                "caller": f"svc/handler{rng.randrange(40)}.go:"
+                          f"{rng.randrange(900)}",
+                "msg": "request served",
+                "latency_ms": round(rng.random() * 300, 3),
+                "req": rng.randrange(10 ** 9)}
+        if rng.random() < 0.1:
+            body["stream"] = "inner"     # collides: the record's wins
+        pad = rng.randrange(80, 400) - len(json.dumps(body))
+        if pad > 0:
+            body["note"] = "x" * pad
+        line = json.dumps(body)
+    elif r < 0.95:
+        line = (f"I0501 12:00:{i % 60:02d}.{i % 1000:03d} {rng.randrange(9)}"
+                f" controller.go:{rng.randrange(999)}] synced "
+                + "w" * rng.randrange(10, 200))
+    elif r < 0.98:
+        line = (f'10.1.{rng.randrange(256)}.{rng.randrange(256)} - - '
+                f'"GET /healthz HTTP/1.1" 200 2 "-" "kube-probe/1.29" '
+                f'health-check ok')
+    else:
+        line = "panic: runtime error\n" + "".join(
+            f"goroutine {k} [running]:\n\tmain.f{k}()\n"
+            for k in range(rng.randrange(14, 30)))
+    if rng.random() < 0.005:
+        line = K8S_INVALID + line
+    return line + "\n"
+
+
+def make_k8s_traffic(np, seed: int, cache_dir: str,
+                     n_records: int = K8S_RECORDS) -> dict:
+    """Config 5's traffic and metadata from the seed: 256 pods in 16
+    namespaces with 1-3 containers each; a ``.meta`` file for 90% of the
+    pods; ``n_records`` records in PackedForward messages of 256-4096
+    entries (half gzip), tags drawn Zipf(1.1), and ~1% of the records in
+    Message and Forward mode and messages below 32 records; every
+    message with a ``chunk`` id, ~1% of them sent again later on the
+    same connection; each of 4 connections with its own tags. Returns
+    the framed messages of each connection, what each tag's records are
+    (for the check) and the counts."""
+    from fluentbit_tpu_torch.codec.msgpack import EventTime, packb
+
+    rng = random.Random(seed)
+    tags, metas = [], {}
+    for p in range(K8S_PODS):
+        ns = f"team-{p % K8S_NAMESPACES:02d}"
+        pod = (f"svc{p // 4}-{rng.randrange(16 ** 9):09x}-"
+               f"{rng.randrange(36 ** 5):05x}")
+        if rng.random() < 0.9:
+            labels = {f"app.kubernetes.io/l{k}": f"v{rng.randrange(99)}"
+                      for k in range(rng.randrange(2, 9))}
+            anns = {f"note/{k}": "x" * rng.randrange(1, 30)
+                    for k in range(rng.randrange(0, 5))}
+            meta = {"metadata": {"name": pod, "namespace": ns,
+                                 "uid": f"{rng.randrange(16 ** 32):032x}",
+                                 "labels": labels, "annotations": anns},
+                    "spec": {"nodeName":
+                             f"node-{rng.randrange(K8S_NODES):02d}"}}
+            metas[(ns, pod)] = meta
+            with open(os.path.join(cache_dir, f"{ns}_{pod}.meta"), "w") as f:
+                json.dump(meta, f)
+        for c in range(rng.randrange(1, 4)):
+            ctr = ["app", "sidecar", "log_shipper"][c]
+            tags.append(f"kube.var.log.containers.{pod}_{ns}_{ctr}-"
+                        f"{rng.randrange(16 ** 64):064x}.log")
+    weights = 1.0 / np.arange(1, len(tags) + 1) ** K8S_TAG_ZIPF_S
+    weights /= weights.sum()
+    nprng = np.random.default_rng(seed)
+
+    def pick_tag() -> str:
+        return tags[int(nprng.choice(len(tags), p=weights))]
+
+    per_tag: dict = {}
+    conns = [[] for _ in range(K8S_CONNS)]
+    conn_of = {t: i % K8S_CONNS for i, t in enumerate(tags)}
+    n = sent = 0
+    small_left = int(n_records * K8S_SMALL_SHARE)
+    while n < n_records:
+        if small_left > 0 and rng.random() < 0.75:
+            mode = rng.choice(["message", "forward"])
+            size = 1 if mode == "message" else rng.randrange(2, 32)
+            small_left -= size
+        else:
+            mode = rng.choice(["packed", "gzip"])
+            size = rng.randrange(256, 4097)
+        size = min(size, n_records - n)
+        tag = pick_tag()
+        ents, raws = [], []
+        for _ in range(size):
+            sec = 1714560000 + n // 64
+            ts = (EventTime(sec, (n * 7919) % 10 ** 9) if n % 5
+                  else sec if n % 10 else sec + (n % 1000) / 1000.0)
+            rec = {"log": k8s_log(rng, n), "stream":
+                   "stderr" if rng.random() < 0.2 else "stdout",
+                   "time": f"2024-05-01T12:00:{n % 60:02d}.{n:09d}Z"}
+            ents.append([ts, rec])
+            raws.append(packb([ts, rec]).replace(
+                K8S_INVALID.encode(), K8S_INVALID_BYTES))
+            n += 1
+        cid = f"{conn_of[tag]}-{sent}"
+        sent += 1
+        option = {"chunk": cid}
+        if mode == "message":
+            wire = packb([tag, ents[0][0], ents[0][1], option])
+        elif mode == "forward":
+            wire = packb([tag, ents, option])
+        else:
+            blob = b"".join(raws)
+            if mode == "gzip":
+                option["compressed"] = "gzip"
+                blob = gzip.compress(blob, compresslevel=1)
+            wire = packb([tag, blob, option])
+        if mode in ("message", "forward"):
+            wire = wire.replace(K8S_INVALID.encode(), K8S_INVALID_BYTES)
+        ack = packb({"ack": cid})
+        frame = (struct.pack(">I", len(wire)) + wire
+                 + struct.pack(">I", len(ack)) + ack)
+        conns[conn_of[tag]].append(frame)
+        per_tag.setdefault(tag, []).append(ents)
+        if sent % round(1 / K8S_RESEND_SHARE) == 0:
+            conns[conn_of[tag]].append(("resend", frame))
+    # each resend goes later on its connection than the message it repeats
+    resends = 0
+    for c, frames in enumerate(conns):
+        out, pending = [], []
+        for f in frames:
+            if isinstance(f, tuple):
+                pending.append(f[1])
+                resends += 1
+            else:
+                out.append(f)
+                if pending and rng.random() < 0.5:
+                    out.append(pending.pop(0))
+        conns[c] = b"".join(out + pending)
+    return {"conns": conns, "per_tag": per_tag, "metas": metas,
+            "tags": tags, "records": n, "messages": sent,
+            "resends": resends,
+            "device_appends": sum(len(e) >= 32 for v in per_tag.values()
+                                  for e in v),
+            "wire_bytes": sum(len(c) for c in conns)}
+
+
+def config5_expected(traffic: dict) -> dict:
+    """The records each tag must reach the output with, computed here:
+    Python ``re`` on the tag, the ``.meta`` JSON, ``json.loads`` of the
+    ``log`` after ``rstrip`` with the record's keys winning, and
+    ``"health-check"`` searched in ``log``."""
+    out = {}
+    for tag, messages in traffic["per_tag"].items():
+        m = K8S_TAG_PY.match(tag)
+        ident = m.groupdict()
+        meta = traffic["metas"].get((ident["namespace_name"],
+                                     ident["pod_name"]), {})
+        k8s = dict(ident)
+        md, spec = meta.get("metadata", {}), meta.get("spec", {})
+        if md.get("uid"):
+            k8s["pod_id"] = md["uid"]
+        if spec.get("nodeName"):
+            k8s["host"] = spec["nodeName"]
+        if md.get("labels"):
+            k8s["labels"] = md["labels"]
+        if md.get("annotations"):
+            k8s["annotations"] = md["annotations"]
+        rows = []
+        for ents in messages:
+            for ts, rec in ents:
+                body = dict(rec)
+                body["log"] = body["log"].replace(
+                    K8S_INVALID, K8S_INVALID_BYTES.decode("utf-8",
+                                                          "replace"))
+                text = body["log"].rstrip()
+                if text.startswith("{"):
+                    try:
+                        parsed = json.loads(text)
+                    except ValueError:
+                        parsed = None
+                    if isinstance(parsed, dict):
+                        for k, v in parsed.items():
+                            body.setdefault(k, v)
+                body["kubernetes"] = k8s
+                if K8S_EXCLUDE not in body["log"]:
+                    rows.append((ts, body))
+        if rows:
+            out[tag] = rows
+    return out
+
+
+def run_config5(flb, tcf, device: str, traffic: dict, cache_dir,
+                work_dir: str) -> dict:
+    """Config 5 on ``device``: with ``cache_dir`` None,
+    ``conf/baseline5-k8s.conf`` loaded as written through the port's
+    loader with only its Port set to 0 (an ephemeral one); else the same
+    chain with the preload cache and a ``lib`` output beside ``null``.
+    Four client processes send the traffic (one connection each, every
+    ack awaited); the wall runs from their start to the last ack."""
+    chunks = []
+    if cache_dir is None:
+        conf = tcf.load_config_file(CONFIG5_CONF)
+        inp = next(s for s in conf.sections if s.name == "input")
+        inp.properties = [(k, "0" if k.lower() == "port" else v)
+                          for k, v in inp.properties]
+        ctx = flb.create(device=device)
+        tcf.apply_to_context(ctx, conf, os.path.dirname(CONFIG5_CONF))
+    else:
+        ctx = flb.create(device=device, flush="1", grace="2")
+        ffd = ctx.input("forward", port="0")
+        ctx.filter("kubernetes", match="kube.*", merge_log="on",
+                   buffer_size="0", kube_meta_preload_cache_dir=cache_dir)
+        ctx.filter("grep", match="kube.*", exclude=f"log {K8S_EXCLUDE}")
+        ctx.output("null", match="*")
+        ctx.output("lib", match="*",
+                   callback=lambda data, tag: chunks.append((tag, data)))
+    paths = []
+    for c, frames in enumerate(traffic["conns"]):
+        paths.append(os.path.join(work_dir, f"conn{c}.bin"))
+        with open(paths[-1], "wb") as f:
+            f.write(frames)
+    ctx.start()
+    procs = []
+    try:
+        port = ctx.engine.inputs[0].plugin.bound_port
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", K8S_CLIENT, p,
+                                   str(port)]) for p in paths]
+        rcs = [p.wait(timeout=900) for p in procs]
+        wall = time.perf_counter() - t0
+        ctx.flush_now()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ctx.stop()
+    if any(rcs):
+        raise SystemExit(f"config 5 ({device}): a client failed: {rcs}")
+    kube = ctx.engine.filters[0].plugin
+    grep = ctx.engine.filters[1].plugin
+    return {"chunks": chunks, "wall": wall,
+            "kube_steps": list(kube.step_seconds),
+            "grep_steps": list(grep.match_seconds),
+            "program": grep._program,
+            "health": ctx.engine.inputs[0].plugin.health_block(),
+            "metrics": ctx.engine.metrics.to_prometheus()}
+
+
+def config5_k4(np, torch, tg, assemble, prog, traffic: dict) -> list:
+    """K4 at config 5's own rows: the ``log`` values of the largest and
+    of the smallest PackedForward message staged as grep stages them,
+    [1, Bp, 512], against its plain version on the card, with times and
+    bound."""
+    from fluentbit_tpu_torch.ops.batch import bucket_size
+
+    msgs = [e for v in traffic["per_tag"].values() for e in v
+            if len(e) >= 256]
+    out = []
+    for ents in (max(msgs, key=len), min(msgs, key=len)):
+        vals = [rec["log"].replace(K8S_INVALID, K8S_INVALID_BYTES.decode(
+            "utf-8", "replace")).encode() for _ts, rec in ents]
+        Bp = bucket_size(len(vals), max_len=L)
+        staged = assemble(vals, L, Bp)
+        b = torch.from_numpy(staged.batch[None]).cuda()
+        ln = torch.from_numpy(staged.lengths[None]).cuda()
+        before = tg.grep_assoc.launches
+        got = prog.dispatch(b, ln)
+        launches = tg.grep_assoc.launches - before
+        k4 = leaf_calls(tg, prog, b, ln, "assoc")
+        pl = leaf_calls(tg, prog, b, ln, "plain")
+        plain = merged(torch, prog, [c() for c in pl])
+        torch.cuda.synchronize()
+        mism = int((got != plain).sum())
+        res = {"shape": [1, Bp, L], "records": len(vals),
+               "overflow_rows": len(staged.overflow), "launches": launches,
+               "mismatches": mism,
+               "max_abs_err": int((got.int() - plain.int()).abs().max()),
+               "matched_rows": int(got.sum()),
+               "ms": cuda_ms(torch, lambda: [c() for c in k4], 30),
+               "host_enqueue_ms": host_ms(torch, lambda: [c() for c in k4],
+                                          30),
+               "plain_ms": cuda_ms(torch, lambda: [c() for c in pl], 3),
+               "k_groups": prog.decision()["k_groups"],
+               "max_states": [leaf.max_states
+                              for leaf in prog._children or [prog]]}
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            torch, prog, b, ln, table_bytes_read(torch, tg, prog, b, ln))
+        log("config5-k4-vs-plain: " + json.dumps(res))
+        if mism or launches != 1 or not 0 < res["matched_rows"] < Bp:
+            raise SystemExit(f"K4 on config 5's rows failed: {res}")
+        out.append(res)
+    return out
+
+
+def phase_config5(np, torch, tg, assemble, flb, tcf, decode_events,
+                  seed: int, card: str) -> dict:
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "meta")
+        os.mkdir(cache)
+        t0 = time.perf_counter()
+        traffic = make_k8s_traffic(np, seed, cache)
+        make_s = time.perf_counter() - t0
+        want = config5_expected(traffic)
+        tg.grep_assoc.launches = tg.grep_dfa.launches = 0
+        as_written = run_config5(flb, tcf, "cuda", traffic, None, tmp)
+        launches_conf = {"grep_assoc": tg.grep_assoc.launches,
+                         "grep_dfa": tg.grep_dfa.launches}
+        tg.grep_assoc.launches = tg.grep_dfa.launches = 0
+        gpu = run_config5(flb, tcf, "cuda", traffic, cache, tmp)
+        launches = {"grep_assoc": tg.grep_assoc.launches,
+                    "grep_dfa": tg.grep_dfa.launches}
+        cpu = run_config5(flb, tcf, "cpu", traffic, cache, tmp)
+
+    def by_tag(run) -> dict:
+        out: dict = {}
+        for tag, data in run["chunks"]:
+            out.setdefault(tag, []).append(data)
+        return {t: b"".join(v) for t, v in out.items()}
+
+    got, ref = by_tag(gpu), by_tag(cpu)
+    decoded = {t: [(ev.timestamp, ev.body) for ev in decode_events(v)]
+               for t, v in got.items()}
+    k4 = config5_k4(np, torch, tg, assemble, gpu["program"], traffic)
+
+    def p50(steps, names) -> dict:
+        return {k: statistics.median(s[i] for s in steps) * 1e3
+                for i, k in enumerate(names)}
+
+    def kube_p50(run) -> dict:
+        """The filter's p50 ms on appends of >= 32 records (those that
+        reach K4) and on the smaller ones."""
+        big = [t for n, t in run["kube_steps"] if n >= 32]
+        small = [t for n, t in run["kube_steps"] if n < 32]
+        return {"appends_ge_32": statistics.median(big) * 1e3,
+                "appends_lt_32": statistics.median(small) * 1e3}
+
+    grep_steps = ("staging", "launch_readback", "overflow_regex")
+    expected = {"grep_assoc": traffic["device_appends"], "grep_dfa": 0}
+    n_out = sum(len(v) for v in want.values())
+    res = {"records": traffic["records"], "messages": traffic["messages"],
+           "resends": traffic["resends"], "tags": len(traffic["tags"]),
+           "tags_sent": len(traffic["per_tag"]),
+           "wire_bytes": traffic["wire_bytes"], "traffic_make_s": make_s,
+           "records_out": n_out,
+           "kernel_resolved": gpu["program"].decision()["kernel_resolved"],
+           "equal_cpu": got == ref,
+           "equal_python_check": decoded == want,
+           "launches": launches, "launches_as_written": launches_conf,
+           "expected_launches": expected,
+           "health": gpu["health"], "health_cpu": cpu["health"],
+           "health_as_written": as_written["health"],
+           "lines_per_s": traffic["records"] / gpu["wall"],
+           "cpu_lines_per_s": traffic["records"] / cpu["wall"],
+           "as_written_lines_per_s": traffic["records"] / as_written["wall"],
+           "kube_p50_ms": kube_p50(gpu), "cpu_kube_p50_ms": kube_p50(cpu),
+           "grep_p50_ms": p50(gpu["grep_steps"], grep_steps),
+           "cpu_grep_p50_ms": p50(cpu["grep_steps"], grep_steps),
+           "grep_device_appends": len(gpu["grep_steps"]),
+           "k4_ms": k4[0]["ms"], "k4_shape": k4[0]["shape"],
+           "k4_busy_share": (k4[0]["ms"] * traffic["device_appends"]
+                             / (gpu["wall"] * 1e3)),
+           "card": card}
+    log("config5: " + json.dumps(res))
+    failed = [k for k in ("equal_cpu", "equal_python_check") if not res[k]]
+    absorbed = traffic["messages"]
+    for h in (res["health"], res["health_cpu"], res["health_as_written"]):
+        if (h["absorbed"], h["dedup_hits"]) != (absorbed, traffic["resends"]):
+            failed.append("dedup")
+    if (launches != expected or launches_conf != expected
+            or res["grep_device_appends"] != expected["grep_assoc"]
+            or not expected["grep_assoc"]
+            or res["kernel_resolved"] != "assoc"):
+        failed.append("launches")
+    if failed:
+        raise SystemExit(f"config 5 failed {failed}: {res}")
+    res["k4_rows"] = k4
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3339,6 +3793,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fluentbit_tpu_torch as flb
+    from fluentbit_tpu_torch import config_format as tcf
     from fluentbit_tpu_torch.codec.events import decode_events, encode_event
     from fluentbit_tpu_torch.codec.msgpack import EventTime
     from fluentbit_tpu_torch.flux import kernels as tfk
@@ -3423,6 +3878,8 @@ def main() -> int:
                     decode_events, ndjson, env["card"])
     config2r = timed("config2r", phase_config2r, np, torch, tg, assemble, flb,
                      decode_events, args.seed, env["card"])
+    config5 = timed("config5", phase_config5, np, torch, tg, assemble, flb,
+                    tcf, decode_events, args.seed, env["card"])
     log("phase_seconds (each with the data made before it): "
         + json.dumps(seconds))
 
@@ -3526,8 +3983,11 @@ def main() -> int:
         "launches_config1_exclude": pipeline["regex+exclude"]["launches"][
             "grep_assoc"],
         "config1_exclude_rows": mesh["main_rows"][1],
+        "launches_config5": config5["launches"]["grep_assoc"],
+        "config5_rows": config5["k4_rows"],
         "max_abs_err": max([r["max_abs_err"] for r in assoc]
-                           + [mesh["main_rows"][1]["max_abs_err"]]),
+                           + [mesh["main_rows"][1]["max_abs_err"]]
+                           + [r["max_abs_err"] for r in config5["k4_rows"]]),
         "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
         "library_ms": None, "k3_ms": main_k4["k3_ms"],

@@ -1,7 +1,8 @@
 """Typed plugin configuration — config_map equivalent.
 
 The port's own copy of ``fluentbit_tpu/core/config.py``, trimmed to the
-keys this slice's plugins and engine read.
+keys the port's plugins and engine read; every other key of the
+reference's raises by name when set.
 
 Reference: include/fluent-bit/flb_config_map.h:33-51 defines a declarative
 per-plugin option schema that is auto-validated and written into plugin
@@ -145,6 +146,10 @@ def apply_config_map(config_map: List[ConfigMapEntry], props: Properties,
         if entry is None:
             if lk in CORE_INSTANCE_KEYS:
                 continue
+            if lk in UNPORTED_INSTANCE_KEYS or lk.startswith("tenant."):
+                raise ValueError(
+                    f"property {key!r} is not ported: the port has no "
+                    f"{UNPORTED_INSTANCE_KEYS.get(lk, 'qos plane')}")
             raise ValueError(f"unknown property {key!r}")
         coerced = entry.coerce(value)
         attr = _attr_name(entry.name)
@@ -174,6 +179,35 @@ def _attr_name(name: str) -> str:
 # (reference: flb_input.c/flb_output.c/flb_filter.c common properties).
 CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level"}
 
+#: the reference's other common keys (its CORE_INSTANCE_KEYS), which the
+#: port cannot honour yet: setting one raises, naming what is missing.
+#: ``host`` and ``port`` are accepted only by the plugins that declare
+#: them; ``tenant.*`` keys raise with ``tenant``.
+UNPORTED_INSTANCE_KEYS = {
+    "mem_buf_limit": "input buffer limit or backpressure",
+    "storage.type": "filesystem storage",
+    "storage.pause_on_chunks_overlimit": "filesystem storage",
+    "threaded": "threaded inputs",
+    "workers": "output worker threads",
+    "retry_limit": "retry scheduler",
+    "no_multiplex": "output worker threads",
+    "tls": "TLS on plugin connections",
+    "tls.verify": "TLS on plugin connections",
+    "tls.ca_file": "TLS on plugin connections",
+    "tls.crt_file": "TLS on plugin connections",
+    "tls.key_file": "TLS on plugin connections",
+    "tls.vhost": "TLS on plugin connections",
+    "http2": "HTTP/2 outputs",
+    "proxy": "HTTP proxy outputs",
+    "route_condition": "conditional routing",
+    "flush_timeout": "flush deadlines (guard)",
+    "tenant": "qos plane",
+    "net.keepalive": "upstream connection pools",
+    "net.keepalive_idle_timeout": "upstream connection pools",
+    "net.keepalive_max_recycle": "upstream connection pools",
+    "net.max_worker_connections": "upstream connection pools",
+}
+
 
 @dataclass
 class ServiceConfig:
@@ -188,8 +222,22 @@ class ServiceConfig:
     }
 
     def set(self, key: str, value: Any) -> None:
-        mapped = self._KEYMAP.get(key.lower())
+        lk = key.lower()
+        mapped = self._KEYMAP.get(lk)
         if mapped is None:
+            if lk in UNPORTED_SERVICE_KEYS or lk.split(".")[0] in (
+                    "storage", "guard", "qos", "tpu", "scheduler"):
+                raise ValueError(f"service property {key!r} is not "
+                                 "ported")
             raise ValueError(f"unknown service property {key!r}")
         attr, fn = mapped
         setattr(self, attr, fn(value))
+
+
+#: the reference's other [SERVICE] keys (its ServiceConfig._KEYMAP,
+#: beside the ``storage.*``, ``guard.*``, ``qos.*``, ``tpu.*`` and
+#: ``scheduler.*`` families): each raises when set
+UNPORTED_SERVICE_KEYS = {
+    "daemon", "log_level", "http_server", "http_listen", "http_port",
+    "hot_reload", "hot_reload_diff", "retry_limit", "task_map_size",
+}

@@ -354,9 +354,11 @@ class Engine:
         events. A flux-backed SQL task does not force the decoded path:
         its hidden flux filter absorbs inside the chain.
 
-        A filter or stream-processor task that raises fails the append:
-        no path has a silent pass-through (the reference package logs and
-        continues)."""
+        A filter that raises fails the append: no path has a silent
+        pass-through (the reference package logs and continues). A
+        stream-processor task that raises is logged and the append's
+        records are kept, as in the reference (an SQL task's error is
+        host Python, never a device failure)."""
         tag = tag or ins.tag or ins.plugin.name
         matching = [f for f in self.filters if f.route.matches(tag)]
         sp = self.sp
@@ -383,8 +385,18 @@ class Engine:
             if sp_on and sp.tasks:
                 # flb_sp_do on the filtered records, never on the SP's
                 # own emitted rows (a task whose pattern matches its
-                # output tag must not feed itself)
-                sp.do(events, tag)
+                # output tag must not feed itself). A task that raises
+                # is logged and the append's records are kept, as in the
+                # reference; ``do`` runs host Python only, and the rows
+                # it emitted re-enter the chain after the handler, so a
+                # kernel's error there still raises
+                sp.hold()
+                try:
+                    sp.do(events, tag)
+                except Exception:
+                    log.exception("stream processor failed")
+                finally:
+                    sp.release()
             payload = b"".join(
                 ev.raw if ev.raw is not None else reencode_event(ev)
                 for ev in events)

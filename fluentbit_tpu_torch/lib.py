@@ -60,6 +60,11 @@ class FLBContext:
         for k, v in props.items():
             self._handles[ffd].set(k, v)
 
+    def service_set(self, **props) -> None:
+        """[SERVICE] properties after create (the config loader's path)."""
+        for k, v in props.items():
+            self.service.set(k, v)
+
     def sp_task(self, sql: str):
         """Register a stream-processor SQL query ([STREAM_TASK] Exec):
         ``Engine.sp_task``. Its result rows enter the pipeline under the
@@ -96,6 +101,11 @@ class FLBContext:
 
     def flush_now(self) -> None:
         self.engine.flush_now()
+
+    def bound_port(self, ffd: int):
+        """The port a server input (forward, http) listens on once
+        ``start()`` returned: its ``port`` 0 picks a free one."""
+        return self._handles[ffd].plugin.bound_port
 
 
 def create(device: DeviceLike = None, **service_props) -> FLBContext:

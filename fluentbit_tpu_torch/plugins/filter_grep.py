@@ -154,8 +154,9 @@ class GrepFilter(FilterPlugin):
             if len(kinds) > 1:
                 raise ValueError("grep: AND/OR mode cannot mix Regex and Exclude rules")
         self.device = engine.device
-        #: host seconds of each device match on the decoded path (staging
-        #: to verdict), the most recent appends only
+        #: (staging, launch + readback, overflow regex) host seconds of
+        #: each device match on the decoded path, the most recent appends
+        #: only
         self.match_seconds: collections.deque = collections.deque(maxlen=4096)
         #: the raw path's totals: host seconds of field staging
         #: (``extract_s``), of launches and readbacks beyond the staging
@@ -236,11 +237,14 @@ class GrepFilter(FilterPlugin):
                     lengths_np[r] = lengths_np[r0]
                 values[r] = vals
                 overflow[r] = staged.overflow
+        t1 = time.perf_counter()
         mask = np.array(self._program.match(batch, lengths)[:, :B])
+        t2 = time.perf_counter()
         for r, rule in enumerate(self.rules):
             for i in overflow[r]:
                 mask[r, i] = rule.regex.match(values[r][i])
-        self.match_seconds.append(time.perf_counter() - t0)
+        t3 = time.perf_counter()
+        self.match_seconds.append((t1 - t0, t2 - t1, t3 - t2))
         return mask
 
     # -- the raw chunk path (no decode) --

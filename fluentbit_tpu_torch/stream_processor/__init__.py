@@ -747,6 +747,9 @@ class StreamProcessor:
         # window-tick collector)
         self._emitter = None
         self.emitter_instance = None
+        # the rows emitted between ``hold`` and ``release`` (None:
+        # append them at once)
+        self._held: Optional[list] = None
 
     def create_task(self, sql: str) -> SPTask:
         task = SPTask(sql, lambda tag, bodies: self._emit(task, tag, bodies))
@@ -774,7 +777,10 @@ class StreamProcessor:
                 "stream processor emitter not wired — create tasks via "
                 "Engine.sp_task"
             )
-        self._emitter.add_record(tag, data, len(bodies))
+        if self._held is not None:
+            self._held.append((tag, data, len(bodies)))
+        else:
+            self._emitter.add_record(tag, data, len(bodies))
         # stream-to-stream chaining: FROM STREAM:<name> consumes the
         # named stream's RESULTS (flb_sp_stream.c). Depth-bounded so a
         # cycle of streams (a←b, b←a) terminates instead of recursing
@@ -802,6 +808,20 @@ class StreamProcessor:
         for task in self.tasks:
             if task.matches(tag, stream_name):
                 task.process(events, tag)
+
+    def hold(self) -> None:
+        """Hold the rows the tasks emit until ``release``: the engine
+        wraps ``do`` (host Python only) in its handler of task errors,
+        and the rows' re-entry through the filter chain, which may
+        launch a kernel, stays outside it."""
+        self._held = []
+
+    def release(self) -> None:
+        """Append the held rows in emit order (those emitted before a
+        task raised included) and emit at once again."""
+        held, self._held = self._held or [], None
+        for tag, data, n in held:
+            self._emitter.add_record(tag, data, n)
 
     def tick(self) -> None:
         for task in self.tasks:

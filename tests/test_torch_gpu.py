@@ -31,7 +31,10 @@ against ``shard_merge_plain`` (max and add, int32 and int64, an int32
 add that wraps), and K8 (``sharded_hll_registers`` /
 ``sharded_cms_table``), K9's and K10's mesh halves over
 ``Mesh((cuda:0,) * n)`` against the unsharded kernels, with their shard
-and merge launches counted.
+and merge launches counted. Config 5: K4 on the ``health-check``
+Exclude program (14 states) at [1, 4096, 512] and [1, 37, 512] against
+its plain version, the CPU program and the scan, and a forward message
+through forward → kubernetes → grep on cuda (one K4 launch) against cpu.
 
 Every test here is marked ``gpu`` and skips itself, in the
 ``cuda_device`` fixture, where ``torch.cuda.is_available()`` is false: a
@@ -1470,3 +1473,125 @@ def test_flux_mesh_halves_equal_unsharded(cuda_device, n, F, G, comp, B, L):
         assert torch.equal(got_tb, want_tb)
     counts = tfk.sharded_segment_counts(mesh, args[0], args[1], G)
     assert torch.equal(counts, tfk.segment_counts(args[0], args[1], G))
+
+
+# config 5: forward → kubernetes → grep Exclude log health-check (K4)
+
+K8S_EXCLUDE = "health-check"
+
+
+def k8s_log_rows(B, L, seed):
+    """Staged ``log`` values of k8s container logs: JSON lines, plain
+    text, kubelet probes with ``health-check`` (some at the row's end,
+    some cut by the length) and stack traces past ``L`` (overflow)."""
+    rng = random.Random(seed)
+    vals = []
+    for i in range(B):
+        r = rng.random()
+        if r < 0.5:
+            v = json.dumps({"level": "info", "n": i,
+                            "msg": "m" * rng.randrange(40, 300)})
+        elif r < 0.85:
+            v = f"I0501 controller.go:{i}] synced " + "w" * rng.randrange(200)
+        elif r < 0.95:
+            v = ("x" * rng.randrange(0, L - 12)) + "health-check"
+        else:
+            v = "panic:\n" + "\tat frame\n" * rng.randrange(60, 90)
+        vals.append((v + "\n").encode())
+    staged = assemble(vals, L)
+    b = staged.batch[None].copy()
+    ln = staged.lengths[None].copy()
+    # rows whose length cuts "health-check" short must not match
+    for i in range(3, B, 17):
+        if b"health-check" in vals[i] and 0 < ln[0, i]:
+            ln[0, i] -= 1 + i % 5
+    return b, ln
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4096, 37])
+def test_config5_exclude_k4_equals_plain(cuda_device, B):
+    """K4 on config 5's Exclude program (14 states: "auto" takes it) at
+    [1, 4096, 512] and [1, 37, 512], against its plain version on the
+    card, the CPU program and the scan: one launch, verdicts equal."""
+    dfa = compile_dfa(K8S_EXCLUDE)
+    prog = tg.TorchGrepProgram([dfa], 512, cuda_device)
+    assert prog.decision()["kernel_resolved"] == "assoc"
+    assert prog.max_states == 14
+    batch, lengths = k8s_log_rows(B, 512, seed=B)
+    before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
+    got = prog.match(batch, lengths)
+    assert (tg.grep_assoc.launches - before[0],
+            tg.grep_dfa.launches - before[1]) == (1, 0)
+    b = torch.from_numpy(batch).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    np.testing.assert_array_equal(
+        got, assoc_plain_on_card(prog, b, ln).cpu().numpy())
+    cpu = tg.TorchGrepProgram([dfa], 512, "cpu", kernel="assoc")
+    np.testing.assert_array_equal(got, cpu.match(batch, lengths))
+    scan = tg.TorchGrepProgram([dfa], 512, cuda_device, kernel="scan")
+    np.testing.assert_array_equal(got, scan.match(batch, lengths))
+    want = [ln >= 0 and b"health-check" in bytes(batch[0, i, :ln])
+            for i, ln in enumerate(lengths[0])]
+    assert got[0].tolist() == want
+    assert 0 < got.sum() < B
+
+
+@pytest.mark.gpu
+def test_config5_forward_append_launches_k4_once(cuda_device, tmp_path):
+    """One forward message of 300 records and one of 5 through config
+    5's chain on cuda: one K4 launch (the small append takes the host
+    regex), no scan; the records equal the same messages on the CPU."""
+    import socket
+
+    from fluentbit_tpu_torch.codec.msgpack import EventTime, Unpacker, packb
+
+    tag = ("kube.var.log.containers.web-1_prod_app-"
+           + "ab" * 32 + ".log")
+    (tmp_path / "prod_web-1.meta").write_text(json.dumps(
+        {"metadata": {"uid": "u", "labels": {"a": "b"}},
+         "spec": {"nodeName": "n"}}))
+    batch, lengths = k8s_log_rows(305, 512, seed=5)
+    logs = [bytes(batch[0, i, :max(n, 0)]).decode("utf-8", "replace")
+            for i, n in enumerate(lengths[0])]
+    ents = [[EventTime(1700000000 + i, i), {"log": v, "stream": "stdout"}]
+            for i, v in enumerate(logs)]
+    msgs = [packb([tag, b"".join(packb(e) for e in ents[:300]),
+                   {"chunk": "a"}]),
+            packb([tag, ents[300:], {"chunk": "b"}])]
+    out = {}
+    for device in ("cuda", "cpu"):
+        got = out[device] = []
+        ctx = fluentbit_tpu_torch.create(device=device, flush="50ms",
+                                         grace="1")
+        ffd = ctx.input("forward", port="0", listen="127.0.0.1")
+        ctx.filter("kubernetes", match="kube.*", merge_log="on",
+                   kube_meta_preload_cache_dir=str(tmp_path))
+        ctx.filter("grep", match="kube.*", exclude=f"log {K8S_EXCLUDE}")
+        ctx.output("lib", match="*", callback=lambda d, t, got=got:
+                   got.append(d))
+        ctx.start()
+        before = (tg.grep_assoc.launches, tg.grep_dfa.launches)
+        try:
+            s = socket.create_connection(("127.0.0.1", ctx.bound_port(ffd)))
+            u = Unpacker()
+            for data, ack in zip(msgs, ("a", "b")):
+                s.sendall(data)
+                while True:
+                    reply = next(iter(u), None)
+                    if reply is not None:
+                        break
+                    u.feed(s.recv(4096))
+                assert reply == {"ack": ack}
+            s.close()
+            ctx.flush_now()
+        finally:
+            ctx.stop()
+        launches = (tg.grep_assoc.launches - before[0],
+                    tg.grep_dfa.launches - before[1])
+        assert launches == ((1, 0) if device == "cuda" else (0, 0))
+    assert out["cuda"] == out["cpu"]
+    bodies = [ev.body for d in out["cuda"] for ev in decode_events(d)]
+    assert 0 < len(bodies) < 305
+    assert not any("health-check" in b["log"] for b in bodies)
+    assert all(b["kubernetes"]["pod_id"] == "u" for b in bodies)

@@ -144,6 +144,9 @@ PORT_MODULES = (
     "plugins/filter_rewrite_tag.py", "plugins/in_tail.py",
     "core/record_accessor.py", "regex/__init__.py",  # config 3
     "native.py", "core/chunk_batch.py", "ops/mesh.py",  # the raw path, K5
+    "plugins/net_forward.py", "core/relay.py", "core/upstream.py",
+    "utils/__init__.py", "plugins/filter_kubernetes.py",
+    "config_format/__init__.py",  # config 5 and the config loader
 )
 
 #: what a module that loads or builds the reference's native library

@@ -290,9 +290,15 @@ def test_exact_task_forces_the_decoded_path():
     assert len(out["bench.apache"]) == 320
 
 
-def test_sp_error_fails_the_append():
+def test_sp_error_fails_the_append(caplog):
+    """A task that raises no longer fails the append (the name is kept
+    from when it did): the error is logged as "stream processor failed"
+    and the append's records reach the output, as in the reference."""
     ctx = flb.create(device="cpu", flush="50ms", grace="1")
     ctx.input("lib", tag="t")
+    got = []
+    ctx.output("lib", match="t", callback=lambda d, tag: got.extend(
+        ev.body for ev in tdecode(d)))
     task = ctx.sp_task("SELECT * FROM TAG:'t';")
 
     def boom(events, tag):
@@ -301,10 +307,90 @@ def test_sp_error_fails_the_append():
     task.process = boom
     ctx.start()
     try:
-        with pytest.raises(RuntimeError, match="task failed"):
-            ctx.push(0, json.dumps({"a": 1}))
+        with caplog.at_level("ERROR", logger="flb.engine"):
+            assert ctx.push(0, json.dumps([{"a": 1}, {"a": 2}])) == 2
+        ctx.flush_now()
     finally:
         ctx.stop()
+    assert got == [{"a": 1}, {"a": 2}]
+    failed = [r for r in caplog.records
+              if r.getMessage() == "stream processor failed"]
+    assert failed and "task failed" in failed[0].exc_text
+
+
+def test_sp_rows_reentry_error_still_raises():
+    """The rows a task emits re-enter the filter chain outside the
+    handler of task errors: a filter that raises on them (as a failed
+    kernel launch would) still fails the append."""
+    ctx = flb.create(device="cpu", flush="50ms", grace="1")
+    ctx.input("lib", tag="t")
+    ctx.filter("grep", match="sp.out", regex="a x")
+    ctx.sp_task("CREATE STREAM s WITH (tag='sp.out') AS SELECT a FROM "
+                "TAG:'t';")
+    grep = ctx.engine.filters[0]
+
+    def boom(events, tag, engine):
+        raise RuntimeError("launch failed")
+
+    ctx.start()
+    grep.plugin.filter = boom
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ctx.push(0, json.dumps({"a": 1}))
+        assert ctx.engine.sp._held is None
+    finally:
+        ctx.stop()
+
+
+def _group_by_run(create, decode, key_value, **kw):
+    """One push of a non-hashable ``tag_k`` and a string one through an
+    exact GROUP BY task; returns (push's count, output rows by tag, the
+    logged errors)."""
+    import logging
+
+    ctx = create(flush="50ms", grace="1", **kw)
+    in_ffd = ctx.input("lib", tag="app.x")
+    got = {}
+    ctx.output("lib", match="*", callback=lambda d, tag: got.setdefault(
+        tag, []).extend(ev.body for ev in decode(d)))
+    ctx.sp_task("SELECT tag_k, COUNT(*) FROM TAG:'app.*' GROUP BY tag_k;")
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    handler = Grab(logging.ERROR)
+    logging.getLogger("flb.engine").addHandler(handler)
+    ctx.start()
+    try:
+        n = ctx.push(in_ffd, json.dumps([
+            [1700000000, {"tag_k": key_value, "m": 1}],
+            [1700000001, {"tag_k": "a", "m": 2}]]))
+        ctx.flush_now()
+    finally:
+        ctx.stop()
+        logging.getLogger("flb.engine").removeHandler(handler)
+    errors = [(r.getMessage(), r.exc_info[0].__name__) for r in records]
+    return n, got, errors
+
+
+@pytest.mark.parametrize("key_value", [[1, 2], {"x": 1}],
+                         ids=["list", "map"])
+def test_unhashable_group_key_keeps_the_append_in_both(key_value):
+    """The exact task raises ``TypeError`` on a list- or map-valued
+    GROUP BY key in both packages; both engines log it and keep the
+    append's records, which reach the lib output unchanged."""
+    import fluentbit_tpu as ref
+
+    want = _group_by_run(ref.create, jdecode, key_value)
+    port = _group_by_run(flb.create, tdecode, key_value, device="cpu")
+    assert port == want
+    n, got, errors = port
+    assert n == 2
+    assert got == {"app.x": [{"tag_k": key_value, "m": 1},
+                             {"tag_k": "a", "m": 2}]}
+    assert errors == [("stream processor failed", "TypeError")]
 
 
 def test_window_task_after_start_ticks_and_drains():
