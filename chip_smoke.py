@@ -86,9 +86,11 @@ Phases (any failure exits non-zero):
    endpoint, tumbling 60 s → closed-window rows through the hidden
    emitter → lib output), 64 appends of 4096 records plus one append of
    600 tenants (the unfused route), under an injected clock that steps
-   15 s per append, on ``device="cuda"`` and then ``"cpu"``: rows, states
-   and the ``fluentbit_flux_*`` exposition must be equal between the
-   devices, agree with a check computed here from Python (window folds,
+   15 s per append, on ``device="cuda"`` and then ``"cpu"``, every
+   append through the filter's batch hook on the raw path (the host
+   codec stages the columns, then one ``absorb_batch``; no decline):
+   rows, states and the ``fluentbit_flux_*`` exposition must be equal
+   between the devices, agree with a check computed here from Python (window folds,
    HLL registers, estimates within 3 sigma, top-k within count-min's
    bound), and K10 must have launched once per append of <= 512 groups
    and K6's grouped form once per distinct field on the wide append (the
@@ -107,10 +109,15 @@ Phases (any failure exits non-zero):
 10. pipeline: BASELINE config 3 (tail ``read_from_head`` → rewrite_tag
    with the conf's 8 rules → null, plus lib to capture the records) over
    a 131,072-line syslog corpus made from the seed, on ``device="cuda"``
-   and then ``"cpu"``: every tag's bodies must be equal between the
-   devices and to a Python ``re`` first-match routing of the file's
-   lines, the emit counter must count the rerouted lines, K4 must have
-   launched 3 times per tail append of >= 64 records and the scan never;
+   and then ``"cpu"``, as written: rewrite_tag's batch hook (the host
+   DFA twin) takes every tail append with no decline and no kernel;
+   every tag's bodies must be equal between the devices and to a Python
+   ``re`` first-match routing of the file's lines, the emit counter must
+   count the rerouted lines; then on cuda over 16,384 lines with an
+   exact stream-processor task on the tag (``SELECT COUNT(*)``), which
+   sends the appends down the decoded path: the tags equal to the
+   Python routing, the task's counts to the kept lines, and K4 launched
+   3 times per tail append of >= 64 records and the scan never;
 11. K11 against plain: ``utf8_validate`` against ``utf8_validate_plain``
    and ``utf8_validate_pieces_plain`` on the card, verdict for verdict,
    over config 2's raw lines at the main path's [4096, 512] and at
@@ -131,10 +138,14 @@ Phases (any failure exits non-zero):
    ``bytes.decode("utf-8")``;
 13. pipeline: config 2r, the same filter with parsers.conf's apache2
    parser over a 131,072-line access log, on ``device="cuda"`` and then
-   ``"cpu"``: records equal between the devices and to Python ``re``
-   with the apache2 pattern, ``datetime.strptime`` and the integer
-   casts; K3 (apache2 has > 64 states, so "auto" takes the scan) must
-   have launched once per tail append of >= 64 records and K4 never;
+   ``"cpu"``, as written: the parser's batch hook (the host DFA twin)
+   takes every tail append with no decline and no kernel; records equal
+   between the devices and to Python ``re`` with the apache2 pattern,
+   ``datetime.strptime`` and the integer casts; then on cuda over 16,384
+   lines with an exact ``SELECT COUNT(*)`` task on the tag (the decoded
+   path): records equal to the Python fold, and K3 (apache2 has > 64
+   states, so "auto" takes the scan) launched once per tail append of
+   >= 64 records and K4 never;
    K3 is timed at one tail read, [1, 1024, 512], against plain (both
    halves of its table branch);
 14. the shard merge (``shard_merge``, max and add) against its plain
@@ -159,7 +170,8 @@ Phases (any failure exits non-zero):
    states of (a), (b) and (c) equal; COUNT(*) and AVG equal to (d) and
    to Python folds; ``uniq`` equal to the estimate of registers built
    from scratch and within max(3, 10%) of (d)'s exact count; K10 once
-   per append in (a), 8 times plus 2 merges per append in (b);
+   per append in (a), 8 times plus 2 merges per append in (b); the
+   hidden flux filter's batch hook takes every append in (a)-(c);
 17. pipeline: BASELINE config 5 (forward → kubernetes with Merge_Log On
    and Buffer_Size 0 → grep Exclude ``log health-check`` → null) over
    262,144 records of k8s container logs made from the seed (256 pods
@@ -258,6 +270,9 @@ OUT_OF_ROW = ["a{10}", "WARN", r"x[0-9]+y"]
 # mesh and SQL phases came in; the smoke then ran 559 s on one call)
 SYSLOG_LINES = 131_072
 TAIL_BUCKET = 1024      # staged rows of one 64 KiB tail read (~360 lines)
+# configs 3 and 2r once more on the decoded path (an exact SP task on the
+# tag), at this depth: where their device programs (K4, K3) run
+DECODED_LINES = 16_384
 
 L = 512
 APPENDS = 64     # the main path: 64 appends of 4096 records
@@ -1729,7 +1744,8 @@ def run_flux(np, torch, flb, device: str, appends: list, mesh=None) -> dict:
             "exposition": [ln for ln in text.splitlines()
                            if "fluentbit_flux_" in ln],
             "steps": list(plug.state.step_seconds),
-            "refresh": list(plug.refresh_seconds)}
+            "refresh": list(plug.refresh_seconds),
+            "hook": hook_stats(engine, engine.filters[0])}
 
 
 def hll_registers_python(np, values) -> "np.ndarray":
@@ -1912,6 +1928,9 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
                "shard_merge": 3 * APPENDS},
            "mesh_lines_per_s": n_records / meshed["wall"],
            "exposition_lines": len(gpu["exposition"]),
+           "hook": gpu["hook"], "cpu_hook": cpu["hook"],
+           "mesh_hook": meshed["hook"],
+           # K10 on flux's raw path: the hook's absorb_batch launches it
            "launches": launches,
            "expected_launches": {"flux_absorb": APPENDS, "hll_update": 0,
                                  "hll_update_groups": n_distinct,
@@ -1935,6 +1954,10 @@ def phase_flux(np, torch, tsk, tfk, tmesh, flb, decode_events,
               if not res[k]]
     if mesh_launches != res["mesh_expected_launches"]:
         failed.append("mesh_launches")
+    # every append (the 600-tenant one included) takes the batch hook
+    for h in (res["hook"], res["cpu_hook"], res["mesh_hook"]):
+        if h["taken"] != len(appends) or h["declines"]:
+            failed.append("hook")
     if check["n_failures"]:
         failed.append("independent_check")
     # the wide append (600 groups) takes one grouped K6 per distinct
@@ -2252,9 +2275,12 @@ def run_sql(np, torch, flb, decode_events, device: str, appends: list,
                 snaps.append(state.snapshot())
     finally:
         ctx.stop()  # drains the open window through the pipeline
+    hidden = [f for f in engine.filters
+              if getattr(f, "_flux_sql_hidden", False)]
     return {"rows": [ev.body for d in out for ev in decode_events(d)],
             "wall": wall, "snaps": snaps,
-            "spec_mesh": None if state is None else state.spec.mesh}
+            "spec_mesh": None if state is None else state.spec.mesh,
+            "hook": hook_stats(engine, hidden[0]) if hidden else None}
 
 
 def sql_check(np, tsk, appends: list, flux_rows: list, exact_rows: list
@@ -2376,6 +2402,8 @@ def phase_sql(np, torch, tsk, tfk, tmesh, flb, decode_events,
            "snapshots": len(prints["cuda"]),
            "mesh_spec": runs["cuda_mesh"]["spec_mesh"],
            "launches": launches, "expected_launches": expected, **check,
+           # the hidden flux filter's batch hook (the exact run has none)
+           "hooks": {name: run["hook"] for name, run in runs.items()},
            **{f"{name}_lines_per_s": n_records / run["wall"]
               for name, run in runs.items()}, "card": card}
     log("sql: " + json.dumps(res))
@@ -2386,6 +2414,10 @@ def phase_sql(np, torch, tsk, tfk, tmesh, flb, decode_events,
         failed.append("check")
     if launches != expected:
         failed.append("launches")
+    if res["hooks"]["exact"] is not None or any(
+            h["taken"] != len(appends) or h["declines"]
+            for name, h in res["hooks"].items() if name != "exact"):
+        failed.append("hooks")
     if failed:
         raise SystemExit(f"sql failed {failed}: {res}")
     return res
@@ -2651,11 +2683,38 @@ def phase_assoc_kernels(np, torch, tg, compile_dfa, seed: int) -> list:
     return results
 
 
-def run_config3(flb, device: str, path: str) -> dict:
+def hook_stats(engine, fi) -> dict:
+    """The raw path's batch hook of filter instance ``fi``: the appends it
+    took, the declines counted against it, the p50 of its per-append wall
+    in ms (``FilterInstance.batch_seconds``)."""
+    key = f'fluentbit_filter_batch_declines_total{{name="{fi.display_name}"}} '
+    declines = sum(float(ln[len(key):])
+                   for ln in engine.metrics.to_prometheus().splitlines()
+                   if ln.startswith(key))
+    secs = list(fi.batch_seconds)
+    return {"taken": fi.batch_taken, "declines": declines,
+            "p50_ms": statistics.median(secs) * 1e3 if secs else None}
+
+
+def sp_count_sql(tag: str) -> str:
+    """An exact stream-processor task on ``tag``: the engine's gate then
+    sends the tag's appends down the decoded path, as the reference's
+    does (its ``raw_ok``), so the filters' device programs run."""
+    return f"SELECT COUNT(*) FROM TAG:'{tag}';"
+
+
+def sp_counted(decode_events, chunks: list) -> int:
+    """The records the COUNT(*) task's rows (tag ``sp.results``) count."""
+    return sum(int(ev.body["COUNT(*)"]) for tag, data in chunks
+               if tag == "sp.results" for ev in decode_events(data))
+
+
+def run_config3(flb, device: str, path: str, sql=None) -> dict:
     """Config 3's pipeline over ``path``: tail (read_from_head) →
     rewrite_tag with the conf's eight rules → null, plus lib to capture
-    the records. Waits until the tail's offset reaches the file's size
-    with nothing pending, then flushes and stops."""
+    the records; ``sql`` adds an exact stream-processor task. Waits until
+    the tail's offset reaches the file's size with nothing pending, then
+    flushes and stops."""
     chunks = []
     ctx = flb.create(device=device, flush="50ms", grace="2")
     ctx.input("tail", tag="syslog", path=path, read_from_head="true")
@@ -2665,6 +2724,8 @@ def run_config3(flb, device: str, path: str) -> dict:
     ctx.output("null", match="*")
     ctx.output("lib", match="*",
                callback=lambda data, tag: chunks.append((tag, data)))
+    if sql:
+        ctx.engine.sp_task(sql, allow_flux=False)
     size = os.path.getsize(path)
     tail = ctx.engine.inputs[0].plugin
     t0 = time.perf_counter()
@@ -2684,9 +2745,10 @@ def run_config3(flb, device: str, path: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         ctx.stop()
-    rt = ctx.engine.filters[0].plugin
+    fi = ctx.engine.filters[0]
+    rt = fi.plugin
     return {"chunks": chunks, "wall": wall, "steps": list(rt.step_seconds),
-            "program": rt._program,
+            "program": rt._program, "hook": hook_stats(ctx.engine, fi),
             "emitted": ctx.engine.metrics.to_prometheus()}
 
 
@@ -2699,32 +2761,47 @@ def emit_count(exposition: str) -> int:
 
 def phase_config3(tg, flb, decode_events, seed: int, card: str,
                   assoc_results: list) -> dict:
+    """Config 3 as written on cuda and cpu: rewrite_tag's batch hook takes
+    every tail append (the host DFA twin, no kernel); then on cuda over
+    DECODED_LINES lines with an exact SP task on the tag, the decoded
+    path, where K4 runs 3 launches per append of >= 64 records."""
     import tempfile
 
     data = syslog_corpus(seed, SYSLOG_LINES)
     texts = tail_texts(data)
     want = config3_routing(texts)
     sizes = tail_append_sizes(data)
-    device_appends = sum(n >= 64 for n in sizes)
+    small = syslog_corpus(seed + 1, DECODED_LINES)
+    small_texts = tail_texts(small)
+    small_want = config3_routing(small_texts)
+    device_appends = sum(n >= 64 for n in tail_append_sizes(small))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "syslog_corpus.log")
         with open(path, "wb") as fh:
             fh.write(data)
         tg.grep_assoc.launches = tg.grep_dfa.launches = 0
         gpu = run_config3(flb, "cuda", path)
+        raw_launches = {"grep_assoc": tg.grep_assoc.launches,
+                        "grep_dfa": tg.grep_dfa.launches}
+        cpu = run_config3(flb, "cpu", path)
+        small_path = os.path.join(tmp, "syslog_small.log")
+        with open(small_path, "wb") as fh:
+            fh.write(small)
+        tg.grep_assoc.launches = tg.grep_dfa.launches = 0
+        dec = run_config3(flb, "cuda", small_path, sp_count_sql("syslog"))
         launches = {"grep_assoc": tg.grep_assoc.launches,
                     "grep_dfa": tg.grep_dfa.launches}
-        cpu = run_config3(flb, "cpu", path)
 
     def routed(run) -> dict:
         out: dict = {}
         for tag, chunk in run["chunks"]:
-            out.setdefault(tag, []).extend(ev.body
-                                           for ev in decode_events(chunk))
+            if tag != "sp.results":
+                out.setdefault(tag, []).extend(
+                    ev.body for ev in decode_events(chunk))
         return out
 
     got, ref = routed(gpu), routed(cpu)
-    per_dispatch = launches_per_dispatch(gpu["program"])
+    per_dispatch = launches_per_dispatch(dec["program"])
 
     def p50(run) -> dict:
         steps = run["steps"]
@@ -2736,31 +2813,55 @@ def phase_config3(tg, flb, decode_events, seed: int, card: str,
     main = next(r for r in assoc_results if r["program"] == "config3"
                 and r["shape"][1] == TAIL_BUCKET and r["segment"] == 32)
     res = {"lines": len(texts), "file_bytes": len(data),
-           "appends": len(sizes), "device_appends": device_appends,
-           "filter_device_appends": len(gpu["steps"]),
-           "kernel_resolved": gpu["program"].decision()["kernel_resolved"],
-           "k_groups": gpu["program"].decision()["k_groups"],
+           "appends": len(sizes), "hook": gpu["hook"],
+           "cpu_hook": cpu["hook"],
            "tags": {t: len(v) for t, v in sorted(got.items())},
            "tags_equal_cpu": got == ref,
            "tags_equal_python_re": got == want,
-           "launches": launches,
-           "expected_launches": {
-               "grep_assoc": per_dispatch["grep_assoc"] * device_appends,
-               "grep_dfa": 0},
+           "raw_launches": raw_launches,
+           "raw_device_appends": len(gpu["steps"]) + len(cpu["steps"]),
            "emit_counter": emit_count(gpu["emitted"]),
            "rerouted": sum(len(v) for t, v in want.items() if t != "syslog"),
            "lines_per_s": len(texts) / gpu["wall"],
            "cpu_lines_per_s": len(texts) / cpu["wall"],
-           "p50_ms": p50(gpu), "cpu_p50_ms": p50(cpu),
-           "k4_busy_share": main["ms"] * device_appends / (gpu["wall"] * 1e3),
+           "decoded": {
+               "lines": len(small_texts), "device_appends": device_appends,
+               "filter_device_appends": len(dec["steps"]),
+               "hook_taken": dec["hook"]["taken"],
+               "kernel_resolved":
+                   dec["program"].decision()["kernel_resolved"],
+               "k_groups": dec["program"].decision()["k_groups"],
+               "tags_equal_python_re": routed(dec) == small_want,
+               "sp_counted": sp_counted(decode_events, dec["chunks"]),
+               "sp_expected": len(small_want.get("syslog", [])),
+               "launches": launches,
+               "expected_launches": {
+                   "grep_assoc": per_dispatch["grep_assoc"]
+                   * device_appends, "grep_dfa": 0},
+               "lines_per_s": len(small_texts) / dec["wall"],
+               "p50_ms": p50(dec),
+               # main["ms"]: one append's three launches
+               "k4_busy_share": main["ms"] * device_appends
+               / (dec["wall"] * 1e3)},
            "card": card}
     log("config3: " + json.dumps(res))
     failed = [k for k in ("tags_equal_cpu", "tags_equal_python_re")
               if not res[k]]
     if res["emit_counter"] != res["rerouted"]:
         failed.append("emit_counter")
-    if (launches != res["expected_launches"] or device_appends == 0
-            or res["filter_device_appends"] != device_appends
+    # as written, every append takes the hook: no decline, no kernel
+    for h in (res["hook"], res["cpu_hook"]):
+        if h["taken"] != len(sizes) or h["declines"]:
+            failed.append("hook")
+    if raw_launches != {"grep_assoc": 0, "grep_dfa": 0} \
+            or res["raw_device_appends"]:
+        failed.append("raw_launches")
+    d = res["decoded"]
+    if not d["tags_equal_python_re"] or d["sp_counted"] != d["sp_expected"]:
+        failed.append("decoded_records")
+    if (launches != d["expected_launches"] or device_appends == 0
+            or d["filter_device_appends"] != device_appends
+            or d["hook_taken"]
             or per_dispatch != {"grep_assoc": 3, "grep_dfa": 0}):
         failed.append("launches")
     if failed:
@@ -2952,13 +3053,14 @@ def config2r_fold(texts: list) -> list:
     return out
 
 
-def run_config2(flb, device: str, path: str, parser: str) -> dict:
+def run_config2(flb, device: str, path: str, parser: str,
+                sql=None) -> dict:
     """Config 2's pipeline (``parser`` json) or 2r's (apache2) over
     ``path``: tail (read_from_head) → parser (key_name log, reserve_data)
-    → null, plus lib to capture the records. Waits until the tail's
-    offset reaches the file's size with nothing pending, then flushes
-    and stops."""
-    chunks = []
+    → null, plus lib to capture the records; ``sql`` adds an exact
+    stream-processor task. Waits until the tail's offset reaches the
+    file's size with nothing pending, then flushes and stops."""
+    tagged = []
     ctx = flb.create(device=device, flush="50ms", grace="2")
     ctx.parser(parser, **PARSERS_CONF[parser])
     ctx.input("tail", tag="ndjson", path=path, read_from_head="true",
@@ -2967,7 +3069,9 @@ def run_config2(flb, device: str, path: str, parser: str) -> dict:
                reserve_data="true")
     ctx.output("null", match="*")
     ctx.output("lib", match="*",
-               callback=lambda data, tag: chunks.append(data))
+               callback=lambda data, tag: tagged.append((tag, data)))
+    if sql:
+        ctx.engine.sp_task(sql, allow_flux=False)
     size = os.path.getsize(path)
     tail = ctx.engine.inputs[0].plugin
     t0 = time.perf_counter()
@@ -2985,9 +3089,12 @@ def run_config2(flb, device: str, path: str, parser: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         ctx.stop()
-    f = ctx.engine.filters[0].plugin
-    return {"chunks": chunks, "wall": wall, "steps": list(f.step_seconds),
-            "program": f._prefilter}
+    fi = ctx.engine.filters[0]
+    return {"chunks": [d for t, d in tagged if t != "sp.results"],
+            "tagged": tagged, "wall": wall,
+            "steps": list(fi.plugin.step_seconds),
+            "program": fi.plugin._prefilter,
+            "hook": hook_stats(ctx.engine, fi)}
 
 
 def parsed_records(decode_events, chunks: list) -> list:
@@ -3247,6 +3354,7 @@ def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
            "lines_per_s": len(texts) / gpu["wall"],
            "cpu_lines_per_s": len(texts) / cpu["wall"],
            "device_appends": len(gpu["steps"]),
+           "hook": gpu["hook"],
            "utf8": {"launches": launches, "expected_launches":
                     -(-len(raw) // UTF8_B),
                     "mismatches_vs_plain": mism,
@@ -3262,7 +3370,8 @@ def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
     if (u["launches"] != u["expected_launches"] or u["mismatches_vs_plain"]
             or not u["equals_strict_decode"] or not u["invalid_lines"]):
         failed.append("utf8")
-    if res["device_appends"] or not res["parsed_times"]:
+    if (res["device_appends"] or not res["parsed_times"]
+            or res["hook"]["taken"] or res["hook"]["declines"]):
         failed.append("shape")
     if failed:
         raise SystemExit(f"config 2 failed {failed}: {res}")
@@ -3271,27 +3380,41 @@ def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
 
 def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
                    card: str) -> dict:
-    """Config 2r on cuda and cpu over an Apache access log, against the
-    Python ``re`` fold; K3 must launch once per tail append of >= 64
-    records (apache2 has > 64 states: "auto" takes the scan), K4 never.
-    K3 is then timed at one tail read, [1, 1024, 512], against plain."""
+    """Config 2r as written on cuda and cpu over an Apache access log,
+    against the Python ``re`` fold: the parser's batch hook takes every
+    tail append (the host DFA twin, no kernel). Then on cuda over
+    DECODED_LINES lines with an exact SP task on the tag, the decoded
+    path: K3 must launch once per tail append of >= 64 records (apache2
+    has > 64 states: "auto" takes the scan), K4 never. K3 is then timed
+    at one tail read, [1, 1024, 512], against plain."""
     import tempfile
 
     data = config2r_corpus(seed, CONFIG2R_LINES)
     texts = tail_texts(data)
     want = config2r_fold(texts)
     sizes = tail_append_sizes(data)
-    device_appends = sum(n >= 64 for n in sizes)
+    small = config2r_corpus(seed + 1, DECODED_LINES)
+    small_texts = tail_texts(small)
+    device_appends = sum(n >= 64 for n in tail_append_sizes(small))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "access.log")
         with open(path, "wb") as fh:
             fh.write(data)
         tg.grep_dfa.launches = tg.grep_assoc.launches = 0
         gpu = run_config2(flb, "cuda", path, "apache2")
+        raw_launches = {"grep_dfa": tg.grep_dfa.launches,
+                        "grep_assoc": tg.grep_assoc.launches}
+        cpu = run_config2(flb, "cpu", path, "apache2")
+        small_path = os.path.join(tmp, "access_small.log")
+        with open(small_path, "wb") as fh:
+            fh.write(small)
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        dec = run_config2(flb, "cuda", small_path, "apache2",
+                          sp_count_sql("ndjson"))
         launches = {"grep_dfa": tg.grep_dfa.launches,
                     "grep_assoc": tg.grep_assoc.launches}
-        cpu = run_config2(flb, "cpu", path, "apache2")
     got, ref = (parsed_records(decode_events, r["chunks"]) for r in (gpu, cpu))
+    dec_got = parsed_records(decode_events, dec["chunks"])
     prog = gpu["program"]
     rows = [t.encode() for t in texts[:TAIL_BUCKET]]
     staged = assemble(rows, L)
@@ -3304,8 +3427,8 @@ def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
     k3_bound, k3_by = bound_ms(torch, prog, b, ln,
                                table_bytes_read(torch, tg, prog, b, ln))
     res = {"lines": len(texts), "file_bytes": len(data),
-           "appends": len(sizes), "device_appends": device_appends,
-           "filter_device_appends": len(gpu["steps"]),
+           "appends": len(sizes), "hook": gpu["hook"],
+           "cpu_hook": cpu["hook"],
            "kernel_resolved": prog.decision()["kernel_resolved"],
            "max_states": prog.decision()["max_states"],
            "records_equal_cpu": got == ref,
@@ -3313,13 +3436,22 @@ def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
            "parsed": sum(not body.startswith('{"log": ')
                          for _, body in got),
            "parsed_times": sum(ts is not None for ts, _ in got),
-           "launches": launches,
-           "expected_launches": {"grep_dfa": device_appends,
-                                 "grep_assoc": 0},
+           "raw_launches": raw_launches,
+           "raw_device_appends": len(gpu["steps"]) + len(cpu["steps"]),
            "lines_per_s": len(texts) / gpu["wall"],
            "cpu_lines_per_s": len(texts) / cpu["wall"],
-           "p50_ms": step_p50(gpu["steps"]),
-           "cpu_p50_ms": step_p50(cpu["steps"]),
+           "decoded": {
+               "lines": len(small_texts), "device_appends": device_appends,
+               "filter_device_appends": len(dec["steps"]),
+               "hook_taken": dec["hook"]["taken"],
+               "records_equal_python_re":
+                   dec_got == config2r_fold(small_texts),
+               "sp_counted": sp_counted(decode_events, dec["tagged"]),
+               "launches": launches,
+               "expected_launches": {"grep_dfa": device_appends,
+                                     "grep_assoc": 0},
+               "lines_per_s": len(small_texts) / dec["wall"],
+               "p50_ms": step_p50(dec["steps"])},
            "k3": {"shape": [1, TAIL_BUCKET, L],
                   "mismatches": int((k3 != plain).sum()),
                   "max_abs_err": int((k3.int() - plain.int()).abs().max()),
@@ -3329,14 +3461,25 @@ def phase_config2r(np, torch, tg, assemble, flb, decode_events, seed: int,
                   "bound_ms": k3_bound, "bound_by": k3_by,
                   **scan_global(torch, tg, prog, b, ln, plain, 50)},
            "card": card}
-    res["k3_busy_share"] = (res["k3"]["ms"] * device_appends
-                            / (gpu["wall"] * 1e3))
+    res["decoded"]["k3_busy_share"] = (res["k3"]["ms"] * device_appends
+                                       / (dec["wall"] * 1e3))
     log("config2r: " + json.dumps(res))
     failed = [k for k in ("records_equal_cpu", "records_equal_python_re")
               if not res[k]]
-    if (launches != res["expected_launches"] or device_appends == 0
-            or res["filter_device_appends"] != device_appends
-            or res["kernel_resolved"] != "scan"):
+    # as written, every append takes the hook: no decline, no kernel
+    for h in (res["hook"], res["cpu_hook"]):
+        if h["taken"] != len(sizes) or h["declines"]:
+            failed.append("hook")
+    if raw_launches != {"grep_dfa": 0, "grep_assoc": 0} \
+            or res["raw_device_appends"]:
+        failed.append("raw_launches")
+    d = res["decoded"]
+    if (not d["records_equal_python_re"]
+            or d["sp_counted"] != len(small_texts)):
+        failed.append("decoded_records")
+    if (launches != d["expected_launches"] or device_appends == 0
+            or d["filter_device_appends"] != device_appends
+            or d["hook_taken"] or res["kernel_resolved"] != "scan"):
         failed.append("launches")
     if (res["k3"]["mismatches"] or res["k3"]["global_mismatches"]
             or not res["parsed_times"]):
@@ -3894,7 +4037,10 @@ def main() -> int:
                   "fluentbit_tpu/ops/grep.py:343"],
         "launches": pipeline["regex"]["launches"]["grep_dfa"],
         "launches_raw_chunks": raw_chunks["regex"]["launches"]["grep_dfa"],
-        "launches_config2r": config2r["launches"]["grep_dfa"],
+        # config 2r's decoded run (an exact SP task on the tag); as
+        # written, the parser's batch hook takes it with no kernel
+        "launches_config2r": config2r["decoded"]["launches"]["grep_dfa"],
+        "launches_config2r_raw": config2r["raw_launches"]["grep_dfa"],
         "config2r_k3": config2r["k3"],
         "config1_rows": mesh["main_rows"][0],
         "global_ms": main_shape["global_ms"],
@@ -3979,7 +4125,10 @@ def main() -> int:
         "name": "grep_assoc", "route": "cuda",
         "source": "fluentbit_tpu_torch/csrc/grep_assoc.cu",
         "replaces": "fluentbit_tpu/ops/grep.py:413",
-        "launches": config3["launches"]["grep_assoc"],
+        # config 3's decoded run (an exact SP task on the tag); as
+        # written, rewrite_tag's batch hook takes it with no kernel
+        "launches": config3["decoded"]["launches"]["grep_assoc"],
+        "launches_config3_raw": config3["raw_launches"]["grep_assoc"],
         "launches_config1_exclude": pipeline["regex+exclude"]["launches"][
             "grep_assoc"],
         "config1_exclude_rows": mesh["main_rows"][1],

@@ -14,9 +14,13 @@ at stop. The engine's ``metrics`` registry holds the flux families, and
 (flux skips its own emitter's rows by it). The stream processor
 (``sp_task``) runs on each append's filtered events, after the filter
 chain; a sketch-eligible query reads a hidden flux filter's state
-instead. Storage, qos, guard, failpoints, the admin HTTP server,
-multiline, retries, the raw path's batch hooks (``process_batch``) and
-its per-input parallel lock wait for later slices.
+instead. The raw path runs each filter's batch hook (``process_batch``)
+or raw filter (``filter_raw``); a chain of ``thread_safe_raw`` filters
+runs under the input's own lock, so inputs append in parallel. The
+input and filter counter families (``fluentbit_input_*``,
+``fluentbit_filter_*``) count on both paths. Storage, qos, guard,
+failpoints, the admin HTTP server, multiline, retries and the output
+counters wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
@@ -55,6 +59,27 @@ from .plugin import (
 log = logging.getLogger("flb.engine")
 
 
+class _RawTail:
+    """What ``_ingest_raw`` hands back when a filter declines after a
+    ``stateful_batch`` hook has committed its effects (reference
+    ``_RawTail``, fluentbit_tpu/core/engine.py:75): the remaining
+    filters finish on the decoded records of the current bytes
+    (``_finish_raw_tail``), with no raw-path lock held, since the tail
+    takes the engine's lock and the order is Engine lock, then input
+    lock."""
+
+    __slots__ = ("tag", "data", "remaining", "n_records", "deltas",
+                 "in_bytes")
+
+    def __init__(self, tag, data, remaining, n_records, deltas, in_bytes):
+        self.tag = tag
+        self.data = data
+        self.remaining = remaining  # the declining filter onward
+        self.n_records = n_records
+        self.deltas = deltas
+        self.in_bytes = in_bytes
+
+
 class Engine:
     """The pipeline runtime for one configuration context."""
 
@@ -67,6 +92,7 @@ class Engine:
         self.filters: List[FilterInstance] = []
         self.outputs: List[OutputInstance] = []
         self.metrics = MetricsRegistry()
+        self._init_metrics()
         self.parsers: Dict[str, Any] = {}  # named parsers (flb_parser registry)
         self._ingest_src: Optional[InputInstance] = None  # under the lock
         self.loop: Optional[asyncio.AbstractEventLoop] = None
@@ -80,6 +106,30 @@ class Engine:
         self._start_error: Optional[BaseException] = None
         self._pending_flushes: set = set()
         self.sp = None  # the stream processor, made by the first sp_task
+
+    def _init_metrics(self) -> None:
+        """The input and filter families of the reference's
+        ``_init_metrics`` (fluentbit_tpu/core/engine.py:185-205)."""
+        m = self.metrics
+        self.m_in_records = m.counter("fluentbit", "input", "records_total",
+                                      "Input records", ("name",))
+        self.m_in_bytes = m.counter("fluentbit", "input", "bytes_total",
+                                    "Input bytes", ("name",))
+        self.m_filter_add = m.counter(
+            "fluentbit", "filter", "add_records_total",
+            "Records added by filter", ("name",))
+        self.m_filter_drop = m.counter(
+            "fluentbit", "filter", "drop_records_total",
+            "Records dropped by filter", ("name",))
+        self.m_filter_emit = m.counter(
+            "fluentbit", "filter", "emit_records_total",
+            "Records re-emitted by filter", ("name",))
+        # a decline is invisible in the output by contract: this counter
+        # shows which appends left the raw path
+        self.m_filter_batch_decline = m.counter(
+            "fluentbit", "filter", "batch_declines_total",
+            "Batched fast-path declines to the per-record path",
+            ("name",))
 
     # ------------------------------------------------------------------
     # configuration
@@ -344,94 +394,232 @@ class Engine:
         (src/flb_input_chunk.c:3078) and write the survivors into the
         input's chunk pool. Returns the records written.
 
-        When every filter whose route matches the tag ``can_filter_raw``
-        and no exact stream-processor task matches it (the reference's
-        ``raw_ok`` gate, fluentbit_tpu/core/engine.py:1069-1122, with no
+        When every filter whose route matches the tag has a raw hook
+        (``can_filter_raw()`` or ``can_process_batch()``) and no exact
+        stream-processor task matches it (the reference's ``raw_ok``
+        gate, fluentbit_tpu/core/engine.py:1080-1089, with no
         processors, conditional routing or trace in the port), the chain
-        runs on the raw bytes. A filter that declines (returns None)
-        sends the append down the decoded path: decode, filter chain, the
-        stream processor on the kept events, re-encode of modified
-        events. A flux-backed SQL task does not force the decoded path:
-        its hidden flux filter absorbs inside the chain.
+        runs on the raw bytes (``_ingest_raw``): under the input's own
+        lock when every filter is ``thread_safe_raw`` and none
+        ``stateful_batch``, else under the engine's. A filter that
+        declines sends the append down the decoded path: decode, filter
+        chain, the stream processor on the kept events, re-encode of
+        modified events; after a committed stateful hook only the
+        remaining filters run there. A flux-backed SQL task does not
+        force the decoded path: its hidden flux filter absorbs inside
+        the chain.
 
-        A filter that raises fails the append: no path has a silent
-        pass-through (the reference package logs and continues). A
-        stream-processor task that raises is logged and the append's
-        records are kept, as in the reference (an SQL task's error is
-        host Python, never a device failure)."""
+        A filter or hook that raises fails the append: no path has a
+        silent pass-through (the reference package logs, and declines or
+        continues). A stream-processor task that raises is logged and the
+        append's records are kept, as in the reference (an SQL task's
+        error is host Python, never a device failure)."""
         tag = tag or ins.tag or ins.plugin.name
         matching = [f for f in self.filters if f.route.matches(tag)]
         sp = self.sp
-        sp_on = sp is not None and ins is not sp.emitter_instance
-        sp_active = sp_on and any(t.matches(tag) and t.flux is None
-                                  for t in sp.tasks)
-        with self._ingest_lock:
-            # saved and restored: an emitter re-enters this method from
-            # inside the chain, and the outer chain's remaining filters
-            # must see the outer append's source again
-            prev_src, self._ingest_src = self._ingest_src, ins
-            try:
-                if not sp_active and all(f.plugin.can_filter_raw()
-                                         for f in matching):
+        sp_active = (sp is not None and ins is not sp.emitter_instance
+                     and any(t.matches(tag) and t.flux is None
+                             for t in sp.tasks))
+        if not sp_active and all(f.plugin.can_filter_raw()
+                                 or f.plugin.can_process_batch()
+                                 for f in matching):
+            parallel = all(f.plugin.thread_safe_raw
+                           and not f.plugin.stateful_batch
+                           for f in matching)
+            if parallel:
+                with ins.ingest_lock:
                     got = self._ingest_raw(ins, tag, data, matching,
                                            n_records)
-                    if got is not None:
-                        return got
-                events = self._run_filters(decode_events(data), tag)
+            else:
+                with self._ingest_lock:
+                    # saved and restored: an emitter re-enters this
+                    # method from inside the chain
+                    prev_src, self._ingest_src = self._ingest_src, ins
+                    try:
+                        got = self._ingest_raw(ins, tag, data, matching,
+                                               n_records)
+                    finally:
+                        self._ingest_src = prev_src
+            if isinstance(got, _RawTail):
+                # a decline after committed effects: finish outside the
+                # raw path's lock scope
+                got = self._finish_raw_tail(ins, got)
+            if got is not None:
+                return got
+        with self._ingest_lock:
+            return self._log_append_decoded(ins, tag, data, n_records)
+
+    def _log_append_decoded(self, ins: InputInstance, tag: str, data: bytes,
+                            n_records: Optional[int]) -> int:
+        """The decoded path of ``input_log_append`` (under the engine's
+        lock): decode, count the input, filter chain, stream processor,
+        pool append."""
+        sp = self.sp
+        sp_on = sp is not None and ins is not sp.emitter_instance
+        # saved and restored: an emitter re-enters input_log_append from
+        # inside the chain, and the outer chain's remaining filters must
+        # see the outer append's source again
+        prev_src, self._ingest_src = self._ingest_src, ins
+        try:
+            events = decode_events(data)
+            self.m_in_records.inc(
+                len(events) if n_records is None else n_records,
+                (ins.display_name,))
+            self.m_in_bytes.inc(len(data), (ins.display_name,))
+            events = self._run_filters(events, tag)
+        finally:
+            self._ingest_src = prev_src
+        if not events:
+            return 0
+        if sp_on and sp.tasks:
+            # flb_sp_do on the filtered records, never on the SP's own
+            # emitted rows (a task whose pattern matches its output tag
+            # must not feed itself). A task that raises is logged and the
+            # append's records are kept, as in the reference; ``do`` runs
+            # host Python only, and the rows it emitted re-enter the
+            # chain after the handler, so a kernel's error there still
+            # raises
+            sp.hold()
+            try:
+                sp.do(events, tag)
+            except Exception:
+                log.exception("stream processor failed")
             finally:
-                self._ingest_src = prev_src
-            if not events:
-                return 0
-            if sp_on and sp.tasks:
-                # flb_sp_do on the filtered records, never on the SP's
-                # own emitted rows (a task whose pattern matches its
-                # output tag must not feed itself). A task that raises
-                # is logged and the append's records are kept, as in the
-                # reference; ``do`` runs host Python only, and the rows
-                # it emitted re-enter the chain after the handler, so a
-                # kernel's error there still raises
-                sp.hold()
-                try:
-                    sp.do(events, tag)
-                except Exception:
-                    log.exception("stream processor failed")
-                finally:
-                    sp.release()
-            payload = b"".join(
-                ev.raw if ev.raw is not None else reencode_event(ev)
-                for ev in events)
+                sp.release()
+        payload = b"".join(
+            ev.raw if ev.raw is not None else reencode_event(ev)
+            for ev in events)
+        with ins.ingest_lock:
             ins.pool.append(tag, payload, len(events))
-            return len(events)
+        return len(events)
 
     def _ingest_raw(self, ins: InputInstance, tag: str, data: bytes,
                     matching: List[FilterInstance],
-                    n_records: Optional[int]) -> Optional[int]:
-        """The raw chain (the reference's ``_ingest_raw``, :1312): each
-        filter's ``filter_raw`` takes the bytes the previous one kept,
-        the record count found by one is the next one's hint, and the
-        survivors go to the pool as they are. Returns the records
-        written, or None when a filter declines or the bytes cannot be
-        counted: grep filters commit nothing, so the decoded path then
-        re-runs the whole chain from the input bytes."""
-        chunk = RawChunk(data, tag, n_records, src=ins, engine=self)
-        for f in matching:
-            got = f.plugin.filter_raw(chunk.data, tag, self,
-                                      n_records=chunk.n)
+                    n_records: Optional[int]):
+        """The raw chain (the reference's ``_ingest_raw``, :1312-1405):
+        per filter, ``process_batch`` first, then ``filter_raw`` if the
+        hook declined; the bytes one filter keeps and the record count
+        it finds are the next one's input. Returns the records written;
+        None when a filter declines before any ``stateful_batch`` hook
+        ran, or the bytes cannot be counted (the decoded path re-runs
+        the whole chain); or a ``_RawTail`` when one declines after such
+        a hook. ``committed`` is set before a stateful hook is called:
+        its effects are out once it has run."""
+        in_bytes = len(data)
+        n = n_records
+        chunk = RawChunk(data, tag, n, src=ins, engine=self)
+        deltas: list = []  # (filter, records in, records out)
+        committed = False
+        for fi, f in enumerate(matching):
+            plugin = f.plugin
+            prev = data
+            got = None
+            if plugin.can_process_batch():
+                if chunk.data is not data:
+                    chunk.replace(data, n)
+                else:
+                    chunk.n = n
+                if plugin.stateful_batch:
+                    committed = True
+                t0 = time.perf_counter()
+                got = plugin.process_batch(chunk)
+                if got is not None:
+                    f.note_batch(time.perf_counter() - t0)
+            if got is None and plugin.can_filter_raw():
+                got = plugin.filter_raw(data, tag, self, n_records=n)
             if got is None:
-                return None
-            n_kept, out, _n_in = got
-            chunk.replace(out, n_kept)
-            if n_kept == 0:
-                return 0
-        n = chunk.n
+                self.m_filter_batch_decline.inc(1, (f.display_name,))
+                if not committed:
+                    return None  # the decoded path re-runs the chain
+                return _RawTail(tag, data, matching[fi:], n_records,
+                                deltas, in_bytes)
+            if len(got) == 3:
+                n2, data, n_in = got
+                if n is None:
+                    n = n_in
+            else:
+                n2, data = got
+                if n is None:  # the hook did not count: count its input
+                    n = fast_count_records(prev)
+                    if n is None:
+                        if not committed:
+                            return None
+                        # the input count cannot be found and a decoded
+                        # re-run would repeat committed effects: skip
+                        # this filter's add/drop delta
+                        log.warning(
+                            "filter %s output uncountable after a "
+                            "committed batch stage; its filter metrics "
+                            "delta is skipped", f.display_name)
+                        n = n2
+            deltas.append((f.display_name, n, n2))
+            n = n2
+            if n == 0:
+                break
         if n is None:  # no filter matched: count the records natively
-            n = fast_count_records(chunk.data)
+            n = fast_count_records(data)
             if n is None:
                 return None
+        return self._finish_raw_append(ins, tag, data, n, n_records,
+                                       deltas, in_bytes)
+
+    def _finish_raw_append(self, ins: InputInstance, tag: str, data, n: int,
+                           n_records: Optional[int], deltas: list,
+                           in_bytes: int) -> int:
+        """The raw path's commit (reference :1421-1447): the filters'
+        add/drop deltas, the input's counts, the pool append."""
+        if n_records is None:
+            n_records = deltas[0][1] if deltas else n
+        for name, before, after in deltas:
+            if after < before:
+                self.m_filter_drop.inc(before - after, (name,))
+            elif after > before:
+                self.m_filter_add.inc(after - before, (name,))
+        self.m_in_records.inc(n_records, (ins.display_name,))
+        self.m_in_bytes.inc(in_bytes, (ins.display_name,))
         if n == 0:
             return 0
-        ins.pool.append(tag, chunk.as_bytes(), n)
+        if not isinstance(data, bytes):
+            data = bytes(data)
+        with ins.ingest_lock:  # re-entered on the parallel path
+            ins.pool.append(tag, data, n)
         return n
+
+    def _finish_raw_tail(self, ins: InputInstance, cont: _RawTail) -> int:
+        """Finish a ``_RawTail`` (reference :1450): the remaining filters
+        on the decoded records, then the raw path's commit. Called with
+        no raw-path lock held."""
+        n, data, n_in = self._raw_tail_decoded(cont.data, cont.tag,
+                                               cont.remaining, ins)
+        n_records = cont.n_records
+        if n_records is None and not cont.deltas:
+            # the first filter declined before any count was found: the
+            # tail's decode is the append's input count
+            n_records = n_in
+        # the tail's own add/drop counts were made by _run_filters
+        return self._finish_raw_append(ins, cont.tag, data, n, n_records,
+                                       cont.deltas, cont.in_bytes)
+
+    def _raw_tail_decoded(self, data, tag: str,
+                          remaining: List[FilterInstance],
+                          ins: InputInstance) -> tuple:
+        """The decoded path's filter code over the remaining filters only
+        (reference :1479), with ``_ingest_src`` at the appending input so
+        the own-emitter guards fire as on the decoded path. Returns
+        ``(n_out, data_out, n_in)``; bytes that do not decode raise, as
+        they do on the decoded path (the reference appends them as
+        they are)."""
+        events = decode_events(bytes(data))
+        n_in = len(events)
+        with self._ingest_lock:
+            prev_src, self._ingest_src = self._ingest_src, ins
+            try:
+                events = self._run_filters(events, tag, filters=remaining)
+            finally:
+                self._ingest_src = prev_src
+        out = b"".join(ev.raw if ev.raw is not None else reencode_event(ev)
+                       for ev in events)
+        return len(events), out, n_in
 
     def input_event_append(self, ins: InputInstance, tag: Optional[str],
                            data: bytes, event_type: str,
@@ -441,19 +629,34 @@ class Engine:
         written."""
         tag = tag or ins.tag or ins.plugin.name
         with self._ingest_lock:
-            ins.pool.append(tag, data, n_records, event_type)
+            with ins.ingest_lock:
+                self.m_in_records.inc(n_records, (ins.display_name,))
+                self.m_in_bytes.inc(len(data), (ins.display_name,))
+                ins.pool.append(tag, data, n_records, event_type)
         return n_records
 
-    def _run_filters(self, events: List[LogEvent], tag: str) -> List[LogEvent]:
-        """flb_filter_do equivalent (src/flb_filter.c:119-330)."""
-        for f in self.filters:
+    def _run_filters(self, events: List[LogEvent], tag: str,
+                     filters: Optional[List[FilterInstance]] = None
+                     ) -> List[LogEvent]:
+        """flb_filter_do equivalent (src/flb_filter.c:119-330), counting
+        each filter's added and dropped records (reference :1578-1617).
+        ``filters`` restricts the pass to a sub-chain (the raw path's
+        decoded tail)."""
+        for f in (self.filters if filters is None else filters):
             if not events:
                 break
             if not f.route.matches(tag):
                 continue
+            before = len(events)
             result, new_events = f.plugin.filter(events, tag, self)
             if result == FilterResult.MODIFIED:
                 events = new_events if new_events is not None else []
+                after = len(events)
+                if after > before:
+                    self.m_filter_add.inc(after - before, (f.display_name,))
+                elif after < before:
+                    self.m_filter_drop.inc(before - after,
+                                           (f.display_name,))
         return events
 
     # ------------------------------------------------------------------
@@ -465,8 +668,11 @@ class Engine:
         While the engine runs, only its loop thread calls this (the timer,
         the stop drain, ``flush_now``), so chunks reach each output in
         the order they were drained."""
+        chunks: List[Chunk] = []
         with self._ingest_lock:
-            chunks = [chunk for ins in self.inputs for chunk in ins.pool.drain()]
+            for ins in self.inputs:
+                with ins.ingest_lock:  # parallel raw appends
+                    chunks.extend(ins.pool.drain())
         for chunk in chunks:
             for out in self.outputs:
                 if (out.route.matches(chunk.tag)

@@ -13,7 +13,9 @@ flb_filter.c.
 
 from __future__ import annotations
 
+import collections
 import enum
+import threading
 from typing import Any, Dict, List, Optional, Type
 
 from .config import ConfigMapEntry, Properties, apply_config_map
@@ -72,17 +74,39 @@ class FilterPlugin(Plugin):
     events')`` over the decoded events of one append. Untouched records
     keep their raw spans, so the chunk writer re-emits them verbatim.
 
-    A filter that can work on the raw chunk bytes says so with
-    ``can_filter_raw()`` and implements ``filter_raw(data, tag, engine,
-    n_records) -> (n_kept, data', n_records) | None`` (None declines to
-    the decoded path). ``can_process_batch()`` names the reference's
-    stateful batch hook, which no port filter has yet."""
+    The raw chunk path takes a filter that has either of two hooks (the
+    engine asks ``can_filter_raw() or can_process_batch()`` per append):
+
+    - ``process_batch(chunk)`` over a :class:`~.chunk_batch.RawChunk`
+      (reference ``FilterPlugin.process_batch``): returns
+      ``(n_out, data')``, ``(n_out, data', n_in)`` when the hook found
+      the input's record count, or None to decline;
+    - ``filter_raw(data, tag, engine, n_records) -> (n_kept, data',
+      n_records) | None`` (grep's staged device match).
+
+    The engine calls ``process_batch`` first, then ``filter_raw`` if the
+    batch hook declined. A decline sends the append to the decoded path:
+    the whole chain re-runs when no ``stateful_batch`` hook has run yet,
+    else the remaining filters finish on the decoded records. A hook that
+    raises fails the append.
+
+    ``thread_safe_raw``: the hook keeps no state across appends, so a
+    chain of such filters (none ``stateful_batch``) runs under the
+    input's own lock and inputs append in parallel. ``stateful_batch``:
+    the hook commits side effects (emits, counters, sketch state), so a
+    decline after it must not re-run it."""
+
+    thread_safe_raw: bool = False
+    stateful_batch: bool = False
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         return (FilterResult.NOTOUCH, events)
 
     def can_process_batch(self) -> bool:
         return False
+
+    def process_batch(self, chunk) -> Optional[tuple]:
+        return None
 
     def can_filter_raw(self) -> bool:
         return False
@@ -130,6 +154,13 @@ class InputInstance(Instance):
         self.pool = ChunkPool()
         self.tag: Optional[str] = None
         self.collector_task = None
+        # serialises this input's pool: every append and drain of its
+        # chunks holds it, so a raw chain of thread_safe_raw filters runs
+        # without the engine's lock (reference: per-input chunk maps,
+        # src/flb_input_log.c:1524). Reentrant: the engine-lock paths
+        # take it around their pool touches. Order: Engine lock, then
+        # this one.
+        self.ingest_lock = threading.RLock()
 
     def configure(self) -> None:
         super().configure()
@@ -140,6 +171,17 @@ class InputInstance(Instance):
 class FilterInstance(Instance):
     def __init__(self, plugin: FilterPlugin):
         super().__init__(plugin)
+        #: appends the raw path's batch hook took, and the wall seconds of
+        #: the most recent ones (``Engine._ingest_raw``)
+        self.batch_taken = 0
+        self.batch_seconds: collections.deque = collections.deque(
+            maxlen=4096)
+        self._batch_lock = threading.Lock()  # parallel raw appends
+
+    def note_batch(self, seconds: float) -> None:
+        with self._batch_lock:
+            self.batch_taken += 1
+            self.batch_seconds.append(seconds)
 
 
 class OutputInstance(Instance):

@@ -114,6 +114,13 @@ class Template:
         if pos < len(text):
             self._parts.append(("lit", text[pos:]))
 
+    @property
+    def static_for_tag(self) -> bool:
+        """True when the rendering depends on the tag alone (no record
+        fields, no regex captures): rewrite_tag's batch hook renders such
+        a template once per rule and chunk."""
+        return all(k in ("lit", "tag", "tagpart") for k, _ in self._parts)
+
     def render(
         self,
         record: Optional[dict] = None,

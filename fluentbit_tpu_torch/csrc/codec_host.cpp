@@ -11,11 +11,17 @@
 //   fbtpu_stage_field_mt  (:787)  the same, the extraction split over a
 //                                 persistent worker pool
 //   fbtpu_compact         (:999)  copy the kept records' byte spans
+//   fbtpu_grep_match      (:846)  the host DFA twin: one walk finds every
+//                                 rule key's value per record, then each
+//                                 rule's DFA runs over the values
+//                                 (fbtpu_grep_match_v2 with its
+//                                 dfa_run_block, :41, at one byte a step)
+//   fbtpu_stage_field_f64 (:506)  stage one top-level numeric field of
+//                                 each record as f64 + its kind
 //
 // with the msgpack skip and container/string header readers they call.
-// The reference's host DFA twins (grep_match, grep_filter) and sketch
-// helpers are not here: the port matches on its device (or with the
-// kernels' plain torch versions on the CPU).
+// The reference's fused grep walk (grep_filter, its k-stepped and accel
+// tables) and its sketch helpers are not here.
 //
 // Built with g++ -O3 -fPIC -shared -std=c++17 -pthread at first use
 // (ops/cuda_build.py) and bound with ctypes. Every function returns -1 on
@@ -29,6 +35,7 @@
 #include <cstring>
 #include <mutex>
 #include <thread>
+#include <vector>
 
 namespace {
 
@@ -495,6 +502,324 @@ long long fbtpu_stage_field_mt(const uint8_t *buf, long long buflen,
                offsets, n, max_len, slice};
     g_pool.run(stage_slice_adapter, &j, (int)((n + slice - 1) / slice));
     return n;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// The host DFA twin (the reference's fbtpu_grep_match_v2 and
+// dfa_run_block): the verdicts the raw path's batch hooks of rewrite_tag,
+// parser and log_to_metrics build on the host, with or without a device.
+// ---------------------------------------------------------------------
+
+namespace {
+
+// rows walked together: independent state chains hide the dependent-load
+// latency of a scalar table walk
+const int kDfaLanes = 8;
+
+// Run one DFA over up to kDfaLanes values. DEAD (0) and ACC (1) are
+// absorbing, and so is the EOL class at DEAD/ACC, so a row shorter than
+// the block's longest spins on EOL. A missing value (nullptr) starts at
+// DEAD and never matches.
+void dfa_run_block(const int16_t *trans, const int32_t *cmap, int32_t C,
+                   int32_t start, const uint8_t *const *vals,
+                   const uint32_t *lens, int nrows, uint8_t *out) {
+    int32_t eol = cmap[256];
+    int32_t s[kDfaLanes];
+    const uint8_t *v[kDfaLanes];
+    uint32_t l[kDfaLanes], maxlen = 0;
+    for (int j = 0; j < kDfaLanes; j++) {
+        if (j < nrows && vals[j] != nullptr) {
+            v[j] = vals[j];
+            l[j] = lens[j];
+            s[j] = start;
+            if (l[j] > maxlen) maxlen = l[j];
+        } else {
+            v[j] = nullptr;
+            l[j] = 0;
+            s[j] = 0;
+        }
+    }
+    for (uint32_t pos = 0; pos <= maxlen; pos++) {
+        int32_t c[kDfaLanes], acc = 0;
+        for (int j = 0; j < kDfaLanes; j++)
+            c[j] = pos < l[j] ? cmap[v[j][pos]] : eol;
+        for (int j = 0; j < kDfaLanes; j++) {
+            s[j] = trans[s[j] * C + c[j]];
+            acc |= s[j];
+        }
+        // states are non-negative: OR <= 1 iff every chain is in
+        // {DEAD, ACC}, all absorbed
+        if (acc <= 1) break;
+    }
+    for (int j = 0; j < kDfaLanes && j < nrows; j++)
+        out[j] = (uint8_t)(s[j] == 1);
+}
+
+struct MatchJob {
+    const uint8_t *const *vals;  // [n_keys][stride] value pointers
+    const uint32_t *vlens;
+    long long stride;
+    long long n_rec;
+    const int32_t *key_of_rule;
+    long long n_rules;
+    const int16_t *trans_cat;
+    const long long *troffs;
+    const int32_t *cmaps;
+    const int32_t *starts;
+    const int32_t *ncls;
+    uint8_t *match_out;          // [n_rules][stride]
+    long long slice;             // rows per slice, a multiple of the lanes
+};
+
+void match_rows(const MatchJob &j, long long lo, long long hi) {
+    for (long long r = 0; r < j.n_rules; r++) {
+        const int16_t *trans = j.trans_cat + j.troffs[r];
+        const int32_t *cmap = j.cmaps + r * 257;
+        const uint8_t *const *kv = j.vals + j.key_of_rule[r] * j.stride;
+        const uint32_t *kl = j.vlens + j.key_of_rule[r] * j.stride;
+        uint8_t *out = j.match_out + r * j.stride;
+        for (long long i = lo; i < hi; i += kDfaLanes) {
+            int nrows = (int)(hi - i < kDfaLanes ? hi - i : kDfaLanes);
+            dfa_run_block(trans, cmap, j.ncls[r], j.starts[r], kv + i,
+                          kl + i, nrows, out + i);
+        }
+    }
+}
+
+void match_slice_adapter(const void *ctx, int sx) {
+    const MatchJob &j = *(const MatchJob *)ctx;
+    long long lo = (long long)sx * j.slice;
+    long long hi = lo + j.slice < j.n_rec ? lo + j.slice : j.n_rec;
+    if (lo < hi) match_rows(j, lo, hi);
+}
+
+// the largest key set one walk resolves (the reference's FBTPU_MAX_KEYS)
+const long long kMaxKeys = 64;
+
+// Numeric value at p: 1 for a msgpack integer, 2 for a float (its value
+// in *out), 0 for anything else (strings, bool and nil included). Integers
+// convert with IEEE round-to-nearest, as Python's float(int) does.
+int read_numeric(const uint8_t *p, const uint8_t *end, double *out) {
+    if (p >= end) return 0;
+    uint8_t b = *p++;
+    if (b <= 0x7f) { *out = (double)b; return 1; }            // pos fixint
+    if (b >= 0xe0) { *out = (double)(int8_t)b; return 1; }    // neg fixint
+    uint64_t v = 0;
+    switch (b) {
+    case 0xcc: if (p + 1 > end) return 0;
+        *out = (double)p[0]; return 1;
+    case 0xcd: if (p + 2 > end) return 0;
+        *out = (double)(((uint32_t)p[0] << 8) | p[1]); return 1;
+    case 0xce: if (p + 4 > end) return 0;
+        *out = (double)(((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16)
+                        | ((uint32_t)p[2] << 8) | p[3]);
+        return 1;
+    case 0xcf: if (p + 8 > end) return 0;
+        for (int i = 0; i < 8; i++) v = (v << 8) | p[i];
+        *out = (double)v;
+        return 1;
+    case 0xd0: if (p + 1 > end) return 0;
+        *out = (double)(int8_t)p[0]; return 1;
+    case 0xd1: if (p + 2 > end) return 0;
+        *out = (double)(int16_t)(((uint16_t)p[0] << 8) | p[1]); return 1;
+    case 0xd2: if (p + 4 > end) return 0;
+        *out = (double)(int32_t)(((uint32_t)p[0] << 24)
+                                 | ((uint32_t)p[1] << 16)
+                                 | ((uint32_t)p[2] << 8) | p[3]);
+        return 1;
+    case 0xd3: if (p + 8 > end) return 0;
+        for (int i = 0; i < 8; i++) v = (v << 8) | p[i];
+        *out = (double)(int64_t)v;
+        return 1;
+    case 0xca: {
+        if (p + 4 > end) return 0;
+        uint32_t w = ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16)
+                   | ((uint32_t)p[2] << 8) | p[3];
+        float f;
+        memcpy(&f, &w, 4);
+        *out = (double)f;
+        return 2;
+    }
+    case 0xcb: {
+        if (p + 8 > end) return 0;
+        for (int i = 0; i < 8; i++) v = (v << 8) | p[i];
+        double d;
+        memcpy(&d, &v, 8);
+        *out = d;
+        return 2;
+    }
+    }
+    return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One msgpack walk extracts each record's value of every key (the LAST
+// occurrence of a duplicate key; a string value only: another type, a
+// non-map body or a missing key leave nullptr), then each rule runs its
+// DFA (trans_cat + troffs[r]: int16 [S, C] with C = ncls[r]; cmaps +
+// r * 257: int32 class map, 256 = EOL; starts[r]) over its key's values.
+// match_out: [n_rules][max_records] u8 verdicts; offsets: the record
+// boundaries (max_records + 1). nthreads counts every slice of the DFA
+// sweep, the caller's included; below 4096 records the sweep is serial.
+// Returns the record count, -1 on a malformed buffer (or more than 64
+// keys), -2 when there are more records than max_records.
+long long fbtpu_grep_match(const uint8_t *buf, long long buflen,
+                           const uint8_t *keys_cat,
+                           const long long *key_offs, long long n_keys,
+                           const int32_t *key_of_rule, long long n_rules,
+                           const int16_t *trans_cat,
+                           const long long *troffs,
+                           const int32_t *cmaps, const int32_t *starts,
+                           const int32_t *ncls, uint8_t *match_out,
+                           long long max_records, long long *offsets,
+                           int nthreads) {
+    if (n_keys > kMaxKeys) return -1;
+    const uint8_t *p = buf, *end = buf + buflen;
+    long long rec = 0;
+    std::vector<const uint8_t *> vals((size_t)(n_keys * max_records));
+    std::vector<uint32_t> vlens((size_t)(n_keys * max_records));
+    while (p < end) {
+        if (rec >= max_records) return -2;
+        offsets[rec] = p - buf;
+        const uint8_t *rec_start = p;
+        for (long long kx = 0; kx < n_keys; kx++)
+            vals[kx * max_records + rec] = nullptr;
+        uint32_t outer;
+        const uint8_t *rec_end = nullptr;
+        const uint8_t *q = read_array_hdr(p, end, &outer);
+        if (q && outer >= 2) {
+            const uint8_t *body = skip_obj(q, end, 0);
+            if (body) {
+                uint32_t pairs;
+                const uint8_t *kv = read_map_hdr(body, end, &pairs);
+                if (kv) {
+                    for (uint32_t i = 0; i < pairs && kv; i++) {
+                        uint32_t klen;
+                        const uint8_t *kstr = read_str_hdr(kv, end, &klen);
+                        const uint8_t *val;
+                        long long match_kx = -1;
+                        if (kstr) {
+                            val = kstr + klen;
+                            if (val > end) { kv = nullptr; break; }
+                            for (long long kx = 0; kx < n_keys; kx++) {
+                                long long kl =
+                                    key_offs[kx + 1] - key_offs[kx];
+                                if (kl == (long long)klen &&
+                                    memcmp(kstr, keys_cat + key_offs[kx],
+                                           klen) == 0) {
+                                    match_kx = kx;
+                                    break;
+                                }
+                            }
+                        } else {
+                            val = skip_obj(kv, end, 0);  // non-str key
+                            if (!val) { kv = nullptr; break; }
+                        }
+                        if (match_kx >= 0) {
+                            uint32_t vlen;
+                            const uint8_t *vstr =
+                                read_str_hdr(val, end, &vlen);
+                            long long slot = match_kx * max_records + rec;
+                            if (vstr && vstr + vlen <= end) {
+                                vals[slot] = vstr;
+                                vlens[slot] = vlen;
+                            } else {
+                                vals[slot] = nullptr;  // non-string
+                            }
+                        }
+                        kv = skip_obj(val, end, 0);
+                    }
+                    if (kv && outer == 2) rec_end = kv;
+                }
+            }
+        }
+        p = rec_end ? rec_end : skip_obj(rec_start, end, 0);
+        if (!p) return -1;
+        rec++;
+    }
+    offsets[rec] = buflen;
+    MatchJob j{vals.data(), vlens.data(), max_records, rec, key_of_rule,
+               n_rules, trans_cat, troffs, cmaps, starts, ncls, match_out,
+               rec};
+    const int cap = max_slices();
+    if (nthreads > cap) nthreads = cap;
+    if (nthreads < 2 || rec < 4096) {
+        match_rows(j, 0, rec);
+        return rec;
+    }
+    g_pool.ensure(cap - 1);
+    int slices = g_pool.n_workers + 1;
+    if (slices > nthreads) slices = nthreads;
+    long long slice = (rec + slices - 1) / slices;
+    j.slice = (slice + kDfaLanes - 1) / kDfaLanes * kDfaLanes;
+    g_pool.run(match_slice_adapter, &j,
+               (int)((rec + j.slice - 1) / j.slice));
+    return rec;
+}
+
+// Stage the top-level numeric field `key` of each record: out[i] its
+// value as f64, kinds[i] 1 for an integer, 2 for a float, 0 for a
+// missing or non-numeric value (strings included) or a non-map body, the
+// last occurrence of a duplicate key deciding. Returns the record count,
+// -1 on a malformed buffer, -2 when there are more than max_records.
+long long fbtpu_stage_field_f64(const uint8_t *buf, long long buflen,
+                                const uint8_t *key, long long keylen,
+                                double *out, uint8_t *kinds,
+                                long long max_records) {
+    const uint8_t *p = buf, *end = buf + buflen;
+    long long rec = 0;
+    while (p < end) {
+        if (rec >= max_records) return -2;
+        const uint8_t *rec_start = p;
+        out[rec] = 0.0;
+        kinds[rec] = 0;
+        uint32_t outer;
+        const uint8_t *q = read_array_hdr(rec_start, end, &outer);
+        const uint8_t *rec_end = nullptr;
+        if (q && outer >= 2) {
+            const uint8_t *body = skip_obj(q, end, 0);
+            if (body) {
+                uint32_t pairs;
+                const uint8_t *kv = read_map_hdr(body, end, &pairs);
+                if (kv) {
+                    for (uint32_t i = 0; i < pairs && kv; i++) {
+                        uint32_t klen;
+                        const uint8_t *kstr = read_str_hdr(kv, end, &klen);
+                        const uint8_t *val;
+                        bool match = false;
+                        if (kstr) {
+                            val = kstr + klen;
+                            if (val > end) { kv = nullptr; break; }
+                            match = ((long long)klen == keylen &&
+                                     memcmp(kstr, key, klen) == 0);
+                        } else {
+                            val = skip_obj(kv, end, 0);
+                            if (!val) { kv = nullptr; break; }
+                        }
+                        if (match) {
+                            double v;
+                            int kind = read_numeric(val, end, &v);
+                            // a non-numeric last occurrence leaves the
+                            // value as it was, as the reference does
+                            if (kind) out[rec] = v;
+                            kinds[rec] = (uint8_t)kind;
+                        }
+                        kv = skip_obj(val, end, 0);
+                    }
+                    if (kv && outer == 2) rec_end = kv;
+                }
+            }
+        }
+        p = rec_end ? rec_end : skip_obj(rec_start, end, 0);
+        if (!p) return -1;
+        rec++;
+    }
+    return rec;
 }
 
 }  // extern "C"

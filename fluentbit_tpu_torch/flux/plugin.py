@@ -21,8 +21,14 @@ SQL mode: ``flux.query.attach_flux`` makes a hidden instance through
 the SP task reads and drains its windows, and the filter skips the SP
 emitter's rows as well as its own.
 
-Not ported yet: ``process_batch`` (the native column stagers of the raw
-path).
+The raw path (``process_batch``, ``stateful_batch``; the reference's
+flux/plugin.py:241-311): the engine hands the filter the append's msgpack
+bytes; the host codec stages the string columns (``stage_field_into``)
+and the numeric ones (``stage_field_f64``) straight from them, and one
+``FluxState.absorb_batch`` commits the chunk (on CUDA the fused absorb
+K10, or above 512 groups the grouped K6 and the count-min K7). Rows from
+the filter's own emitter, and in SQL mode from the stream processor's,
+pass untouched. Event-time states keep the decoded path.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ import logging
 import time
 from typing import List, Optional
 
+import numpy as np
+
+from .. import native
 from ..codec.events import encode_event, now_event_time
 from ..core.config import ConfigMapEntry
 from ..core.plugin import FilterPlugin, FilterResult, registry
@@ -45,6 +54,8 @@ log = logging.getLogger("flb.flux")
 class FluxFilter(FilterPlugin):
     name = "flux"
     description = "device-resident streaming analytics (sketches + windows)"
+    # the batch hook absorbs: a decline after it must not re-run it
+    stateful_batch = True
     config_map = [
         ConfigMapEntry("group_by", "str", multiple=True,
                        desc="tenant/group label fields (string-typed)"),
@@ -213,6 +224,51 @@ class FluxFilter(FilterPlugin):
             out.append(self._emitter_ins)
         return out
 
+    # ------------------------------------------------------- raw path
+
+    def can_process_batch(self) -> bool:
+        # the reference's _batch_ok (flux/plugin.py:130-137): the port's
+        # codec always has the stagers, and raises if it cannot be built
+        return not self.state.spec.event_time
+
+    def process_batch(self, chunk):
+        data = chunk.as_bytes()
+        n = chunk.n
+        if chunk.src is not None and any(chunk.src is s for s in
+                                         self._skip_sources()):
+            if n is None:
+                n = native.count_records(data)
+                if n is None:
+                    return None
+            return (n, data, n)
+        spec = self.state.spec
+        if n is None and (spec.string_fields or not spec.numeric):
+            n = native.count_records(data)
+            if n is None:
+                return None
+        strcols = {}
+        for f in spec.string_fields:
+            # caller-owned column buffers: every column stays live
+            b = np.empty((n, spec.max_len), dtype=np.uint8)
+            ln = np.full((n,), -1, dtype=np.int32)
+            if native.stage_field_into(data, f.encode("utf-8"), b, ln,
+                                       n_hint=n) != n:
+                return None
+            strcols[f] = (b, ln)
+        numcols = {}
+        for f in spec.numeric:
+            got = native.stage_field_f64(data, f.encode("utf-8"), n_hint=n)
+            if got is None or (n is not None and got[2] != n):
+                return None
+            n = got[2]
+            numcols[f] = got[:2]
+        # the one commit: nothing below declines. The refresh reads the
+        # registers back from the device; an error there fails the
+        # append (the reference logs it and defers the export)
+        self.state.absorb_batch(n, strcols, numcols)
+        self._refresh(force=False)
+        return (n, data, n)
+
     # ------------------------------------------------------------- filter
 
     def filter(self, events: list, tag: str, engine) -> tuple:
@@ -223,10 +279,8 @@ class FluxFilter(FilterPlugin):
             # the rows this filter emitted itself
             return (FilterResult.NOTOUCH, events)
         self.state.absorb_events(events)
-        try:
-            self._refresh(force=False)
-        except Exception:
-            log.exception("flux metrics refresh failed; export deferred")
+        # a device error in the refresh's readback fails the append
+        self._refresh(force=False)
         return (FilterResult.NOTOUCH, events)
 
     def _refresh(self, force: bool) -> None:

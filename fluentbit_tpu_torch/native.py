@@ -15,9 +15,21 @@ API:
   stage_field(buf, key, max_len, pad_to)     → (batch, lengths, offsets, n)
                                                | None
   stage_threads()                            → the staging fan-out
+  GrepTables(rules)                          → the packed DFA tables of
+                                               (key, dfa) rules
+  grep_match(buf, tables)                    → (mask[R, n], offsets, n)
+                                               | None
+  stage_field_f64(buf, key)                  → (values, kinds, n) | None
+  has_flux_stagers()                         → True (flux's stagers)
 
 None means the buffer is malformed or a caller's buffer is too small: the
 caller declines to the decoded path.
+
+``grep_match`` is the host DFA twin the raw path's batch hooks of
+rewrite_tag, parser and log_to_metrics build their verdicts with, on any
+device (as the reference's hooks do): one walk of the chunk finds every
+rule key's string value per record and each rule's DFA runs over it, so
+values of any length are matched and there are no overflow rows.
 """
 
 from __future__ import annotations
@@ -61,6 +73,17 @@ def _load() -> ctypes.CDLL:
     lib.fbtpu_compact.argtypes = [
         ctypes.c_char_p, ctypes.c_longlong, _i64p, _u8p,
         ctypes.c_longlong, _u8p]
+    lib.fbtpu_grep_match.restype = ctypes.c_longlong
+    lib.fbtpu_grep_match.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p, _i64p,
+        ctypes.c_longlong, _i32p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_int16), _i64p, _i32p, _i32p, _i32p, _u8p,
+        ctypes.c_longlong, _i64p, ctypes.c_int32]
+    lib.fbtpu_stage_field_f64.restype = ctypes.c_longlong
+    lib.fbtpu_stage_field_f64.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p,
+        ctypes.c_longlong, ctypes.POINTER(ctypes.c_double), _u8p,
+        ctypes.c_longlong]
     return lib
 
 
@@ -205,3 +228,114 @@ def stage_field(buf, key: bytes, max_len: int, pad_to: Optional[int] = None,
         return None
     lengths[n:B] = -1  # pad rows stay "missing"
     return batch[:B], lengths[:B], offsets[: n + 1], n
+
+
+class GrepTables:
+    """The packed tables of the host DFA twin: rules ``(key: bytes, dfa)``
+    (a top-level field name and a ``regex.dfa.DFA``), rules on the same
+    key sharing one extraction. The fields the walk reads of the
+    reference's ``native.GrepTables``: one int16 ``[S, C]`` transition
+    table per rule (``trans_cat`` at ``troffs``), its int32 class map
+    (257 entries, 256 the EOL class), start state and class count."""
+
+    __slots__ = ("n_rules", "keys_cat", "key_offs", "key_of_rule",
+                 "trans_cat", "troffs", "cmaps", "starts", "ncls")
+
+    def __init__(self, rules):
+        keys: list = []
+        key_idx: dict = {}
+        key_of_rule = []
+        trans, troffs, cmaps, starts, ncls = [], [0], [], [], []
+        for key, dfa in rules:
+            if key not in key_idx:
+                key_idx[key] = len(keys)
+                keys.append(key)
+            key_of_rule.append(key_idx[key])
+            t = np.asarray(dfa.trans)
+            S, C = t.shape
+            if S >= 32768:
+                raise ValueError(f"DFA too large for int16 tables ({S})")
+            trans.append(np.ascontiguousarray(t, dtype=np.int16).reshape(-1))
+            troffs.append(troffs[-1] + t.size)
+            cmaps.append(np.ascontiguousarray(dfa.class_map, dtype=np.int32))
+            starts.append(int(dfa.start))
+            ncls.append(C)
+        if not key_of_rule:
+            raise ValueError("GrepTables needs at least one rule")
+        self.n_rules = len(key_of_rule)
+        self.keys_cat = b"".join(keys)
+        self.key_offs = np.cumsum([0] + [len(k) for k in keys],
+                                  dtype=np.int64)
+        self.key_of_rule = np.asarray(key_of_rule, dtype=np.int32)
+        self.trans_cat = np.concatenate(trans)
+        self.troffs = np.asarray(troffs[:-1], dtype=np.int64)
+        self.cmaps = np.concatenate(cmaps)
+        self.starts = np.asarray(starts, dtype=np.int32)
+        self.ncls = np.asarray(ncls, dtype=np.int32)
+
+
+def grep_match(buf, tables: GrepTables, n_hint: Optional[int] = None,
+               threads: Optional[int] = None
+               ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+    """One walk of the chunk and every rule's DFA over its key's values:
+    ``(mask[R, n] bool, offsets[n+1] i64, n)``, ``mask[r, i]`` true when
+    record i's value of rule r's key is a string the DFA accepts (a
+    missing or non-string value, ``bin`` included, or a non-map body
+    never matches). ``n_hint`` is the record count when the caller knows
+    it; None if the buffer is malformed or holds more records than the
+    hint. ``threads`` fans the DFA sweep out (default
+    ``stage_threads()``; chunks below 4096 records sweep serially)."""
+    est = n_hint if n_hint is not None else count_records(buf)
+    if est is None:
+        return None
+    p, blen, _keep = _buf_arg(buf)
+    cap = max(est, 1)
+    match = np.empty((tables.n_rules, cap), dtype=np.uint8)
+    offsets = np.empty(cap + 1, dtype=np.int64)
+    n = _load().fbtpu_grep_match(
+        p, blen, tables.keys_cat, tables.key_offs.ctypes.data_as(_i64p),
+        len(tables.key_offs) - 1, tables.key_of_rule.ctypes.data_as(_i32p),
+        tables.n_rules,
+        tables.trans_cat.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        tables.troffs.ctypes.data_as(_i64p),
+        tables.cmaps.ctypes.data_as(_i32p),
+        tables.starts.ctypes.data_as(_i32p),
+        tables.ncls.ctypes.data_as(_i32p), match.ctypes.data_as(_u8p), cap,
+        offsets.ctypes.data_as(_i64p),
+        threads if threads is not None else stage_threads())
+    if n < 0:
+        return None
+    return match[:, :n].view(bool), offsets[: n + 1], int(n)
+
+
+def stage_field_f64(buf, key: bytes, n_hint: Optional[int] = None
+                    ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+    """Stage the top-level numeric field ``key`` of each record:
+    ``(values[n] f64, kinds[n] u8, n)``, kind 1 for a msgpack integer
+    (converted with round-to-nearest, as ``float(int)``), 2 for a float,
+    0 for a missing or non-numeric value (numeric strings, bool and nil
+    included) or a non-map body; the last occurrence of a duplicate key
+    decides. Fresh arrays each call (a flux state keeps the columns).
+    None if the buffer is malformed or holds more records than the
+    hint."""
+    est = n_hint if n_hint is not None else count_records(buf)
+    if est is None:
+        return None
+    p, blen, _keep = _buf_arg(buf)
+    values = np.zeros(max(est, 1), dtype=np.float64)
+    kinds = np.zeros(max(est, 1), dtype=np.uint8)
+    n = _load().fbtpu_stage_field_f64(
+        p, blen, key, len(key),
+        values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        kinds.ctypes.data_as(_u8p), est)
+    if n < 0:
+        return None
+    return values[:n], kinds[:n], int(n)
+
+
+def has_flux_stagers() -> bool:
+    """True once the codec with flux's column stagers is loaded (the
+    port builds it from its own source, so it always has them); raises
+    if it cannot be built."""
+    _load()
+    return True

@@ -1,7 +1,7 @@
 """filter_log_to_metrics — derive metrics (and sketches) from log records.
 
-The port's counterpart of ``fluentbit_tpu/plugins/filter_log_to_metrics.py``
-on the decoded path. Reference: plugins/filter_log_to_metrics/log_to_metrics.c.
+The port's counterpart of ``fluentbit_tpu/plugins/filter_log_to_metrics.py``.
+Reference: plugins/filter_log_to_metrics/log_to_metrics.c.
 Modes counter, gauge and histogram run on the host, with grep-style
 pre-filter rules in legacy first-rule-decides semantics, labels from
 ``label_field`` record accessors plus static ``add_label`` pairs,
@@ -19,16 +19,27 @@ values into one pinned ``[B, tpu_max_record_len]`` batch and launches one
 kernel (``csrc/sketch.cu`` on a GPU, its plain torch version on the CPU);
 longer values hash on the host (``add_cpu``). There is no host fallback
 for a device failure: it raises.
+
+The raw path (``process_batch``, ``stateful_batch``; the reference's
+filter_log_to_metrics.py:183-200 and :283-318): counter mode with static
+labels only (no ``label_field``, no ``kubernetes_mode``), at least one
+Regex rule, and every rule on a top-level key with a DFA. The host DFA
+twin (``native.grep_match``) gives the rules' verdicts in one walk of
+the chunk, ``legacy_keep_mask`` the selection, and the counter takes one
+batched ``inc`` on the static label set; the snapshot emits as on the
+decoded path. Other modes and label sets keep the decoded path.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from typing import Dict, List, Optional
 
 import torch
 
+from .. import native
 from ..codec.chunk import EVENT_TYPE_METRICS
 from ..codec.msgpack import packb
 from ..core.config import ConfigMapEntry
@@ -37,7 +48,9 @@ from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor
 from ..ops.batch import assemble, bucket_size, staging
 from ..ops.sketch import CountMin, HyperLogLog
-from .filter_grep import legacy_keep, parse_grep_rules
+from .filter_grep import legacy_keep, legacy_keep_mask, parse_grep_rules
+
+log = logging.getLogger("flb")
 
 K8S_LABELS = ("namespace_name", "pod_name", "container_name",
               "docker_id", "pod_id")
@@ -58,6 +71,8 @@ def _stringify(v) -> str:
 class LogToMetricsFilter(FilterPlugin):
     name = "log_to_metrics"
     description = "generate metrics from log records"
+    # the batch hook counts and emits: a decline after it must not re-run
+    stateful_batch = True
     config_map = [
         ConfigMapEntry("regex", "slist", multiple=True, slist_max_split=1),
         ConfigMapEntry("exclude", "slist", multiple=True, slist_max_split=1),
@@ -153,6 +168,17 @@ class LogToMetricsFilter(FilterPlugin):
             if self.mode == "cardinality":
                 self.hll = HyperLogLog(self.sketch_precision, self.device)
 
+        # the raw path: counter mode on static labels, selected by at
+        # least one Regex rule (a non-map body then never matches, and
+        # the first Regex rule drops it on both paths)
+        self._batch_tables = None
+        if (self.mode == "counter" and not self._label_ras
+                and not self.kubernetes_mode and self.rules
+                and any(not r.is_exclude for r in self.rules)
+                and all(r.dfa is not None and not r.ra.parts
+                        for r in self.rules)):
+            self._batch_tables = native.GrepTables(
+                [(r.ra.head.encode("utf-8"), r.dfa) for r in self.rules])
         name = self.emitter_name or f"emitter_for_{instance.display_name}"
         self.emitter = engine.hidden_input("emitter", alias=name).plugin
         self._dirty = False
@@ -194,6 +220,37 @@ class LogToMetricsFilter(FilterPlugin):
         if v is None:
             return None
         return (v if isinstance(v, str) else _stringify(v)).encode("utf-8")
+
+    # -- the raw path (engine process_batch hook) --
+
+    def can_process_batch(self) -> bool:
+        return self._batch_tables is not None
+
+    def process_batch(self, chunk):
+        data = chunk.as_bytes()
+        got = native.grep_match(data, self._batch_tables, n_hint=chunk.n)
+        if got is None:
+            return None
+        mask, _offsets, n = got
+        count = int(legacy_keep_mask(self.rules, mask).sum()) if n else 0
+        if count:
+            # one inc of the static label set: n per-record incs
+            self.metric.inc(count, tuple(self._static_labels))
+            self._dirty = True
+            if self._interval <= 0:
+                try:
+                    self._emit_snapshot()
+                except (ValueError, TypeError, OverflowError):
+                    # the payload did not pack. The inc is committed: a
+                    # raise would re-count it on the decoded tail, so the
+                    # snapshot is deferred (_dirty stays set), as in the
+                    # reference. The emit is a typed host append that runs
+                    # no filter; a device error (RuntimeError) raises
+                    log.exception("log_to_metrics snapshot emit failed; "
+                                  "snapshot deferred")
+        if self.discard_logs:
+            return (0, b"", n)
+        return (n, data, n)
 
     # -- the filter --
 

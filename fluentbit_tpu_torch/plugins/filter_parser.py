@@ -1,7 +1,7 @@
 """filter_parser — apply a named parser to a record field.
 
-The port's counterpart of ``fluentbit_tpu/plugins/filter_parser.py`` on
-the decoded path. Reference: plugins/filter_parser/filter_parser.c. For
+The port's counterpart of ``fluentbit_tpu/plugins/filter_parser.py``.
+Reference: plugins/filter_parser/filter_parser.c. For
 each record, look up ``key_name`` (or a record-accessor path when it
 starts with ``$``, :122-126), run the configured parsers in order on its
 string value (:268-303); on first success the parsed map replaces the
@@ -29,9 +29,20 @@ the regex. There is no host fallback for a device failure: it raises.
 ``step_seconds`` holds, per device append, (values + staging, launch +
 readback, the overflow rows' regex, parse + apply).
 
+The raw path (``process_batch``, ``thread_safe_raw``; the reference's
+filter_parser.py:125-190 and :281-324): with a single regex parser that
+compiles to a DFA and a plain ``key_name``, the engine hands the filter
+the append's msgpack bytes. The host DFA twin (``native.grep_match``)
+gives the match mask in one walk of the chunk, on any device, as in the
+reference; the chunk then decodes and only the records the mask admits
+run the regex with captures (a ``bin`` value never stages, and always
+parses). If the walk and the decode count different records, the hook
+declines. The json parser keeps the decoded path, as the reference does
+without its C codec (a ROADMAP item).
+
 ``tpu_approx`` / ``tpu_approx_states`` are accepted; a value other than
 the default raises ValueError (the approximate DFA reduction is not
-ported). The raw-chunk path (``process_batch``) is not ported.
+ported).
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..codec.events import LogEvent
+from .. import native
+from ..codec.events import LogEvent, decode_events, reencode_event
 from ..core.config import ConfigMapEntry
 from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor
@@ -62,6 +74,9 @@ def _to_str(v) -> Optional[str]:
 class ParserFilter(FilterPlugin):
     name = "parser"
     description = "parse a field with a named parser"
+    # the batch hook keeps no state across appends: chains of these run
+    # under the input's own lock
+    thread_safe_raw = True
     config_map = [
         ConfigMapEntry("key_name", "str", desc="field to parse"),
         ConfigMapEntry("parser", "str", multiple=True,
@@ -114,6 +129,13 @@ class ParserFilter(FilterPlugin):
             self._prefilter = program_for(
                 (self.parsers[0].regex.pattern,), self.tpu_max_record_len,
                 self.device)
+        # the raw path: one regex parser on a plain key
+        self._batch_tables = None
+        p0 = self.parsers[0]
+        if (self.ra is None and len(self.parsers) == 1
+                and p0.fmt == "regex" and p0.regex.dfa is not None):
+            self._batch_tables = native.GrepTables(
+                [(self.key_name.encode("utf-8"), p0.regex.dfa)])
 
     # -- per-record semantics --
 
@@ -168,6 +190,43 @@ class ParserFilter(FilterPlugin):
         for i in staged.overflow:
             mask[i] = rx.match(vals[i])
         return mask, (t_staged, t_read, time.perf_counter())
+
+    # -- the raw path (engine process_batch hook) --
+
+    def can_process_batch(self) -> bool:
+        return self._batch_tables is not None
+
+    def process_batch(self, chunk):
+        data = chunk.as_bytes()
+        got = native.grep_match(data, self._batch_tables, n_hint=chunk.n)
+        if got is None:
+            return None
+        mask, _offsets, n = got
+        row = mask[0]
+        events = decode_events(data)
+        if len(events) != n:
+            return None  # the walk and the decode disagree: decline
+        out = bytearray()
+        modified = False
+        for i, ev in enumerate(events):
+            v = None
+            body = ev.body
+            if isinstance(body, dict):
+                raw_v = body.get(self.key_name)
+                if isinstance(raw_v, bytes):
+                    # a bin value never stages; it decodes and parses
+                    v = raw_v.decode("utf-8", "replace")
+                elif isinstance(raw_v, str) and row[i]:
+                    v = raw_v
+            new_ev = self._apply(ev, v) if v is not None else None
+            if new_ev is None:
+                out += ev.raw if ev.raw is not None else reencode_event(ev)
+            else:
+                out += reencode_event(new_ev)
+                modified = True
+        if not modified:
+            return (n, data, n)
+        return (n, bytes(out), n)
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 """filter_rewrite_tag — re-tag records by regex rule and re-emit.
 
-The port's counterpart of ``fluentbit_tpu/plugins/filter_rewrite_tag.py``
-on the decoded path. Reference: plugins/filter_rewrite_tag/rewrite_tag.c.
+The port's counterpart of ``fluentbit_tpu/plugins/filter_rewrite_tag.py``.
+Reference: plugins/filter_rewrite_tag/rewrite_tag.c.
 Rules are ``Rule <$key> <regex> <new_tag_template> <keep>``; the FIRST
 matching rule wins (process_record, :356-385); the new tag is composed by
 the record-accessor template with access to regex captures ($0..$9),
@@ -12,34 +12,54 @@ whole pipeline; the original is kept or dropped per the rule's keep flag
 (:375). Records that re-enter from this filter's own emitter pass
 untouched.
 
-Execution: when every rule regex compiles to a DFA, an append of at
-least ``tpu_batch_records`` records stages the rules' field values into
-one ``[R, B, L]`` batch and the engine's device runs the DFA program
-(``ops.grep``: on CUDA the hand-written kernels — for short literal rules
-such as config 3's, three per-k child programs through the assoc kernel
-K4 — on the CPU their plain torch versions). Values longer than
-``tpu_max_record_len`` and smaller appends take the per-record regex,
-with identical semantics. For each matched record the winning rule's
-regex gives the captures on the host, as in the reference. There is no
-host fallback for a device failure: it raises.
+The raw path (``process_batch``, ``stateful_batch``; the reference's
+filter_rewrite_tag.py:251-385): when every rule's key is a top-level
+field and its regex compiles to a DFA, the engine hands the filter the
+append's msgpack bytes. The host DFA twin (``native.grep_match``) gives
+each record's rule verdicts in one walk of the chunk, on any device, as
+in the reference; the first matching rule wins. A chunk from the
+filter's own emitter passes untouched. Rules whose template reads the
+tag alone render once per chunk; the others decode only their records'
+spans and take the per-record rule walk for the captures. Groups are
+emitted in first-seen order, each one emitter append of the records'
+byte spans (``native.compact``), and the records a rule does not keep
+are cut from the chunk the same way. An error of a new tag's chain
+keeps that group's originals, as the reference degrades it, unless it
+is a RuntimeError (a device, launch or build error), which fails the
+append.
+
+The decoded path: when every rule regex compiles to a DFA, an append of
+at least ``tpu_batch_records`` records stages the rules' field values
+into one ``[R, B, L]`` batch and the engine's device runs the DFA
+program (``ops.grep``: on CUDA the hand-written kernels — for short
+literal rules such as config 3's, three per-k child programs through
+the assoc kernel K4 — on the CPU their plain torch versions). Values
+longer than ``tpu_max_record_len`` and smaller appends take the
+per-record regex, with identical semantics. For each matched record the
+winning rule's regex gives the captures on the host, as in the
+reference. There is no host fallback for a device failure: it raises.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..codec.events import reencode_event
+from .. import native
+from ..codec.events import decode_events, reencode_event
 from ..core.config import ConfigMapEntry, parse_bool
 from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor, Template
 from ..ops.batch import assemble, bucket_size, staging
 from ..ops.grep import program_for
 from ..regex import FlbRegex
+
+log = logging.getLogger("flb")
 
 
 def _to_text(v) -> Optional[str]:
@@ -64,6 +84,8 @@ class RewriteRule:
 class RewriteTagFilter(FilterPlugin):
     name = "rewrite_tag"
     description = "re-tag records by regex and re-emit through the pipeline"
+    # the batch hook emits: a decline after it must not re-run it
+    stateful_batch = True
     config_map = [
         ConfigMapEntry("rule", "slist", multiple=True, slist_max_split=3,
                        desc="<$key> <regex> <new_tag> <keep>"),
@@ -97,9 +119,7 @@ class RewriteTagFilter(FilterPlugin):
             self.rules.append(RewriteRule(*parts))
         name = self.emitter_name or f"emitter_for_{instance.display_name}"
         self.emitter = engine.hidden_input("emitter", alias=name).plugin
-        self._m_emit = engine.metrics.counter(
-            "fluentbit", "filter", "emit_records_total",
-            "Records re-emitted by filter", ("name",))
+        self._m_emit = engine.m_filter_emit
         self.device = engine.device
         #: host seconds of each device-path append: (staging, launch +
         #: readback, overflow rows' regex, captures + render + emit), the
@@ -111,6 +131,14 @@ class RewriteTagFilter(FilterPlugin):
             self._program = program_for(
                 tuple(r.regex.pattern for r in self.rules),
                 self.tpu_max_record_len, self.device)
+        # the raw path's tables: every rule on a top-level key, with a DFA
+        self._batch_tables = None
+        self._batch_static = [r.template.static_for_tag for r in self.rules]
+        if all(r.regex.dfa is not None and not r.ra.parts
+               for r in self.rules):
+            self._batch_tables = native.GrepTables(
+                [(r.ra.head.encode("utf-8"), r.regex.dfa)
+                 for r in self.rules])
 
     # -- matching --
 
@@ -183,6 +211,119 @@ class RewriteTagFilter(FilterPlugin):
             if caps is not None:
                 return rule, caps
         return None, None
+
+    # -- the raw path (engine process_batch hook) --
+
+    def can_process_batch(self) -> bool:
+        return self._batch_tables is not None
+
+    def process_batch(self, chunk):
+        # the own-emitter guard at chunk granularity: re-emitted records
+        # pass untouched
+        if chunk.src is self.emitter.instance:
+            n = chunk.n
+            if n is None:
+                n = native.count_records(chunk.data)
+                if n is None:
+                    return None
+            return (n, chunk.data, n)
+        tag = chunk.tag
+        data = chunk.as_bytes()
+        got = native.grep_match(data, self._batch_tables, n_hint=chunk.n)
+        if got is None:
+            return None
+        mask, offsets, n = got
+        if n == 0:
+            return (0, data, 0)
+        any_match = mask.any(axis=0)
+        if not any_match.any():
+            return (n, data, n)
+        # first matching rule per record (process_record's break)
+        first = np.where(any_match, mask.argmax(axis=0), -1)
+        # new tag -> [members, members not kept, first member]: groups
+        # emit in first-seen order, as the decoded path's pending dict
+        groups: dict = {}
+
+        def group(new_tag, b):
+            ent = groups.get(new_tag)
+            if ent is None:
+                ent = groups[new_tag] = [np.zeros(n, dtype=bool),
+                                         np.zeros(n, dtype=bool), b]
+            ent[2] = min(ent[2], b)
+            return ent
+
+        need_record: List[int] = []
+        for r, rule in enumerate(self.rules):
+            idx = np.nonzero(first == r)[0]
+            if len(idx) == 0:
+                continue
+            if not self._batch_static[r]:
+                need_record.extend(idx.tolist())
+                continue
+            new_tag = rule.template.render(tag=tag)
+            if not new_tag:
+                continue  # a failed translation keeps the record
+            ent = group(new_tag, int(idx[0]))
+            ent[0][idx] = True
+            if not rule.keep:
+                ent[1][idx] = True
+        # rules that need captures or record fields: decode just those
+        # records' spans and walk the rules the mask admits
+        for b in need_record:
+            ev = decode_events(data[offsets[b]: offsets[b + 1]])[0]
+            rule = captures = None
+            for r, rl in enumerate(self.rules):
+                if not mask[r, b]:
+                    continue
+                v = _to_text(rl.ra.get(ev.body)) \
+                    if isinstance(ev.body, dict) else None
+                if v is None:
+                    continue
+                captures = rl.regex.search_captures(v)
+                if captures is not None:
+                    rule = rl
+                    break
+            if rule is None:
+                continue
+            new_tag = rule.template.render(record=ev.body, tag=tag,
+                                           captures=captures)
+            if not new_tag:
+                continue
+            ent = group(new_tag, b)
+            ent[0][b] = True
+            if not rule.keep:
+                ent[1][b] = True
+        keep = np.ones(n, dtype=bool)
+        emitted = 0
+        for new_tag, (members, drop, _first) in sorted(
+                groups.items(), key=lambda kv: kv[1][2]):
+            count = int(members.sum())
+            payload = native.compact(data, offsets, members)
+            try:
+                # the port's emitter never refuses (see init); the records
+                # re-enter the pipeline under their new tag
+                self.emitter.add_record(new_tag, payload, count)
+            except RuntimeError:
+                # a device, launch or build error in the new tag's chain
+                # fails the append
+                raise
+            except Exception:
+                # any other error of the new tag's chain: the groups
+                # before it are out, so the originals of this one are
+                # kept, as the reference degrades it
+                log.exception("rewrite_tag emitter append failed for tag "
+                              "%r; originals kept", new_tag)
+                continue
+            emitted += count
+            keep &= ~drop
+        if emitted:
+            self._m_emit.inc(emitted, (self.instance.display_name,))
+        n_keep = int(keep.sum())
+        if n_keep == n:
+            return (n, data, n)
+        if n_keep == 0:
+            return (0, b"", n)
+        return (n_keep, native.compact(data, offsets, keep), n)
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         # records re-entering from our OWN emitter are never re-matched

@@ -427,11 +427,16 @@ def test_assoc_wrapper_rejects_bad_tensors(cuda_device):
 
 
 @pytest.mark.gpu
-def test_config3_append_launches_k4_per_k_group(cuda_device):
-    """One config 3 append through create(device="cuda") is 3 K4
-    launches (one per k-group, none for the re-emitted records that pass
-    the own-emitter guard under Match *) and no scan launch; the tags and
-    bodies equal the same append on the CPU."""
+def test_config3_append_launches_k4_per_k_group(cuda_device, monkeypatch):
+    """One config 3 append through create(device="cuda") on the decoded
+    path (the batch hook off) is 3 K4 launches (one per k-group, none
+    for the re-emitted records that pass the own-emitter guard under
+    Match *) and no scan launch; on the raw path rewrite_tag's batch
+    hook takes it with no launch. The tags and bodies of every run
+    equal the same append on the CPU."""
+    from fluentbit_tpu_torch.plugins.filter_rewrite_tag import \
+        RewriteTagFilter
+
     rules = [f"$log {p} {t} false" for p, t in zip(CONFIG3, [
         "sec.ssh", "sys.kernel", "sys.init", "app.error", "app.warn",
         "web.nginx", "sys.cron", "sys.oom"])]
@@ -440,8 +445,12 @@ def test_config3_append_launches_k4_per_k_group(cuda_device):
                 ["sshd[1]:", "kernel:", "systemd[1]:", "ERROR", "WARN",
                  "nginx", "cron[5]", "OOM", "quiet", "sshd ERROR"] * 30))]
     out = {}
-    for device in ("cuda", "cpu"):
-        got = out[device] = {}
+    for path, device in (("raw", "cuda"), ("raw", "cpu"),
+                         ("decoded", "cuda"), ("decoded", "cpu")):
+        if path == "decoded":
+            monkeypatch.setattr(RewriteTagFilter, "can_process_batch",
+                                lambda self: False)
+        got = out[path, device] = {}
         ctx = fluentbit_tpu_torch.create(device=device, flush="50ms",
                                          grace="1")
         in_ffd = ctx.input("lib", tag="syslog")
@@ -461,9 +470,14 @@ def test_config3_append_launches_k4_per_k_group(cuda_device):
             ctx.stop()
         launches = (tg.grep_assoc.launches - before[0],
                     tg.grep_dfa.launches - before[1])
-        assert launches == ((3, 0) if device == "cuda" else (0, 0))
-    assert out["cuda"] == out["cpu"]
-    assert len(out["cuda"]["sec.ssh"]) == 60
+        assert launches == ((3, 0) if (path, device) == ("decoded", "cuda")
+                            else (0, 0))
+        # the raw path: the original append and each re-emitted group
+        assert ctx.engine.filters[0].batch_taken == (
+            1 + len(set(got) - {"syslog"}) if path == "raw" else 0)
+    assert out["raw", "cuda"] == out["raw", "cpu"] == out[
+        "decoded", "cuda"] == out["decoded", "cpu"]
+    assert len(out["raw", "cuda"]["sec.ssh"]) == 60
 
 
 def sketch_rows(seed, B, L):
@@ -1122,6 +1136,7 @@ def parser_records(parser, n):
 
 
 def run_parser_push(device, parser, recs):
+    """(records, (K3, K4) launches, appends the batch hook took)."""
     got = []
     ctx = fluentbit_tpu_torch.create(device=device, flush="50ms", grace="1")
     ctx.parser(parser, **PARSERS[parser])
@@ -1139,26 +1154,45 @@ def run_parser_push(device, parser, recs):
     finally:
         ctx.stop()
     return got, (tg.grep_dfa.launches - before[0],
-                 tg.grep_assoc.launches - before[1])
+                 tg.grep_assoc.launches - before[1]), \
+        ctx.engine.filters[0].batch_taken
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("parser", ["json", "apache2"])
-def test_filter_parser_cuda_equals_cpu(cuda_device, parser):
+def test_filter_parser_cuda_equals_cpu(cuda_device, parser, monkeypatch):
+    """As configured, apache2 takes the parser's batch hook (the host DFA
+    twin, no launch) and json the decoded path; with the hook off,
+    apache2's decoded path launches K3 once. Records equal throughout."""
+    from fluentbit_tpu_torch.plugins.filter_parser import ParserFilter
+
     recs = parser_records(parser, 300)
-    gpu, launches = run_parser_push("cuda", parser, recs)
-    cpu, cpu_launches = run_parser_push("cpu", parser, recs)
+    gpu, launches, taken = run_parser_push("cuda", parser, recs)
+    cpu, cpu_launches, _ = run_parser_push("cpu", parser, recs)
     assert gpu == cpu and len(gpu) == 300
     assert sum(ts is not None for ts, _ in gpu) > 100
+    assert launches == cpu_launches == (0, 0)
+    assert taken == (1 if parser == "apache2" else 0)
+    monkeypatch.setattr(ParserFilter, "can_process_batch",
+                        lambda self: False)
+    dec, launches, taken = run_parser_push("cuda", parser, recs)
+    dec_cpu, cpu_launches, _ = run_parser_push("cpu", parser, recs)
+    assert dec == dec_cpu == gpu and taken == 0
     # apache2 (690 states) resolves to the scan: one K3 launch
     assert launches == ((1, 0) if parser == "apache2" else (0, 0))
     assert cpu_launches == (0, 0)
 
 
 @pytest.mark.gpu
-def test_config2r_tail_launches_k3_per_append(cuda_device, tmp_path):
-    """Config 2r: tail over an Apache log → parser apache2 → null; K3
-    launches once per tail append of >= 64 records, K4 never."""
+def test_config2r_tail_launches_k3_per_append(cuda_device, tmp_path,
+                                              monkeypatch):
+    """Config 2r on the decoded path (the batch hook off): tail over an
+    Apache log → parser apache2 → null; K3 launches once per tail append
+    of >= 64 records, K4 never."""
+    from fluentbit_tpu_torch.plugins.filter_parser import ParserFilter
+
+    monkeypatch.setattr(ParserFilter, "can_process_batch",
+                        lambda self: False)
     lines = [r["log"].encode() for r in parser_records("apache2", 3000)]
     data = b"\n".join(lines) + b"\n"
     path = str(tmp_path / "access.log")

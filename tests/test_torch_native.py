@@ -9,6 +9,14 @@ values past the row width, nested maps, truncated buffers and trailing
 garbage. Record counts, offsets, staged rows and lengths (the serial walk
 and the threaded one), compacted bytes and the arena stager must be
 equal, bytes past a row's length aside (neither side writes them).
+
+The host DFA twin (``grep_match`` over ``GrepTables`` built from each
+package's own DFAs) must give the reference's mask, offsets and count on
+random rule sets, with rows the DFA rejects early, invalid UTF-8, ``bin``
+values, non-map bodies, missing keys, V1 and V2 framing and values past
+512 B, serial and threaded; ``stage_field_f64`` its values and kinds on
+integers past 2^53, floats of both widths, bool, nil and numeric
+strings.
 """
 
 import random
@@ -20,6 +28,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from fluentbit_tpu import native as ref_native
+from fluentbit_tpu.regex import FlbRegex as RefRegex
+from fluentbit_tpu_torch.regex import FlbRegex
 from fluentbit_tpu_torch import native
 from fluentbit_tpu_torch.codec import events
 from fluentbit_tpu_torch.codec.msgpack import EventTime, packb
@@ -199,3 +209,104 @@ def test_random_bodies_equal_reference(bodies, v1):
             assert got[2][i] == len(v.encode())
         else:
             assert got[2][i] == (-2 if isinstance(v, str) else -1)
+
+
+TWIN_PATTERNS = ["GET", "^a", "b$", "日", r"\d+", "a{10}", r"x[0-9]+y", "^$",
+                 ".*OOM.*", "(ab|cd)+e", r"^\S+ \S+$", "inner", "ü"]
+
+
+def _twin_buffer(seed, n):
+    """``_buffer``'s shapes, plus string values of invalid UTF-8 and
+    values past 512 B of each rule key."""
+    rng = random.Random(seed)
+    recs = [_record(rng, i) for i in range(n)]
+    for i in range(0, n, 7):
+        key = rng.choice(["log", "code", "msg"])
+        if rng.random() < 0.5:
+            val = b"GET \xff\xfe ab" + bytes([0xc3, 0x28])
+        else:
+            val = ("a" * 10 + " GET 12 " + "x" * rng.choice([505, 600, 4000])
+                   + " OOM").encode()
+        recs[i] = (b"\x92" + packb([EventTime(i, 0), {}]) + b"\x81"
+                   + _str_hdr(len(key)) + key.encode()
+                   + (b"\xdb" + struct.pack(">I", len(val)) + val))
+    return b"".join(recs)
+
+
+def _twin_tables(rng, R):
+    rules = [(rng.choice([b"log", b"code", b"msg", b"nope"]),
+              rng.choice(TWIN_PATTERNS)) for _ in range(R)]
+    return (native.GrepTables([(k, FlbRegex(p).dfa) for k, p in rules]),
+            ref_native.GrepTables([(k, RefRegex(p).dfa) for k, p in rules]))
+
+
+@pytest.mark.parametrize("seed,n,R", [(10, 1, 1), (11, 300, 3), (12, 700, 8),
+                                      (13, 4500, 5)])
+def test_grep_match_equals_reference(seed, n, R):
+    buf = _twin_buffer(seed, n)
+    tables, ref_tables = _twin_tables(random.Random(seed), R)
+    rmask, roffsets, rn = ref_native.grep_match(buf, ref_tables)
+    assert rn == n
+    for threads in (1, 8):  # the serial sweep and the worker pool
+        mask, offsets, got_n = native.grep_match(buf, tables,
+                                                 threads=threads)
+        assert got_n == n and mask.shape == (R, n) and mask.dtype == bool
+        assert np.array_equal(mask, rmask)
+        assert np.array_equal(offsets, roffsets)
+    assert np.array_equal(native.grep_match(buf, tables, n_hint=n)[0], rmask)
+    if n >= 300:  # the rule sets both match and miss
+        assert rmask.any() and not rmask.all()
+
+
+def test_grep_match_declines_as_reference():
+    buf = _twin_buffer(14, 40)
+    tables, ref_tables = _twin_tables(random.Random(14), 2)
+    # more records than the hint, a truncated buffer, garbage
+    for b, hint in ((buf, 39), (buf[:-3], None), (buf + b"\xc1", None)):
+        assert native.grep_match(b, tables, n_hint=hint) is None
+        assert ref_native.grep_match(b, ref_tables, n_hint=hint) is None
+    empty = native.grep_match(b"", tables)
+    assert empty[2] == 0 and empty[0].shape == (2, 0)
+    assert list(empty[1]) == [0]
+
+
+def _num_record(i, value):
+    return packb([[EventTime(i, 0), {}], {"v": value, "w": "x"}])
+
+
+NUMS = [0, 1, -1, 127, 128, -33, 255, 256, 65535, 2 ** 31, -2 ** 31 - 1,
+        2 ** 53 + 1, -(2 ** 53) - 3, 2 ** 63 - 1, -2 ** 63, 2 ** 64 - 1,
+        0.5, -2.25, 1e300, float("inf"), True, False, None, "12", "1.5",
+        "", b"7", [1], {"a": 2}]
+
+
+def test_stage_field_f64_equals_reference():
+    recs = [_num_record(i, v) for i, v in enumerate(NUMS)]
+    recs.append(packb([1, {"v": 3}]))                 # V1 framing
+    recs.append(packb([[EventTime(1, 0), {}], "no map"]))
+    recs.append(packb([[EventTime(2, 0), {}], {"w": 1}]))  # missing
+    # f32, duplicate keys (the last decides), a non-numeric last one
+    recs.append(b"\x92" + packb([EventTime(3, 0), {}]) + b"\x81\xa1v"
+                + b"\xca" + struct.pack(">f", 0.1))
+    recs.append(b"\x92" + packb([EventTime(4, 0), {}]) + b"\x82\xa1v\x05"
+                b"\xa1v\xcb" + struct.pack(">d", 2.5))
+    recs.append(b"\x92" + packb([EventTime(5, 0), {}]) + b"\x82\xa1v\x05"
+                b"\xa1v\xa1x")
+    buf = b"".join(recs) + _buffer(15, 200)
+    n = len(recs) + 200
+    for key in (b"v", b"code", b"x", b"nope"):
+        values, kinds, got_n = native.stage_field_f64(buf, key)
+        rvalues, rkinds, rn = ref_native.stage_field_f64(buf, key)
+        assert got_n == rn == n
+        assert np.array_equal(kinds, rkinds)
+        assert np.array_equal(values, rvalues)
+    values, kinds, _ = native.stage_field_f64(buf, b"v")
+    assert list(kinds[:len(NUMS)]) == [
+        1 if isinstance(v, int) and not isinstance(v, bool)
+        else 2 if isinstance(v, float) else 0 for v in NUMS]
+    for i, v in enumerate(NUMS):
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            assert values[i] == float(v)  # float(int): round to nearest
+    assert native.stage_field_f64(buf, b"v", n_hint=n - 1) is None
+    assert native.stage_field_f64(buf[:-2], b"v") is None
+    assert native.has_flux_stagers() and ref_native.has_flux_stagers()

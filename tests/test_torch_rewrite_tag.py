@@ -5,9 +5,11 @@ tag parts, Ruby named-capture numbering, no match, re-entry through the
 filter chain, emitted bodies, the emit counter, non-string fields,
 failed translation, config 3's eight rules) run through both packages'
 lib APIs on the CPU, with fixed timestamps: every tag's events (time and
-body, in order) must be equal. The port runs each case on its device
-path (``tpu_batch_records`` 1: the plain torch DFA program) and on its
-host path (``tpu.enable off``).
+body, in order) must be equal. The port runs each case on its raw path
+(the batch hook over the host DFA twin, which takes every append), and,
+with the hook off, on its decoded device path (``tpu_batch_records`` 1:
+the plain torch DFA program) and its decoded host path (``tpu.enable
+off``).
 """
 
 import json
@@ -21,6 +23,7 @@ import fluentbit_tpu_torch
 from fluentbit_tpu.codec.events import decode_events as jax_decode_events
 from fluentbit_tpu_torch.codec.events import decode_events
 from fluentbit_tpu_torch.ops import grep as tg
+from fluentbit_tpu_torch.plugins.filter_rewrite_tag import RewriteTagFilter
 
 CONFIG3_RULES = [
     r"$log sshd sec.ssh false",
@@ -118,10 +121,22 @@ def run_pipeline(create, rules, records, tag="orig", extra=None,
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_port_equals_reference(name):
+def test_port_equals_reference(name, monkeypatch):
     rules, records, kw = CASES[name]
     ref, _ = run_pipeline(fluentbit_tpu.create, rules, records, **kw)
     assert ref
+    for bulk in (False, True):
+        raw, ctx = run_pipeline(fluentbit_tpu_torch.create, rules, records,
+                                bulk=bulk, device="cpu", **kw)
+        assert raw == ref, (bulk, sorted(raw), sorted(ref))
+        # the batch hook took every append of the input's tag, with no
+        # decline
+        fi = ctx.engine.filters[0]
+        assert fi.batch_taken == (1 if bulk else len(records))
+        assert ('fluentbit_filter_batch_declines_total{name="rewrite_tag'
+                not in ctx.engine.metrics.to_prometheus())
+    monkeypatch.setattr(RewriteTagFilter, "can_process_batch",
+                        lambda self: False)
     for bulk in (False, True):
         dev, ctx = run_pipeline(fluentbit_tpu_torch.create, rules, records,
                                 bulk=bulk, device="cpu",
@@ -138,8 +153,11 @@ def test_port_equals_reference(name):
             assert len(f.step_seconds) == (1 if bulk else len(records))
 
 
-def test_expected_routing():
+def test_expected_routing(monkeypatch):
     """The reference's own assertions, on the port's device path."""
+    monkeypatch.setattr(RewriteTagFilter, "can_process_batch",
+                        lambda self: False)
+
     def port(rules, records, **kw):
         return run_pipeline(fluentbit_tpu_torch.create, rules, records,
                             device="cpu", bulk=True,
@@ -207,14 +225,24 @@ def test_unported_emitter_settings_raise(prop, value):
     ctx.stop()
 
 
-def test_own_emitter_reentry_runs_no_second_match():
+def test_own_emitter_reentry_runs_no_second_match(monkeypatch):
     """Match * sees the re-emitted records again; the own-emitter guard
-    passes them untouched, so one append makes one device match, and a
-    rule that still matches the new records does not recurse."""
+    passes them untouched, so one append makes one device match (one
+    walk of the host twin on the raw path, the re-entered groups passing
+    through the hook untouched), and a rule that still matches the new
+    records does not recurse."""
     records = config3_corpus(100)
+    raw, ctx = run_pipeline(fluentbit_tpu_torch.create, CONFIG3_RULES,
+                            records, tag="syslog", bulk=True, device="cpu",
+                            props={"match": "*"})
+    groups = len(raw) - 1  # every tag but the original one
+    assert ctx.engine.filters[0].batch_taken == 1 + groups
+    monkeypatch.setattr(RewriteTagFilter, "can_process_batch",
+                        lambda self: False)
     got, ctx = run_pipeline(fluentbit_tpu_torch.create, CONFIG3_RULES,
                             records, tag="syslog", bulk=True, device="cpu",
                             props={"tpu_batch_records": "1", "match": "*"})
+    assert got == raw
     f = ctx.engine.filters[0].plugin
     assert len(f.step_seconds) == 1
     assert sum(len(v) for v in got.values()) == len(records)
@@ -226,6 +254,8 @@ def test_config3_through_assoc_plain(monkeypatch):
     """Config 3 with "auto" resolved as on a CUDA device: the three
     per-k children take the assoc route (its plain version here), with
     the same routing as the host path and the reference."""
+    monkeypatch.setattr(RewriteTagFilter, "can_process_batch",
+                        lambda self: False)
     resolve = tg.kernel_for
     monkeypatch.setattr(tg, "kernel_for", lambda kernel, _d, s: resolve(
         kernel, torch.device("cuda"), s))
