@@ -7,13 +7,15 @@ Run from the repository root on a host with a CUDA card:
 
 Phases (any failure exits non-zero):
 
-1. environment: torch/CUDA/nvcc/triton versions, the card's name and power
-   limit;
+1. environment: the interpreter's C header directory and whether it
+   holds ``Python.h`` (printed before anything builds), torch/CUDA/nvcc/
+   triton versions, the card's name and power limit;
 2. build: every library of ``fluentbit_tpu_torch/csrc`` (the kernels
-   ``grep_dfa``, ``grep_assoc``, ``sketch``, ``utf8`` with ``nvcc``, and
-   the host codec ``codec_host`` with ``g++``), one compiler each,
-   started together, with ptxas' report (in full for ``grep_dfa`` and
-   ``grep_assoc``);
+   ``grep_dfa``, ``grep_assoc``, ``sketch``, ``utf8`` with ``nvcc``, the
+   host codec ``codec_host`` and the event codec extension ``codec_py``
+   with ``g++``), one compiler each, started together, with ptxas'
+   report (in full for ``sketch`` and ``utf8``); a host without
+   ``Python.h`` fails here, by name;
 3. kernel against plain: the ``grep_dfa`` kernel against its plain torch
    version on the card, bool for bool, on three programs (apache2 k=3, an
    even-k literal set, a mixed-k 3-rule set) at [R, 65536, 512] and the
@@ -136,6 +138,15 @@ Phases (any failure exits non-zero):
    ``Utf8Validator("cuda")`` over the file's raw lines staged at
    [4096, 512] (32 launches) must equal plain and strict
    ``bytes.decode("utf-8")``;
+12b. pipeline: config 2's NDJSON through ``parser json`` with no
+   Time_Format and no reserve_data, on cuda and then cpu: the parser's
+   batch hook (the codec extension's ``parser_json_batch``) takes every
+   tail append with no decline and no kernel; bodies equal between the
+   devices and to Python's ``json.loads``;
+12c. the event codec: encode, decode and re-encode 16,384 records each
+   of config 2 (the tail's lines and the parsed objects) and config 5
+   (after kubernetes) with the extension and with the plain Python
+   versions, bytes equal, microseconds a record of each;
 13. pipeline: config 2r, the same filter with parsers.conf's apache2
    parser over a 131,072-line access log, on ``device="cuda"`` and then
    ``"cpu"``, as written: the parser's batch hook (the host DFA twin)
@@ -208,6 +219,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import gzip
 import json
 import logging
@@ -2875,6 +2887,9 @@ def phase_config3(tg, flb, decode_events, seed: int, card: str,
 TIME_FORMAT = "%d/%b/%Y:%H:%M:%S %z"
 PARSERS_CONF = {
     "json": dict(Format="json", Time_Key="time", Time_Format=TIME_FORMAT),
+    # the json parser the raw path's hook takes: no Time_Format (and the
+    # filter without reserve_data or preserve_key)
+    "json_plain": dict(Format="json"),
     "apache2": dict(Format="regex", Regex=APACHE2, Time_Key="time",
                     Time_Format=TIME_FORMAT,
                     Types="code:integer size:integer"),
@@ -3054,19 +3069,20 @@ def config2r_fold(texts: list) -> list:
 
 
 def run_config2(flb, device: str, path: str, parser: str,
-                sql=None) -> dict:
+                sql=None, reserve: bool = True) -> dict:
     """Config 2's pipeline (``parser`` json) or 2r's (apache2) over
-    ``path``: tail (read_from_head) → parser (key_name log, reserve_data)
-    → null, plus lib to capture the records; ``sql`` adds an exact
-    stream-processor task. Waits until the tail's offset reaches the
-    file's size with nothing pending, then flushes and stops."""
+    ``path``: tail (read_from_head) → parser (key_name log, reserve_data
+    unless ``reserve`` is False) → null, plus lib to capture the records;
+    ``sql`` adds an exact stream-processor task. Waits until the tail's
+    offset reaches the file's size with nothing pending, then flushes
+    and stops."""
     tagged = []
     ctx = flb.create(device=device, flush="50ms", grace="2")
     ctx.parser(parser, **PARSERS_CONF[parser])
     ctx.input("tail", tag="ndjson", path=path, read_from_head="true",
               refresh_interval="1")
     ctx.filter("parser", match="ndjson", key_name="log", parser=parser,
-               reserve_data="true")
+               reserve_data="true" if reserve else "false")
     ctx.output("null", match="*")
     ctx.output("lib", match="*",
                callback=lambda data, tag: tagged.append((tag, data)))
@@ -3375,6 +3391,188 @@ def phase_config2(np, torch, tu, assemble, flb, decode_events, data: bytes,
         failed.append("shape")
     if failed:
         raise SystemExit(f"config 2 failed {failed}: {res}")
+    return res
+
+
+def config2j_fold(texts: list) -> list:
+    """Each line's body from Python's ``json``: an object replaces the
+    record (its ``time`` kept: the parser has no Time_Format); anything
+    else stays ``{"log": text}``."""
+    out = []
+    for text in texts:
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            obj = None
+        out.append(json.dumps(obj if isinstance(obj, dict)
+                              else {"log": text}))
+    return out
+
+
+def phase_config2j(flb, decode_events, data: bytes, card: str) -> dict:
+    """Config 2's NDJSON through ``parser json`` with no Time_Format and
+    no reserve_data, on cuda and cpu: the parser's batch hook (the codec
+    extension's ``parser_json_batch``) must take every tail append with
+    no decline and no kernel, and the bodies must equal the cpu run's and
+    Python's ``json.loads`` fold."""
+    import tempfile
+
+    texts = tail_texts(data)
+    want = config2j_fold(texts)
+    sizes = tail_append_sizes(data)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config2.ndjson")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        gpu = run_config2(flb, "cuda", path, "json_plain", reserve=False)
+        cpu = run_config2(flb, "cpu", path, "json_plain", reserve=False)
+    got, ref = ([body for _, body in parsed_records(decode_events,
+                                                    r["chunks"])]
+                for r in (gpu, cpu))
+    res = {"lines": len(texts), "appends": len(sizes),
+           "records_equal_cpu": got == ref,
+           "records_equal_python_json": got == want,
+           "parsed": sum(not body.startswith('{"log": ') for body in got),
+           "lines_per_s": len(texts) / gpu["wall"],
+           "cpu_lines_per_s": len(texts) / cpu["wall"],
+           "hook": gpu["hook"], "cpu_hook": cpu["hook"],
+           "device_appends": len(gpu["steps"]) + len(cpu["steps"]),
+           "card": card}
+    log("config2j: " + json.dumps(res))
+    failed = [k for k in ("records_equal_cpu", "records_equal_python_json")
+              if not res[k]]
+    for h in (res["hook"], res["cpu_hook"]):
+        if h["taken"] != len(sizes) or h["declines"]:
+            failed.append("hook")
+    if res["device_appends"] or not res["parsed"]:
+        failed.append("shape")
+    if failed:
+        raise SystemExit(f"config 2j failed {failed}: {res}")
+    return res
+
+
+CODEC_RECORDS = 16_384  # records of each set the codec phase times
+
+
+def k8s_records(seed: int, n: int) -> list:
+    """(timestamp, body) of config 5's records as the kubernetes filter
+    leaves them: the record's own keys over the merged JSON of ``log``
+    and a ``kubernetes`` map (pod, namespace, ids, host, labels,
+    annotations), EventTime stamps."""
+    from fluentbit_tpu_torch.codec.msgpack import EventTime
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        log_text = k8s_log(rng, i)
+        rec = {"log": log_text, "stream": rng.choice(["stdout", "stderr"]),
+               "time": f"2024-05-01T12:00:{i % 60:02d}.{i:09d}Z"}
+        try:
+            merged = json.loads(log_text)
+        except ValueError:
+            merged = None
+        body = {**merged, **rec} if isinstance(merged, dict) else rec
+        p = rng.randrange(K8S_PODS)
+        body["kubernetes"] = {
+            "pod_name": f"svc{p // 4}-{p * 7919 % 16 ** 9:09x}-x{p:04d}",
+            "namespace_name": f"team-{p % K8S_NAMESPACES:02d}",
+            "pod_id": f"{p * 104729:032x}",
+            "labels": {f"app.kubernetes.io/l{k}": f"v{(p + k) % 99}"
+                       for k in range(2 + p % 7)},
+            "annotations": {f"note/{k}": "x" * (1 + (p * k) % 29)
+                            for k in range(p % 5)},
+            "host": f"node-{p % K8S_NODES:02d}",
+            "container_name": ["app", "sidecar", "log_shipper"][p % 3],
+            "docker_id": f"{p * 2654435761:064x}"}
+        out.append((EventTime(1714560000 + i // 64, (i * 7919) % 10 ** 9),
+                    body))
+    return out
+
+
+def codec_set(tev, packb, records: list) -> dict:
+    """Encode, decode and re-encode ``records`` with the codec extension
+    and with the plain Python versions: bytes equal (decoded events
+    compared by re-packing them with the plain packer), and the
+    microseconds a record of each, timed with the garbage collector
+    paused (a collection of the smoke's whole heap would otherwise land
+    in whichever side allocates past its threshold)."""
+    def per_record_us(fn):
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e6 / len(records)
+        finally:
+            gc.enable()
+
+    enc, enc_us = per_record_us(lambda: [tev.encode_event(b, ts)
+                                         for ts, b in records])
+    plain, plain_enc_us = per_record_us(lambda: [
+        tev.pack_event_plain(ts, {}, b) for ts, b in records])
+    buf = b"".join(enc)
+    evs, dec_us = per_record_us(lambda: tev.decode_events(buf))
+    pevs, plain_dec_us = per_record_us(lambda: tev.decode_events_plain(buf))
+    re_ext, re_us = per_record_us(lambda: [tev.reencode_event(ev)
+                                           for ev in evs])
+    re_plain, plain_re_us = per_record_us(lambda: [
+        tev.pack_event_plain(ev.timestamp, ev.metadata, ev.body)
+        for ev in pevs])
+
+    def canon(events):
+        return [(packb([[ev.timestamp, ev.metadata], ev.body]), ev.raw)
+                for ev in events]
+
+    return {"records": len(records), "bytes": len(buf),
+            "encode_equal": enc == plain,
+            "decode_equal": canon(evs) == canon(pevs),
+            "reencode_equal": re_ext == re_plain == enc,
+            "encode_us": enc_us, "plain_encode_us": plain_enc_us,
+            "decode_us": dec_us, "plain_decode_us": plain_dec_us,
+            "reencode_us": re_us, "plain_reencode_us": plain_re_us}
+
+
+def phase_codec(seed: int, ndjson: bytes, card: str) -> dict:
+    """The event codec extension (``csrc/codec_py.cpp``) against the
+    plain Python codec on config 2's records (the tail's ``{"log":
+    line}`` and the parsed objects) and config 5's (after kubernetes),
+    CODEC_RECORDS of each: encode, decode and re-encode bytes equal,
+    microseconds a record of each; and a buffer whose strings hold
+    invalid UTF-8 decoded equal by both."""
+    from fluentbit_tpu_torch.codec import events as tev
+    from fluentbit_tpu_torch.codec.msgpack import EventTime, packb
+
+    texts = tail_texts(ndjson)[:CODEC_RECORDS]
+    stamps = [EventTime(1700000000 + i // 100, i * 997 % 10 ** 9)
+              for i in range(len(texts))]
+    parsed = []
+    for ts, text in zip(stamps, texts):
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            obj = None
+        parsed.append((ts, obj if isinstance(obj, dict) else {"log": text}))
+    sets = {"config2_lines": [(ts, {"log": t}) for ts, t in
+                              zip(stamps, texts)],
+            "config2_parsed": parsed,
+            "config5": k8s_records(seed, CODEC_RECORDS)}
+    res = {name: codec_set(tev, packb, recs) for name, recs in sets.items()}
+    bad = b"".join(tev.encode_event({"log": K8S_INVALID + str(i)}, float(i))
+                   for i in range(64)).replace(K8S_INVALID.encode(),
+                                               K8S_INVALID_BYTES)
+    canon = [[(packb([[ev.timestamp, ev.metadata], ev.body]), ev.raw)
+              for ev in decode(bad)]
+             for decode in (tev.decode_events, tev.decode_events_plain)]
+    res["invalid_utf8_decode_equal"] = canon[0] == canon[1]
+    res["card"] = card
+    log("codec: " + json.dumps(res))
+    failed = [f"{name}.{k}" for name in sets
+              for k in ("encode_equal", "decode_equal", "reencode_equal")
+              if not res[name][k]]
+    if not res["invalid_utf8_decode_equal"]:
+        failed.append("invalid_utf8")
+    if failed:
+        raise SystemExit(f"codec failed {failed}: {res}")
     return res
 
 
@@ -3950,6 +4148,12 @@ def main() -> int:
     from fluentbit_tpu_torch.regex.dfa import compile_dfa
 
     t_all = time.perf_counter()
+    # the event codec extension builds against these headers: a host
+    # without them fails the build below, by name
+    include = cuda_build.python_include()
+    log("python_include: " + json.dumps({
+        "path": include,
+        "python_h": os.path.isfile(os.path.join(include, "Python.h"))}))
     env = environment(torch)
     log("env: " + json.dumps(env))
 
@@ -4019,6 +4223,9 @@ def main() -> int:
                  ndjson.split(b"\n")[:-1])
     config2 = timed("config2", phase_config2, np, torch, tu, assemble, flb,
                     decode_events, ndjson, env["card"])
+    config2j = timed("config2j", phase_config2j, flb, decode_events, ndjson,
+                     env["card"])
+    timed("codec", phase_codec, args.seed, ndjson, env["card"])
     config2r = timed("config2r", phase_config2r, np, torch, tg, assemble, flb,
                      decode_events, args.seed, env["card"])
     config5 = timed("config5", phase_config5, np, torch, tg, assemble, flb,

@@ -1,9 +1,14 @@
 """Log event codec — Fluent Bit log event format V2.
 
-The port's own copy of ``fluentbit_tpu/codec/events.py``: the decoder and
-encoder are pure Python (the bytes are the reference's —
-tests/test_torch_codec.py); ``fast_count_records`` counts through the
-port's host codec (``fluentbit_tpu_torch.native``).
+The port's own copy of ``fluentbit_tpu/codec/events.py``. ``decode_events``,
+``iter_events``, ``encode_event`` and ``reencode_event`` run the port's
+event codec extension (``csrc/codec_py.cpp``, loaded by
+``_native_codec``), as the reference's run its C codec. Its
+``FallbackError`` (an ext type other than EventTime, or a value type the
+packer does not know) is the one case the plain Python versions
+(``decode_events_plain``, ``pack_event_plain``) take; a failed build of
+the extension raises. ``fast_count_records`` counts through the port's
+host codec (``fluentbit_tpu_torch.native``).
 
 A log event is msgpack ``[[timestamp, metadata-map], body-map]``
 (reference: include/fluent-bit/flb_log_event.h:29-62). Legacy (Forward/V1)
@@ -19,8 +24,9 @@ from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from . import _native_codec
 from .msgpack import EventTime, Unpacker, packb
 
 
@@ -43,6 +49,16 @@ def now_event_time() -> EventTime:
     return EventTime.from_float(_time.time())
 
 
+_EMPTY_META: Dict[str, Any] = {}
+
+
+def pack_event_plain(timestamp: Any, metadata: Dict[str, Any],
+                     body: Dict[str, Any]) -> bytes:
+    """The plain Python packer of one V2 event ``[[ts, meta], body]``:
+    the extension's ``pack_event`` gives the same bytes."""
+    return packb([[timestamp, metadata], body])
+
+
 def encode_event(
     body: Dict[str, Any],
     timestamp: Any = None,
@@ -51,15 +67,43 @@ def encode_event(
     """Encode one V2 log event to msgpack bytes."""
     if timestamp is None:
         timestamp = now_event_time()
-    return packb([[timestamp, metadata or {}], body])
+    mod = _native_codec.load()
+    try:
+        return mod.pack_event(timestamp, metadata or _EMPTY_META, body)
+    except mod.FallbackError:  # a type outside the packer's set
+        return pack_event_plain(timestamp, metadata or {}, body)
 
 
-def decode_events(buf: bytes) -> List[LogEvent]:
+def encode_events(events: List[Tuple[Any, Dict[str, Any]]]) -> bytes:
+    """Encode (timestamp, body) pairs into a concatenated V2 buffer."""
+    return b"".join(encode_event(body, ts) for ts, body in events)
+
+
+def decode_events(buf) -> List[LogEvent]:
     """Decode all log events in a concatenated msgpack buffer.
 
     Accepts V2 ``[[ts, meta], body]`` and legacy ``[ts, body]`` records.
-    Each returned event carries its raw byte span (``event.raw``).
+    Each returned event carries its raw byte span (``event.raw``). A torn
+    trailing record ends the list. Nesting past 512 levels raises
+    ValueError.
     """
+    mod = _native_codec.load()
+    try:
+        return mod.decode_events(buf)
+    except mod.FallbackError:  # an ext type other than EventTime
+        return decode_events_plain(buf)
+
+
+def iter_events(buf) -> Iterator[LogEvent]:
+    """Iterate the buffer's events. The whole buffer decodes before the
+    first yield (chunks are bounded at ~2 MB), as in the reference with
+    its codec loaded."""
+    yield from decode_events(buf)
+
+
+def decode_events_plain(buf) -> List[LogEvent]:
+    """The plain Python decoder (``Unpacker``): the extension's
+    ``decode_events`` gives the same events."""
     events: List[LogEvent] = []
     u = Unpacker(buf)
     pos = 0
@@ -116,4 +160,8 @@ def _to_event(obj: Any, raw: Optional[bytes] = None) -> LogEvent:
 
 def reencode_event(ev: LogEvent) -> bytes:
     """Re-encode a (possibly modified) event as V2."""
-    return packb([[ev.timestamp, ev.metadata], ev.body])
+    mod = _native_codec.load()
+    try:
+        return mod.pack_event(ev.timestamp, ev.metadata, ev.body)
+    except mod.FallbackError:  # a type outside the packer's set
+        return pack_event_plain(ev.timestamp, ev.metadata, ev.body)

@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -553,6 +554,10 @@ def _ptr(t: Tables, name: str) -> Optional[int]:
     return t[name].data_ptr() if name in t else None
 
 
+#: guards the launch counters: inputs under grep append in parallel
+_COUNT_LOCK = threading.Lock()
+
+
 class _Kernel:
     """A ctypes-bound launcher of ``csrc/<source>.cu`` with a launch
     count (a plain integer a caller may reset)."""
@@ -581,7 +586,8 @@ class _Kernel:
             rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 def scan_block(R: int, B: int, n_sm: int) -> int:
@@ -970,7 +976,8 @@ class TorchGrepProgram:
                                     self.max_states, self.segment, counts=c))
             counts.append(c)
             if dev.type == "cuda" and bs.shape[0] * bs.shape[1]:
-                grep_mesh.launches += 1
+                with _COUNT_LOCK:
+                    grep_mesh.launches += 1
         dev0 = mesh.devices[0]
         mask = torch.cat([m.to(dev0) for m in masks], dim=axis)
         if not with_counts:

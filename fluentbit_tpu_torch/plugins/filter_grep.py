@@ -25,12 +25,20 @@ segment N+1 overlaps the kernel of segment N), overflow rows are decoded
 and re-checked on the host, and the survivors are copied as byte spans,
 with no decode and no re-encode. Over a mesh (``FBTPU_MESH``) each
 segment launches through the sharded dispatch (K5, ``ops.grep``).
+
+The raw path is ``thread_safe_raw`` (the reference's
+filter_grep.py:187-190): its rules and program are fixed after
+``init``, it stages into buffers of its own per call, its totals go to
+per-thread shards (``ShardedTimings``) and the launch counters take a
+lock, so the engine runs it for several inputs at once under each
+input's own lock.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import threading
 import time
 from typing import List, Optional
 
@@ -50,6 +58,51 @@ LEGACY, AND, OR = "legacy", "AND", "OR"
 class _RawDecline(Exception):
     """A segment's staging cannot serve this chunk: unwind the pipeline
     and decline to the decoded path."""
+
+
+class ShardedTimings:
+    """The raw path's totals in per-thread shards (the reference's
+    ``ShardedTimings``, filter_grep.py:44-95): an add goes to the calling
+    thread's own dict, with no lock, and a read sums the shards. The
+    mapping interface stays: ``timings["extract_s"]`` reads the sum, and
+    an item write is the reset, storing the value into every shard (so
+    it means something for 0 only)."""
+
+    _KEYS = ("extract_s", "kernel_s", "overflow_s", "compact_s", "records")
+
+    def __init__(self) -> None:
+        self._tls = threading.local()
+        self._shards: list = []
+        self._reg_lock = threading.Lock()  # shard registration (cold)
+
+    def _shard(self) -> dict:
+        d = getattr(self._tls, "d", None)
+        if d is None:
+            d = dict.fromkeys(self._KEYS, 0)
+            with self._reg_lock:
+                self._shards.append(d)
+            self._tls.d = d
+        return d
+
+    def add(self, key: str, value) -> None:
+        self._shard()[key] += value
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __contains__(self, key) -> bool:
+        return key in self._KEYS
+
+    def __getitem__(self, key):
+        with self._reg_lock:
+            shards = list(self._shards)
+        return sum(d[key] for d in shards)
+
+    def __setitem__(self, key, value) -> None:
+        with self._reg_lock:
+            shards = list(self._shards)
+        for d in shards:
+            d[key] = value
 
 
 def _to_text(v) -> Optional[str]:
@@ -130,6 +183,9 @@ def parse_grep_rules(properties) -> List[Rule]:
 class GrepFilter(FilterPlugin):
     name = "grep"
     description = "keep/exclude records matching regex patterns"
+    # the raw path keeps no state across appends beyond its sharded
+    # totals and the locked launch counters: inputs run it in parallel
+    thread_safe_raw = True
     config_map = [
         ConfigMapEntry("regex", "slist", multiple=True, slist_max_split=1,
                        desc="keep rule: <field> <pattern>"),
@@ -158,16 +214,15 @@ class GrepFilter(FilterPlugin):
         #: each device match on the decoded path, the most recent appends
         #: only
         self.match_seconds: collections.deque = collections.deque(maxlen=4096)
-        #: the raw path's totals: host seconds of field staging
-        #: (``extract_s``), of launches and readbacks beyond the staging
-        #: (``kernel_s``), of the overflow rows' decode and regex
-        #: (``overflow_s``) and of survivor compaction (``compact_s``),
-        #: and the records it matched
-        self.raw_timings = dict.fromkeys(
-            ("extract_s", "kernel_s", "overflow_s", "compact_s", "records"),
-            0)
+        #: the raw path's totals, summed over the threads that appended:
+        #: host seconds of field staging (``extract_s``), of launches and
+        #: readbacks beyond the staging (``kernel_s``), of the overflow
+        #: rows' decode and regex (``overflow_s``) and of survivor
+        #: compaction (``compact_s``), and the records it matched
+        self.raw_timings = ShardedTimings()
         #: (extract, kernel, overflow, compact) seconds of each raw
-        #: append, the most recent appends only
+        #: append, the most recent appends only (a deque's append is
+        #: atomic)
         self.raw_step_seconds: collections.deque = collections.deque(
             maxlen=4096)
         self._mesh = self._mesh_resolved = None
@@ -292,12 +347,13 @@ class GrepFilter(FilterPlugin):
         if n_records is not None and n_records < self.tpu_batch_records:
             return None
         tm = self.raw_timings
-        before = (tm["extract_s"], tm["kernel_s"], tm["overflow_s"])
-        got = self._device_match_raw(data, n_records, mesh=self._grep_mesh())
+        steps = [0.0, 0.0, 0.0]
+        got = self._device_match_raw(data, n_records, mesh=self._grep_mesh(),
+                                     steps=steps)
         if got is None:
             return None
         mask, offsets, n = got
-        tm["records"] += n
+        tm.add("records", n)
         keep = self.keep_mask(mask)
         n_keep = int(keep.sum())
         compact_s = 0.0
@@ -312,14 +368,11 @@ class GrepFilter(FilterPlugin):
             if out is None:
                 raise RuntimeError("grep: compact found a record span "
                                    "outside the chunk")
-            tm["compact_s"] += compact_s
-        self.raw_step_seconds.append((tm["extract_s"] - before[0],
-                                      tm["kernel_s"] - before[1],
-                                      tm["overflow_s"] - before[2],
-                                      compact_s))
+            tm.add("compact_s", compact_s)
+        self.raw_step_seconds.append((*steps, compact_s))
         return (n_keep, out, n)
 
-    def _device_match_raw(self, data, n_records, mesh=None):
+    def _device_match_raw(self, data, n_records, mesh=None, steps=None):
         """Device matching straight off chunk bytes, double-buffered.
 
         The chunk's records split into segments of
@@ -336,7 +389,9 @@ class GrepFilter(FilterPlugin):
         shard count and launches ``dispatch_mesh(..., with_counts=
         False)``. Overflow rows (-2) are decoded and re-checked with the
         regex on the host. Returns ``(mask bool [R, n], offsets[n+1],
-        n)``, or None to decline."""
+        n)``, or None to decline; adds the call's extract, kernel and
+        overflow seconds to ``raw_timings`` and writes them into
+        ``steps`` (a list of three) when given."""
         from .. import native
         from ..core.chunk_batch import double_buffered, segment_bounds
 
@@ -441,9 +496,10 @@ class GrepFilter(FilterPlugin):
         except _RawDecline:
             return None
         wall = time.perf_counter() - t_all
+        kernel_s = max(wall - extract_s[0], 0.0)
         tm = self.raw_timings
-        tm["extract_s"] += extract_s[0]
-        tm["kernel_s"] += max(wall - extract_s[0], 0.0)
+        tm.add("extract_s", extract_s[0])
+        tm.add("kernel_s", kernel_s)
         offsets = offs_box[0]
         mask = np.concatenate([m[:, :c] for m, c in zip(masks, cnts)], axis=1)
         lengths = np.concatenate(lens_parts, axis=1)
@@ -455,7 +511,10 @@ class GrepFilter(FilterPlugin):
             for r, rule in enumerate(self.rules):
                 if lengths[r, b_idx] == -2:
                     mask[r, b_idx] = rule.match(body)
-        tm["overflow_s"] += time.perf_counter() - t0
+        overflow_s = time.perf_counter() - t0
+        tm.add("overflow_s", overflow_s)
+        if steps is not None:
+            steps[:] = (extract_s[0], kernel_s, overflow_s)
         return mask, offsets, n
 
     def filter(self, events: list, tag: str, engine) -> tuple:

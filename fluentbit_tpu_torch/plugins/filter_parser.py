@@ -30,15 +30,19 @@ the regex. There is no host fallback for a device failure: it raises.
 readback, the overflow rows' regex, parse + apply).
 
 The raw path (``process_batch``, ``thread_safe_raw``; the reference's
-filter_parser.py:125-190 and :281-324): with a single regex parser that
-compiles to a DFA and a plain ``key_name``, the engine hands the filter
-the append's msgpack bytes. The host DFA twin (``native.grep_match``)
-gives the match mask in one walk of the chunk, on any device, as in the
-reference; the chunk then decodes and only the records the mask admits
-run the regex with captures (a ``bin`` value never stages, and always
-parses). If the walk and the decode count different records, the hook
-declines. The json parser keeps the decoded path, as the reference does
-without its C codec (a ROADMAP item).
+filter_parser.py:125-190 and :244-324) has two modes (``_batch_mode``).
+"regex": with a single regex parser that compiles to a DFA and a plain
+``key_name``, the host DFA twin (``native.grep_match``) gives the match
+mask in one walk of the chunk, on any device, as in the reference; the
+chunk then decodes and only the records the mask admits run the regex
+with captures (a ``bin`` value never stages, and always parses). If the
+walk and the decode count different records, the hook declines. "json":
+with a single json parser on a plain ``key_name``, no ``time_format``,
+no ``reserve_data`` and no ``preserve_key``, the event codec extension's
+``parser_json_batch`` transcodes the whole chunk (the bytes ``json.loads``
+→ ``pack_event`` would give a record); its ``FallbackError`` (a record
+outside the set it reproduces exactly) declines, and the decoded path
+runs the chunk.
 
 ``tpu_approx`` / ``tpu_approx_states`` are accepted; a value other than
 the default raises ValueError (the approximate DFA reduction is not
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..codec import _native_codec
 from ..codec.events import LogEvent, decode_events, reencode_event
 from ..core.config import ConfigMapEntry
 from ..core.plugin import FilterPlugin, FilterResult, registry
@@ -129,13 +134,21 @@ class ParserFilter(FilterPlugin):
             self._prefilter = program_for(
                 (self.parsers[0].regex.pattern,), self.tpu_max_record_len,
                 self.device)
-        # the raw path: one regex parser on a plain key
+        # the raw path: "json" transcodes the chunk in the codec
+        # extension, "regex" masks with the host DFA twin; one parser on
+        # a plain key either way
+        self._batch_mode = None
+        self._batch_key = self.key_name.encode("utf-8")
         self._batch_tables = None
         p0 = self.parsers[0]
-        if (self.ra is None and len(self.parsers) == 1
-                and p0.fmt == "regex" and p0.regex.dfa is not None):
-            self._batch_tables = native.GrepTables(
-                [(self.key_name.encode("utf-8"), p0.regex.dfa)])
+        if self.ra is None and len(self.parsers) == 1:
+            if (p0.fmt == "json" and p0.time_format is None
+                    and not self.reserve_data and not self.preserve_key):
+                self._batch_mode = "json"
+            elif p0.fmt == "regex" and p0.regex.dfa is not None:
+                self._batch_tables = native.GrepTables(
+                    [(self._batch_key, p0.regex.dfa)])
+                self._batch_mode = "regex"
 
     # -- per-record semantics --
 
@@ -194,9 +207,31 @@ class ParserFilter(FilterPlugin):
     # -- the raw path (engine process_batch hook) --
 
     def can_process_batch(self) -> bool:
-        return self._batch_tables is not None
+        return self._batch_mode is not None
 
     def process_batch(self, chunk):
+        if self._batch_mode == "json":
+            return self._process_batch_json(chunk)
+        return self._process_batch_regex(chunk)
+
+    def _process_batch_json(self, chunk):
+        """The whole chunk's JSON fields transcoded in the extension,
+        byte-equal to ``json.loads`` → ``pack_event`` a record. Its
+        ``FallbackError`` (a legacy or non-canonical record, a ``bin``
+        value, an integer past 64 bits, a lone surrogate, invalid UTF-8
+        in the text) declines: the decoded path gives that chunk's
+        defined result."""
+        mod = _native_codec.load()
+        data = chunk.as_bytes()
+        try:
+            out, n, parsed = mod.parser_json_batch(data, self._batch_key)
+        except mod.FallbackError:
+            return None
+        if parsed == 0:
+            return (n, data, n)  # nothing parsed: the bytes as they came
+        return (n, out, n)
+
+    def _process_batch_regex(self, chunk):
         data = chunk.as_bytes()
         got = native.grep_match(data, self._batch_tables, n_hint=chunk.n)
         if got is None:

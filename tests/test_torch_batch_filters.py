@@ -11,7 +11,12 @@ reference's, exactly. Also: a chunk from rewrite_tag's own emitter
 passes untouched; a decline after a stateful hook finishes the chain on
 the decoded records without emitting twice; dynamic labels keep
 log_to_metrics on the decoded path; four lib inputs pushing from
-threads through parser give the output of a serial run.
+threads through parser give the output of a serial run. The json
+parser's hook (the codec extension's ``parser_json_batch``) takes a
+json parser with no time format, ``reserve_data`` or ``preserve_key``,
+and declines a chunk with a legacy record; two lib inputs pushing from
+threads through grep's raw path give the records, totals and counters of
+a serial run.
 """
 
 import json
@@ -28,10 +33,11 @@ from fluentbit_tpu.codec.events import encode_event as ref_encode
 from fluentbit_tpu.codec.msgpack import Unpacker as RefUnpacker
 from fluentbit_tpu.core.engine import Engine as RefEngine
 from fluentbit_tpu_torch.codec.events import decode_events, encode_event
-from fluentbit_tpu_torch.codec.msgpack import Unpacker
+from fluentbit_tpu_torch.codec.msgpack import Unpacker, packb
 from fluentbit_tpu_torch.core.engine import Engine
 from test_torch_filter_parser import PARSERS, prefilter_events
 from test_torch_flux import closed_print, corpus, fingerprint
+from test_torch_native_codec import DOCS
 from test_torch_rewrite_tag import CONFIG3_RULES, config3_corpus
 
 FAMILIES = ("fluentbit_input_records_total", "fluentbit_input_bytes_total",
@@ -232,6 +238,56 @@ def test_parser_regex_equals_reference(reserve):
     assert families(port) == families(ref)
 
 
+JSON_PROPS = [("key_name", "log"), ("parser", "js")]
+
+
+def test_parser_json_hook_equals_reference_and_decoded():
+    """A json parser with no time format, reserve_data or preserve_key
+    takes the hook: the chunk equals the reference engine's (its own C
+    transcoder) and the port's decoded path. A legacy record in the
+    chunk declines in both packages, with the same output."""
+    bodies = [{"log": d, "i": i} for i, d in enumerate(DOCS * 3)]
+    bodies[3] = {"log": 12}
+    bodies[4] = {"n": 1}
+    ref, port = build([("parser", JSON_PROPS)], parsers=["js"])
+    _, decoded = build([("parser", JSON_PROPS)], parsers=["js"])
+    decoded.filters[0].plugin.can_process_batch = lambda: False
+    assert port.filters[0].plugin.can_process_batch()
+    assert port.filters[0].plugin.thread_safe_raw
+    assert ref.filters[0].plugin.can_process_batch()
+    legacy = packb([1700000000, {"log": '{"legacy": true}'}])
+    for tail in (b"", legacy):
+        data = encoded(bodies)
+        with_tail = lambda e, data=data, tail=tail: data(e) + tail
+        append_both((ref, port), with_tail)
+        decoded.input_log_append(decoded.inputs[0], "t", with_tail(decoded))
+        got = drained(port)
+        assert got == drained(ref) == drained(decoded)
+        parsed = [ev.body for ev in decode_events(got[0][2])]
+        assert parsed[1] == {"dup": {"replaced": [3]}, "mid": 2}
+        assert parsed[3] == {"log": 12} and parsed[4] == {"n": 1}
+        if tail:
+            assert parsed[-1] == {"legacy": True}
+    assert port.filters[0].batch_taken == 1
+    assert declines(port, "parser.0") == 1 == declines(ref, "parser.0")
+    assert families(port) == families(ref)
+
+
+@pytest.mark.parametrize("props,parsers,hook", [
+    (JSON_PROPS, ["js"], True),
+    (JSON_PROPS + [("reserve_data", "true")], ["js"], False),
+    (JSON_PROPS + [("preserve_key", "true")], ["js"], False),
+    ([("key_name", "log"), ("parser", "json")], ["json"], False),
+    ([("key_name", "$log"), ("parser", "js")], ["js"], False),
+    (JSON_PROPS + [("parser", "json")], ["js", "json"], False)],
+    ids=["plain", "reserve_data", "preserve_key", "time_format", "accessor",
+         "two_parsers"])
+def test_parser_json_gate_equals_reference(props, parsers, hook):
+    ref, port = build([("parser", props)], parsers=parsers)
+    assert port.filters[0].plugin.can_process_batch() is hook
+    assert ref.filters[0].plugin.can_process_batch() is hook
+
+
 # ------------------------------------------------------------- log_to_metrics
 
 L2M = [("exclude", "log DENY"), ("regex", "log GET"),
@@ -327,16 +383,22 @@ def test_flux_hook_equals_reference():
 
 # ------------------------------------------------- parallel inputs (parser)
 
-def run_lib_inputs(create, appends, threaded, **kw):
-    """Four lib inputs (tags t0..t3) through parser apache2 into a lib
-    output; each input's appends pushed by a thread of its own, or all in
-    turn. Returns each tag's bytes in arrival order and the context."""
+PARSER_FILTER = dict(name="parser", key_name="log", parser="apache2",
+                     **{"tpu.enable": "off"})
+
+
+def run_lib_inputs(create, appends, threaded, filt=PARSER_FILTER, **kw):
+    """A lib input per list of appends (tags t0, t1, ...) through one
+    filter (parser apache2 by default) into a lib output; each input's
+    appends pushed by a thread of its own, or all in turn. Returns each
+    tag's bytes in arrival order and the context."""
     got = {}
+    n_inputs = len(appends)
     ctx = create(flush="50ms", grace="1", **kw)
     ctx.parser("apache2", **PARSERS["apache2"])
-    ffds = [ctx.input("lib", tag=f"t{i}") for i in range(4)]
-    ctx.filter("parser", match="t*", key_name="log", parser="apache2",
-               **{"tpu.enable": "off"})
+    ffds = [ctx.input("lib", tag=f"t{i}") for i in range(n_inputs)]
+    props = dict(filt)
+    ctx.filter(props.pop("name"), match="t*", **props)
     ctx.output("lib", match="*", callback=lambda d, t: got.setdefault(
         t, []).append(d))
     ctx.start()
@@ -347,7 +409,7 @@ def run_lib_inputs(create, appends, threaded, **kw):
 
         if threaded:
             threads = [threading.Thread(target=push, args=(i,))
-                       for i in range(4)]
+                       for i in range(n_inputs)]
             # switch threads often: a lost update of a shared counter or
             # pool would show
             interval = sys.getswitchinterval()
@@ -361,7 +423,7 @@ def run_lib_inputs(create, appends, threaded, **kw):
                 sys.setswitchinterval(interval)
             assert not any(th.is_alive() for th in threads)
         else:
-            for i in range(4):
+            for i in range(n_inputs):
                 push(i)
         ctx.flush_now()
     finally:
@@ -385,3 +447,31 @@ def test_parallel_inputs_equal_serial_and_reference():
     assert families(ctx.engine) == families(serial_ctx.engine)
     assert len([ln for ln in families(ctx.engine)
                 if ln.startswith("fluentbit_input_records_total")]) == 4
+
+
+def test_grep_parallel_inputs_equal_serial():
+    """grep is thread_safe_raw: two lib inputs push appends of >= 32
+    records from threads of their own, each under its own lock, through
+    the raw path; the records, grep's totals and the counter families
+    equal a serial run's."""
+    appends = [[json.dumps([[1700000000 + k + 0.5, b] for b in
+                            prefilter_events(20 * i + k, 48)])
+                for k in range(8)] for i in range(2)]
+    grep = dict(name="grep", exclude="log 404")
+    serial, serial_ctx = run_lib_inputs(fluentbit_tpu_torch.create, appends,
+                                        False, grep, device="cpu")
+    par, ctx = run_lib_inputs(fluentbit_tpu_torch.create, appends, True,
+                              grep, device="cpu")
+    assert sorted(par) == ["t0", "t1"]
+    assert par == serial
+    plugin, serial_plugin = (c.engine.filters[0].plugin
+                             for c in (ctx, serial_ctx))
+    assert plugin.thread_safe_raw
+    assert plugin.raw_timings["records"] == 2 * 8 * 48 == \
+        serial_plugin.raw_timings["records"]
+    assert len(plugin.raw_step_seconds) == 16 and not plugin.match_seconds
+    assert families(ctx.engine) == families(serial_ctx.engine)
+    assert any(ln.startswith("fluentbit_filter_drop_records_total")
+               for ln in families(ctx.engine))
+    plugin.raw_timings["records"] = 0  # the reset every shard takes
+    assert plugin.raw_timings["records"] == 0

@@ -147,11 +147,12 @@ PORT_MODULES = (
     "plugins/net_forward.py", "core/relay.py", "core/upstream.py",
     "utils/__init__.py", "plugins/filter_kubernetes.py",
     "config_format/__init__.py",  # config 5 and the config loader
+    "codec/_native_codec.py",  # the event codec extension
 )
 
-#: what a module that loads or builds the reference's native library
-#: would name
-REFERENCE_NATIVE = ("native/build", "fbtpu_native")
+#: what a module that loads or builds the reference's native library or
+#: its C codec would name
+REFERENCE_NATIVE = ("native/build", "fbtpu_native", "fbtpu_codec")
 
 
 def _code_strings(path):
@@ -185,16 +186,25 @@ def test_port_imports_neither_jax_nor_reference_package():
 def test_import_loads_no_jax_or_reference_module():
     modules = ", ".join("fluentbit_tpu_torch." + m[:-3].replace("/", ".")
                         for m in PORT_MODULES)
-    # the host codec is loaded too: the process maps the port's own
-    # library and none built from the reference's native/
+    # the host codec and the event codec extension are loaded too: the
+    # process maps the port's own libraries, the extension built from
+    # csrc/codec_py.cpp, and none built from the reference's native/
     code = (
         f"import sys, fluentbit_tpu_torch, {modules}\n"
+        "from fluentbit_tpu_torch.codec import _native_codec, events\n"
+        "from fluentbit_tpu_torch.ops import cuda_build\n"
+        "assert _native_codec.load.cache_info().currsize == 0\n"
         "assert fluentbit_tpu_torch.native.available()\n"
+        "events.decode_events(events.encode_event({'a': 1}, 1.0))\n"
+        "mod = _native_codec.load()\n"
+        "assert mod.__file__ == str(cuda_build.library_path('codec_py'))\n"
+        "assert cuda_build.source_path('codec_py').name == 'codec_py.cpp'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'fluentbit_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'fluentbit_tpu', 'triton', 'fbtpu_codec')]\n"
         "maps = open('/proc/self/maps').read()\n"
-        "bad += [n for n in ('fbtpu_native', 'native/build') if n in maps]\n"
-        "assert 'libcodec_host-' in maps\n"
+        "bad += [n for n in ('fbtpu_native', 'native/build', 'fbtpu_codec.')"
+        " if n in maps]\n"
+        "assert 'libcodec_host-' in maps and 'libcodec_py-' in maps\n"
         "print(','.join(bad))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

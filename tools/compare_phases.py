@@ -1,15 +1,20 @@
-"""Run configs 3, 2r and flux through one tree's own chip_smoke.py phases.
+"""Run pipelines through one tree's own chip_smoke.py phases.
 
-    python tools/compare_phases.py <tree root> [config3] [config2r] [flux]
+    python tools/compare_phases.py <tree root> [config1] [config2]
+        [config2j] [config2r] [config3] [config4] [config5] [flux]
 
 On a host with a CUDA card. The tree's root (a checkout, or a
 ``git archive`` of another commit unpacked in a git-ignored directory)
 goes first on ``sys.path``, so its ``fluentbit_tpu_torch`` and its
 ``chip_smoke.py`` run; the phases get the seed 0 and, where a phase
-only reads a kernel's time for a busy share, a fixed stand-in. Prints
-one line ``compare: <root> {...}`` with each phase's lines/s, p50 steps
-and launches (or its failure). To compare two trees, run them in turns
-in one call: parent, change, change, parent.
+only reads a kernel's time for a busy share, a fixed stand-in. config1
+is the raw path on pre-encoded chunks (``phase_raw_chunks``: regex, then
+regex + Exclude, with the p50 raw steps, the overflow re-check among
+them); config2j is the json parser's batch hook, a phase a tree before
+it lacks (then reported as failed). Prints one line ``compare: <root>
+{...}`` with each phase's lines/s, p50 steps and launches (or its
+failure). To compare two trees, run them in turns in one call: parent,
+change, change, parent.
 """
 import importlib.util
 import json
@@ -19,7 +24,16 @@ import sys
 
 KEYS = ("lines_per_s", "cpu_lines_per_s", "hook", "cpu_hook", "p50_ms",
         "cpu_p50_ms", "appends", "launches", "raw_launches",
-        "mesh_lines_per_s")
+        "mesh_lines_per_s", "p50_append_raw", "cpu_p50_append_raw",
+        "as_written_lines_per_s", "kube_p50_ms", "grep_p50_ms",
+        "p50_ms_cardinality", "p50_ms_frequency")
+
+
+def pick(res: dict) -> dict:
+    """The KEYS of a phase's result; config1's per rule set."""
+    if "regex" in res:
+        return {label: pick(r) for label, r in res.items()}
+    return {k: res[k] for k in KEYS if k in res}
 
 
 def main() -> int:
@@ -35,12 +49,15 @@ def main() -> int:
     import torch
 
     import fluentbit_tpu_torch as flb
-    from fluentbit_tpu_torch.codec.events import decode_events
+    from fluentbit_tpu_torch import config_format as tcf
+    from fluentbit_tpu_torch.codec.events import decode_events, encode_event
+    from fluentbit_tpu_torch.codec.msgpack import EventTime
     from fluentbit_tpu_torch.flux import kernels as tfk
     from fluentbit_tpu_torch.ops import cuda_build
     from fluentbit_tpu_torch.ops import grep as tg
     from fluentbit_tpu_torch.ops import mesh as tmesh
     from fluentbit_tpu_torch.ops import sketch as tsk
+    from fluentbit_tpu_torch.ops import utf8 as tu
     from fluentbit_tpu_torch.ops.batch import assemble
 
     if not os.path.abspath(flb.__file__).startswith(root):
@@ -52,9 +69,31 @@ def main() -> int:
     cuda_build.libraries.build(list(cuda_build.SOURCES))
     card = cs.card_line()
     out = {}
+    ndjson = None
     for w in which:
         try:
-            if w == "config3":
+            if w in ("config2", "config2j") and ndjson is None:
+                ndjson = cs.ndjson_corpus(0, cs.CONFIG2_LINES)
+            if w == "config1":
+                appends = cs.make_appends(0, cs.APPENDS, cs.RECORDS)
+                chunks = cs.encode_chunks(encode_event, EventTime, appends)
+                res = cs.phase_raw_chunks(tg, flb, decode_events, chunks,
+                                          appends, card)
+            elif w == "config2":
+                res = cs.phase_config2(np, torch, tu, assemble, flb,
+                                       decode_events, ndjson, card)
+            elif w == "config2j":
+                res = cs.phase_config2j(flb, decode_events, ndjson, card)
+            elif w == "config4":
+                res = cs.phase_config4(np, torch, tsk, flb, 0, card, [
+                    {"kernel": "hll_update", "shape": [cs.RECORDS, 256],
+                     "p": cs.HLL_P, "ms": 0.0050},
+                    {"kernel": "cms_update", "case": "path",
+                     "ms": 0.0035}])
+            elif w == "config5":
+                res = cs.phase_config5(np, torch, tg, assemble, flb, tcf,
+                                       decode_events, 0, card)
+            elif w == "config3":
                 res = cs.phase_config3(tg, flb, decode_events, 0, card, [
                     {"program": "config3", "shape": [8, cs.TAIL_BUCKET, 512],
                      "segment": 32, "ms": 0.0236}])
@@ -75,8 +114,10 @@ def main() -> int:
                       "ms": 0.0049}])
             else:
                 continue
-            out[w] = {k: res[k] for k in KEYS if k in res}
+            out[w] = pick(res)
         except SystemExit as e:  # a phase's failed check
+            out[w] = {"failed": str(e)[:800]}
+        except AttributeError as e:  # a phase this tree does not have
             out[w] = {"failed": str(e)[:800]}
     print("compare:", root, json.dumps(out), flush=True)
     return 0
