@@ -50,6 +50,23 @@ Phases (any failure exits non-zero):
    without the counts epilogue; and K3 (apache2) and K4 (Exclude) on
    config 1's own rows, its first append staged as the raw path stages
    it, against their plain versions, with times;
+4d. delivery: (a) config 1's raw path at full width (the 64 appends of
+   4096 records through ``ctx.push`` on cuda) to two outputs, ``file``
+   (``workers 2``, ``retry_limit 5``, ``format plain``, its directory
+   made only once the output's ``retries_total`` reaches 1) and
+   ``retry`` (``retry_limit 1``), with ``scheduler.base`` 0.05 and
+   ``scheduler.cap`` 0.1: the file's lines, as a multiset, must be the
+   Python ``re`` filter's bodies, ``proc_records_total`` the kept
+   records, ``retries_total`` >= 1 and ``dropped_records_total`` 0 for
+   the file; one retry, one exhausted retry and one error a chunk and
+   every kept record dropped for ``retry``; K3 launched once an append,
+   as in phase 4; (b) the same appends with a second lib output under
+   ``route_condition`` ``$log regex`` ``ROUTE_5XX`` (a 5xx status
+   between blanks), which sends them down the decoded path (K3 through
+   ``_match_matrix_device``, once an append): the conditional output's
+   records equal to Python ``re`` on the kept records' ``log`` strings,
+   the unconditional one every kept record; lines/s and the p50
+   delivery latency of each;
 5. sketch kernels against plain: ``hll_update`` (p = 14, 10) and
    ``cms_update`` (4 x 16384 int32, 4 x 512 int64, 4 x 16384 int32 with
    weights) against their plain torch versions on the card at the main
@@ -232,6 +249,8 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 APACHE2 = (
@@ -707,6 +726,186 @@ def phase_pipeline(tg, flb, decode_events, appends: list, card: str) -> dict:
             raise SystemExit(f"{label}: not the raw chunk path: {route} "
                              f"{cpu_route}")
         report[label] = res
+    return report
+
+
+ROUTE_5XX = r"\s5[0-9][0-9]\s"
+ROUTE_5XX_PY = re.compile(ROUTE_5XX, re.ASCII)
+
+
+def hist_p50(metric, name: str):
+    """The median of a latency histogram's series, interpolated within
+    its bucket as Prometheus' ``histogram_quantile`` does."""
+    counts, _sum = metric.hist_samples()[(name,)]
+    total, seen, lower = sum(counts), 0, 0.0
+    for upper, n in zip(list(metric.buckets) + [math.inf], counts):
+        if n and seen + n >= total / 2:
+            if upper == math.inf:
+                return lower
+            return lower + (upper - lower) * (total / 2 - seen) / n
+        seen += n
+        lower = upper
+    return None
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"delivery: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def body_key(body) -> str:
+    return json.dumps(body, sort_keys=True)
+
+
+def phase_delivery(tg, flb, decode_events, appends: list, card: str,
+                   k3_launches: int) -> dict:
+    """Config 1's appends through the delivery core: retries to a file
+    whose directory comes late, an output that always retries, worker
+    threads, and conditional routing on the decoded path."""
+    n_records = sum(len(r) for r, _ in appends)
+    kept = expected_bodies(appends, exclude=False)
+    logging.getLogger("flb.engine").setLevel(logging.ERROR)  # 64 drops
+    base = tempfile.mkdtemp(prefix="fbtpu-delivery-")
+    report = {"records": n_records, "kept": len(kept), "card": card}
+    try:
+        # (a) the raw path, a file that answers RETRY until its directory
+        # exists, and out_retry
+        target = os.path.join(base, "out")
+        ctx = flb.create(device="cuda", flush="50ms", grace="2",
+                         **{"scheduler.base": "0.05",
+                            "scheduler.cap": "0.1"})
+        in_ffd = ctx.input("lib", tag="bench.apache")
+        ctx.filter("grep", match="bench.*", regex="log " + APACHE2)
+        ctx.output("file", match="*", path=target, file="delivered.txt",
+                   format="plain", workers="2", retry_limit="5")
+        ctx.output("retry", match="*", retry_limit="1")
+        e = ctx.engine
+        fname, rname = (o.display_name for o in e.outputs)
+
+        def make_dir():
+            # the directory comes once the file output has retried
+            deadline = time.perf_counter() + 60
+            while e.m_out_retries.get((fname,)) < 1 \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.002)
+            os.makedirs(target)
+
+        watcher = threading.Thread(target=make_dir, daemon=True)
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        ctx.start()
+        try:
+            watcher.start()
+            t0 = time.perf_counter()
+            for _recs, text in appends:
+                ctx.push(in_ffd, text)
+            push_wall = time.perf_counter() - t0
+            watcher.join(timeout=60)
+            wait_for(lambda: e.m_out_proc_records.get((fname,))
+                     + e.m_out_dropped.get((fname,)) >= len(kept)
+                     and e.m_out_dropped.get((rname,)) >= len(kept), 60,
+                     "every kept record delivered or dropped")
+            wall = time.perf_counter() - t0
+        finally:
+            ctx.stop()
+        launches = {"grep_dfa": tg.grep_dfa.launches,
+                    "grep_assoc": tg.grep_assoc.launches}
+        with open(os.path.join(target, "delivered.txt"),
+                  encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        chunks = e.m_latency.get((fname,))
+        counts = {name: {fam: m.get((name,)) for fam, m in (
+            ("proc_records", e.m_out_proc_records),
+            ("retries", e.m_out_retries),
+            ("retries_failed", e.m_out_retries_failed),
+            ("errors", e.m_out_errors),
+            ("dropped_records", e.m_out_dropped))}
+            for name in (fname, rname)}
+        raw = {"launches": launches, "counters": counts, "chunks": chunks,
+               "worker_pool_threads": e.outputs[0].workers,
+               "file_lines_equal_python_re": collections.Counter(lines)
+               == collections.Counter(json.dumps(b) for b in kept),
+               "lines_per_s": n_records / wall,
+               "ingest_lines_per_s": n_records / push_wall,
+               "p50_latency_s": hist_p50(e.m_latency, fname)}
+        report["raw"] = raw
+        log("delivery: " + json.dumps(raw))
+        f, r = counts[fname], counts[rname]
+        if not raw["file_lines_equal_python_re"]:
+            raise SystemExit(f"delivery: the file's {len(lines)} lines are "
+                             f"not the {len(kept)} kept bodies")
+        if f["proc_records"] != len(kept) or f["retries"] < 1 \
+                or f["dropped_records"] or f["errors"]:
+            raise SystemExit(f"delivery: file output counters {f}")
+        if not (r["retries"] == r["retries_failed"] == r["errors"]
+                == chunks > 0) or r["dropped_records"] != len(kept) \
+                or r["proc_records"]:
+            raise SystemExit(f"delivery: retry output counters {r}, "
+                             f"{chunks} chunks")
+        if launches != {"grep_dfa": k3_launches, "grep_assoc": 0}:
+            raise SystemExit(f"delivery: {launches} launches, expected "
+                             f"{k3_launches} of grep_dfa")
+
+        # (b) conditional routing: the decoded path
+        outs = ([], [])
+        ctx = flb.create(device="cuda", flush="50ms", grace="2")
+        in_ffd = ctx.input("lib", tag="bench.apache")
+        ctx.filter("grep", match="bench.*", regex="log " + APACHE2)
+        ctx.output("lib", match="*",
+                   callback=lambda data, tag: outs[0].append(data))
+        ctx.output("lib", match="*", route_condition="$log regex "
+                   + ROUTE_5XX, callback=lambda data, tag:
+                   outs[1].append(data))
+        e = ctx.engine
+        names = [o.display_name for o in e.outputs]
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        ctx.start()
+        try:
+            t0 = time.perf_counter()
+            for _recs, text in appends:
+                ctx.push(in_ffd, text)
+            want_5xx = [b for b in kept if isinstance(b.get("log"), str)
+                        and ROUTE_5XX_PY.search(b["log"])]
+            wait_for(lambda: e.m_out_proc_records.get((names[0],))
+                     >= len(kept) and e.m_out_proc_records.get(
+                         (names[1],)) >= len(want_5xx), 60,
+                     "the routed records")
+            wall = time.perf_counter() - t0
+        finally:
+            ctx.stop()
+        grep = e.filters[0].plugin
+        got = [[ev.body for d in o for ev in decode_events(d)]
+               for o in outs]
+        routed = {
+            "launches": {"grep_dfa": tg.grep_dfa.launches,
+                         "grep_assoc": tg.grep_assoc.launches},
+            "decoded_device_appends": len(grep.match_seconds),
+            "raw_records": grep.raw_timings["records"],
+            "all": len(got[0]), "routed_5xx": len(got[1]),
+            "all_equal_python_re": collections.Counter(map(body_key, got[0]))
+            == collections.Counter(map(body_key, kept)),
+            "routed_equal_python_re": collections.Counter(
+                map(body_key, got[1]))
+            == collections.Counter(map(body_key, want_5xx)),
+            "lines_per_s": n_records / wall,
+            "p50_latency_s": hist_p50(e.m_latency, names[0]),
+            "routed_p50_latency_s": hist_p50(e.m_latency, names[1])}
+        report["routed"] = routed
+        log("delivery routed: " + json.dumps(routed))
+        if not (routed["all_equal_python_re"]
+                and routed["routed_equal_python_re"]):
+            raise SystemExit("delivery: routed records differ from Python "
+                             f"re ({len(got[0])}, {len(got[1])} of "
+                             f"{len(kept)}, {len(want_5xx)})")
+        if routed["raw_records"] or routed["decoded_device_appends"] != \
+                len(appends) or routed["launches"] != {
+                    "grep_dfa": len(appends), "grep_assoc": 0}:
+            raise SystemExit(f"delivery: not the decoded path: {routed}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        logging.getLogger("flb.engine").setLevel(logging.NOTSET)
     return report
 
 
@@ -4196,6 +4395,8 @@ def main() -> int:
                        decode_events, chunks, appends, env["card"])
     mesh = timed("mesh", phase_mesh, np, torch, tg, tmesh, compile_dfa, flb,
                  chunks, args.seed, env["card"])
+    timed("delivery", phase_delivery, tg, flb, decode_events,
+          appends, env["card"], pipeline["regex"]["launches"]["grep_dfa"])
     sketches = timed("sketch_kernels", phase_sketch_kernels, np, torch, tsk,
                      assemble, args.seed)
     config4 = timed("config4", phase_config4, np, torch, tsk, flb, args.seed,

@@ -1,8 +1,12 @@
 """Tagged chunks — the unit of buffering, routing and flushing.
 
-The port's own copy of ``fluentbit_tpu/codec/chunk.py``, trimmed to the
-in-memory decoded path (no copy witness, no storage or qos stamps). Log
-and metrics chunks share a pool, keyed by event type and tag.
+The port's own copy of ``fluentbit_tpu/codec/chunk.py``, trimmed to
+in-memory chunks (no copy witness, no storage or qos stamps). Log and
+metrics chunks share a pool, keyed by event type, tag and route mask: a
+conditionally routed group of records never merges into a chunk with
+other routes. A chunk carries an id (the retry timers' key), its
+creation time (the delivery latency's start), the route mask and the
+names of its routes.
 
 Reference semantics (src/flb_input_chunk.c): each input owns a pool of
 chunks keyed by tag; appends go to the active chunk for that tag until it
@@ -13,7 +17,9 @@ ready chunks and creates one flush per chunk and route.
 
 from __future__ import annotations
 
-from typing import Dict, List
+import itertools
+import time
+from typing import Dict, List, Optional, Tuple
 
 # Reference: chunks are locked once above ~2MB so flushes stay bounded.
 CHUNK_TARGET_SIZE = 2 * 1024 * 1024
@@ -21,13 +27,17 @@ CHUNK_TARGET_SIZE = 2 * 1024 * 1024
 EVENT_TYPE_LOGS = "logs"
 EVENT_TYPE_METRICS = "metrics"
 
+_chunk_ids = itertools.count(1)
+
 
 class Chunk:
     """A tagged, append-only buffer of concatenated msgpack events."""
 
-    __slots__ = ("tag", "event_type", "_parts", "_size", "records", "locked")
+    __slots__ = ("id", "tag", "event_type", "_parts", "_size", "records",
+                 "created", "locked", "routes_mask", "route_names")
 
     def __init__(self, tag: str, event_type: str = EVENT_TYPE_LOGS):
+        self.id = next(_chunk_ids)
         self.tag = tag
         self.event_type = event_type
         # appended spans are kept as a part list and joined lazily at
@@ -35,7 +45,13 @@ class Chunk:
         self._parts: List[bytes] = []
         self._size = 0
         self.records = 0
+        self.created = time.time()
         self.locked = False
+        # the outputs' bits of a conditionally routed chunk (0: route by
+        # tag) and, stamped at the split, their names, which dispatch
+        # resolves first
+        self.routes_mask = 0
+        self.route_names: Optional[Tuple[str, ...]] = None
 
     @property
     def size(self) -> int:
@@ -73,11 +89,13 @@ class ChunkPool:
         self._ready: List[Chunk] = []
 
     def append(self, tag: str, data: bytes, n_records: int,
-               event_type: str = EVENT_TYPE_LOGS) -> Chunk:
-        key = (event_type, tag)
+               event_type: str = EVENT_TYPE_LOGS,
+               routes_mask: int = 0) -> Chunk:
+        key = (event_type, tag, routes_mask)
         chunk = self._active.get(key)
         if chunk is None:
             chunk = self._active[key] = Chunk(tag, event_type)
+            chunk.routes_mask = routes_mask
         chunk.append(data, n_records)
         if chunk.locked:
             self._ready.append(chunk)

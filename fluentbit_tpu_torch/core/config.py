@@ -127,15 +127,22 @@ class Properties:
                 return v
         return default
 
+    def get_all(self, key: str) -> List[Any]:
+        """Every value of a multi-value key, in the order set."""
+        k = key.lower()
+        return [v for lk, _, v in self._items if lk == k]
+
     def items(self):
         return [(orig, v) for _, orig, v in self._items]
 
 
 def apply_config_map(config_map: List[ConfigMapEntry], props: Properties,
-                     target: Any) -> None:
+                     target: Any, instance_keys=frozenset()) -> None:
     """Validate + coerce properties onto ``target`` attributes.
 
     Unknown properties raise (the reference fails startup on unknown keys).
+    ``instance_keys`` are the engine's keys of this kind of instance
+    (``OUTPUT_INSTANCE_KEYS``), read by the instance itself.
     Attribute name is the option name lowercased with '.' and '-' → '_'.
     """
     by_name = {e.name.lower(): e for e in config_map}
@@ -144,7 +151,7 @@ def apply_config_map(config_map: List[ConfigMapEntry], props: Properties,
         lk = key.lower()
         entry = by_name.get(lk)
         if entry is None:
-            if lk in CORE_INSTANCE_KEYS:
+            if lk in CORE_INSTANCE_KEYS or lk in instance_keys:
                 continue
             if lk in UNPORTED_INSTANCE_KEYS or lk.startswith("tenant."):
                 raise ValueError(
@@ -179,6 +186,11 @@ def _attr_name(name: str) -> str:
 # (reference: flb_input.c/flb_output.c/flb_filter.c common properties).
 CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level"}
 
+#: the engine's keys of an output instance (``OutputInstance.configure``):
+#: retries, worker threads, one flush at a time, conditional routing
+OUTPUT_INSTANCE_KEYS = frozenset(
+    {"retry_limit", "workers", "no_multiplex", "route_condition"})
+
 #: the reference's other common keys (its CORE_INSTANCE_KEYS), which the
 #: port cannot honour yet: setting one raises, naming what is missing.
 #: ``host`` and ``port`` are accepted only by the plugins that declare
@@ -188,9 +200,6 @@ UNPORTED_INSTANCE_KEYS = {
     "storage.type": "filesystem storage",
     "storage.pause_on_chunks_overlimit": "filesystem storage",
     "threaded": "threaded inputs",
-    "workers": "output worker threads",
-    "retry_limit": "retry scheduler",
-    "no_multiplex": "output worker threads",
     "tls": "TLS on plugin connections",
     "tls.verify": "TLS on plugin connections",
     "tls.ca_file": "TLS on plugin connections",
@@ -199,7 +208,6 @@ UNPORTED_INSTANCE_KEYS = {
     "tls.vhost": "TLS on plugin connections",
     "http2": "HTTP/2 outputs",
     "proxy": "HTTP proxy outputs",
-    "route_condition": "conditional routing",
     "flush_timeout": "flush deadlines (guard)",
     "tenant": "qos plane",
     "net.keepalive": "upstream connection pools",
@@ -215,10 +223,18 @@ class ServiceConfig:
 
     flush: float = 1.0           # flush timer interval seconds
     grace: float = 5.0           # shutdown grace period
+    scheduler_base: float = 5.0      # retry backoff base (flb_scheduler.h:29)
+    scheduler_cap: float = 2000.0    # retry backoff cap  (flb_scheduler.h:30)
+    retry_limit: int = 1             # default per-output retries
+    task_map_size: int = 2048        # FLB_CONFIG_DEFAULT_TASK_MAP_SIZE
 
     _KEYMAP = {
         "flush": ("flush", parse_time),
         "grace": ("grace", parse_time),
+        "scheduler.base": ("scheduler_base", parse_time),
+        "scheduler.cap": ("scheduler_cap", parse_time),
+        "retry_limit": ("retry_limit", int),
+        "task_map_size": ("task_map_size", int),
     }
 
     def set(self, key: str, value: Any) -> None:
@@ -226,7 +242,7 @@ class ServiceConfig:
         mapped = self._KEYMAP.get(lk)
         if mapped is None:
             if lk in UNPORTED_SERVICE_KEYS or lk.split(".")[0] in (
-                    "storage", "guard", "qos", "tpu", "scheduler"):
+                    "storage", "guard", "qos", "tpu"):
                 raise ValueError(f"service property {key!r} is not "
                                  "ported")
             raise ValueError(f"unknown service property {key!r}")
@@ -235,9 +251,9 @@ class ServiceConfig:
 
 
 #: the reference's other [SERVICE] keys (its ServiceConfig._KEYMAP,
-#: beside the ``storage.*``, ``guard.*``, ``qos.*``, ``tpu.*`` and
-#: ``scheduler.*`` families): each raises when set
+#: beside the ``storage.*``, ``guard.*``, ``qos.*`` and ``tpu.*``
+#: families): each raises when set
 UNPORTED_SERVICE_KEYS = {
     "daemon", "log_level", "http_server", "http_listen", "http_port",
-    "hot_reload", "hot_reload_diff", "retry_limit", "task_map_size",
+    "hot_reload", "hot_reload_diff",
 }

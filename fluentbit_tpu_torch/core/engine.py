@@ -18,12 +18,24 @@ instead. The raw path runs each filter's batch hook (``process_batch``)
 or raw filter (``filter_raw``); a chain of ``thread_safe_raw`` filters
 runs under the input's own lock, so inputs append in parallel. The
 input and filter counter families (``fluentbit_input_*``,
-``fluentbit_filter_*``) count on both paths. Storage, qos, guard,
-failpoints, the admin HTTP server, multiline, retries and the output
-counters wait for later slices.
+``fluentbit_filter_*``) count on both paths.
+
+Delivery: each flush cycle drains the backlog, then each input's pool,
+into tasks (``Task``, one a chunk, with its routes) in a bounded task
+map; a full map parks the chunk and the rest of the cycle on the
+backlog. Each route's flush is spawned through a priority bucket queue
+and may run on the output's worker threads. An output's RETRY arms a
+loop timer with full-jitter backoff (``_schedule_retry``; no coroutine
+waits), up to ``retry_limit`` times, then the chunk drops and counts; an
+output's ``route_condition`` splits the decoded records into chunks per
+route mask at ingest. The output counter families, the uptime gauge and
+the delivery latency histogram count it. Storage, qos, the guard (flush
+deadlines, breakers), failpoints, processors, chunk trace, hot reload,
+the admin HTTP server and multiline wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
-src/flb_engine_dispatch.c (chunk → per-route flush), src/flb_input_chunk.c
+src/flb_engine_dispatch.c (chunk → task → per-route flush),
+src/flb_task.c (task refcounting and retries), src/flb_input_chunk.c
 (ingest + synchronous filter chain at append, :3078). The engine is a
 host-side asyncio loop in its own thread; the filter chain runs
 synchronously in the appending thread. Device work happens inside filters
@@ -33,6 +45,7 @@ on ``engine.device``.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
 import os
 import threading
@@ -44,9 +57,11 @@ import torch
 from ..codec.chunk import Chunk
 from ..codec.events import (LogEvent, decode_events, fast_count_records,
                             reencode_event)
+from .bucket_queue import PRIORITY_FLUSH, PRIORITY_TOP, BucketQueue
 from .chunk_batch import RawChunk
 from .config import ServiceConfig
 from .metrics import MetricsRegistry
+from .output_thread import OutputWorkerPool
 from .plugin import (
     FilterInstance,
     FilterResult,
@@ -55,8 +70,26 @@ from .plugin import (
     OutputInstance,
     registry as default_registry,
 )
+from .scheduler import backoff_full_jitter
 
 log = logging.getLogger("flb.engine")
+
+_task_ids = itertools.count(1)
+
+
+class Task:
+    """One flushable chunk and its routes' retry counts (reference
+    ``Task``, fluentbit_tpu/core/engine.py:57-72; struct flb_task,
+    include/fluent-bit/flb_task.h:82-98). ``users`` counts the routes
+    still to finish; the last one frees the task's slot."""
+
+    __slots__ = ("id", "chunk", "retries", "users")
+
+    def __init__(self, chunk: Chunk, users: int):
+        self.id = next(_task_ids)
+        self.chunk = chunk
+        self.retries: Dict[str, int] = {}  # output name → attempts
+        self.users = users
 
 
 class _RawTail:
@@ -105,11 +138,27 @@ class Engine:
         self._ingest_lock = threading.RLock()
         self._start_error: Optional[BaseException] = None
         self._pending_flushes: set = set()
+        # chunks a full task map parked, dispatched first next cycle
+        self._backlog: List[Chunk] = []
+        # retries in backoff: a loop timer each, keyed (chunk id, output
+        # name), no coroutine (flb_engine_dispatch_retry,
+        # src/flb_engine_dispatch.c:36-99)
+        self._pending_retries: Dict[tuple, tuple] = {}
+        # ready loop callbacks in priority order: retry fires (top) go
+        # before flush spawns (flush)
+        self._event_queue = BucketQueue()
+        self._event_queue_lock = threading.Lock()
+        # the bounded task map (flb_task_map, src/flb_task.c:542)
+        self._task_map: Dict[int, Task] = {}
+        self._task_lock = threading.Lock()
+        self._task_map_warned = 0.0
+        self.started_at = 0.0
         self.sp = None  # the stream processor, made by the first sp_task
 
     def _init_metrics(self) -> None:
-        """The input and filter families of the reference's
-        ``_init_metrics`` (fluentbit_tpu/core/engine.py:185-205)."""
+        """The input, filter and output families, the uptime gauge and
+        the latency histogram of the reference's ``_init_metrics``
+        (fluentbit_tpu/core/engine.py:185-221)."""
         m = self.metrics
         self.m_in_records = m.counter("fluentbit", "input", "records_total",
                                       "Input records", ("name",))
@@ -130,6 +179,28 @@ class Engine:
             "fluentbit", "filter", "batch_declines_total",
             "Batched fast-path declines to the per-record path",
             ("name",))
+        self.m_out_proc_records = m.counter(
+            "fluentbit", "output", "proc_records_total",
+            "Records delivered", ("name",))
+        self.m_out_proc_bytes = m.counter(
+            "fluentbit", "output", "proc_bytes_total", "Bytes delivered",
+            ("name",))
+        self.m_out_errors = m.counter("fluentbit", "output", "errors_total",
+                                      "Flush errors", ("name",))
+        self.m_out_retries = m.counter("fluentbit", "output",
+                                       "retries_total", "Flush retries",
+                                       ("name",))
+        self.m_out_retries_failed = m.counter(
+            "fluentbit", "output", "retries_failed_total",
+            "Retries exhausted", ("name",))
+        self.m_out_dropped = m.counter(
+            "fluentbit", "output", "dropped_records_total",
+            "Records dropped at output", ("name",))
+        self.m_uptime = m.gauge("fluentbit", "", "uptime", "Uptime seconds")
+        # chunk creation → delivery (reference src/flb_engine.c:400-405)
+        self.m_latency = m.histogram(
+            "fluentbit", "output", "latency_seconds",
+            "chunk create → delivered latency", ("name",))
 
     # ------------------------------------------------------------------
     # configuration
@@ -278,7 +349,9 @@ class Engine:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """Init every instance, then spawn the engine thread (flb_start)."""
+        """Init every instance and the outputs' worker pools, then spawn
+        the engine thread (flb_start). A worker pool that does not start
+        raises, naming its output."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
         for ins in self.inputs + self.filters + self.outputs:
@@ -286,6 +359,13 @@ class Engine:
                 continue  # hidden instances are initialized at creation
             ins.configure()
             ins.plugin.init(ins, self)
+        try:
+            for out in self.outputs:
+                self._ensure_worker_pool(out)
+        except Exception:
+            self._stop_worker_pools()
+            raise
+        self.started_at = time.time()
         self._stopping = False
         self._start_error = None
         self._thread = threading.Thread(target=self._run, name="flb-engine",
@@ -296,7 +376,24 @@ class Engine:
         if self._start_error is not None:
             self._thread.join(timeout=10)
             self._thread = None
+            self._stop_worker_pools()
             raise RuntimeError("engine failed to start") from self._start_error
+
+    def _ensure_worker_pool(self, out: OutputInstance) -> None:
+        """The output's worker threads (flb_output_thread_pool_create,
+        src/flb_output_thread.c:472), when ``workers`` is set and the
+        plugin is not synchronous."""
+        if out.workers <= 0 or out.worker_pool is not None \
+                or out.plugin.synchronous:
+            return
+        out.worker_pool = OutputWorkerPool(out.display_name, out.workers,
+                                           out.plugin)
+
+    def _stop_worker_pools(self) -> None:
+        for out in self.outputs:
+            if out.worker_pool is not None:
+                out.worker_pool.stop()
+                out.worker_pool = None
 
     def _run(self) -> None:
         self.loop = asyncio.new_event_loop()
@@ -337,6 +434,12 @@ class Engine:
             if self._pending_flushes:
                 await asyncio.gather(*self._pending_flushes,
                                      return_exceptions=True)
+            # retries still in backoff: cancel their timers and count
+            # each as dropped
+            for task, out, handle in list(self._pending_retries.values()):
+                handle.cancel()
+                self._drop_retry(task, out)
+            self._pending_retries.clear()
         finally:
             self._stopping = True
             pending = [ins.collector_task for ins in self.inputs
@@ -356,6 +459,11 @@ class Engine:
                 log.exception("input %s collect failed", ins.display_name)
             await asyncio.sleep(ins.plugin.collect_interval)
 
+    def request_stop(self) -> None:
+        """Ask the engine loop to stop gracefully (out_exit's stop): the
+        loop drains and ends; ``stop()`` joins the thread."""
+        self._stopping = True
+
     def stop(self) -> None:
         """Graceful stop with drain (flb_stop)."""
         if self._thread is None:
@@ -374,6 +482,7 @@ class Engine:
                     self.sp.drain()
                 self.flush_all()
         finally:
+            self._stop_worker_pools()
             for ins in self.inputs + self.filters + self.outputs:
                 try:
                     ins.plugin.exit()
@@ -395,13 +504,14 @@ class Engine:
         input's chunk pool. Returns the records written.
 
         When every filter whose route matches the tag has a raw hook
-        (``can_filter_raw()`` or ``can_process_batch()``) and no exact
-        stream-processor task matches it (the reference's ``raw_ok``
-        gate, fluentbit_tpu/core/engine.py:1080-1089, with no
-        processors, conditional routing or trace in the port), the chain
-        runs on the raw bytes (``_ingest_raw``): under the input's own
-        lock when every filter is ``thread_safe_raw`` and none
-        ``stateful_batch``, else under the engine's. A filter that
+        (``can_filter_raw()`` or ``can_process_batch()``), no exact
+        stream-processor task matches it and no output that matches it
+        has a ``route_condition`` (the reference's ``raw_ok`` gate,
+        fluentbit_tpu/core/engine.py:1076-1089, with no processors or
+        trace in the port), the chain runs on the raw bytes
+        (``_ingest_raw``): under the input's own lock when every filter
+        is ``thread_safe_raw`` and none ``stateful_batch``, else under
+        the engine's. A filter that
         declines sends the append down the decoded path: decode, filter
         chain, the stream processor on the kept events, re-encode of
         modified events; after a committed stateful hook only the
@@ -420,9 +530,12 @@ class Engine:
         sp_active = (sp is not None and ins is not sp.emitter_instance
                      and any(t.matches(tag) and t.flux is None
                              for t in sp.tasks))
-        if not sp_active and all(f.plugin.can_filter_raw()
-                                 or f.plugin.can_process_batch()
-                                 for f in matching):
+        # a per-record route split needs the decoded records
+        cond_routing = any(o.route_condition is not None
+                           and o.route.matches(tag) for o in self.outputs)
+        if not sp_active and not cond_routing and all(
+                f.plugin.can_filter_raw() or f.plugin.can_process_batch()
+                for f in matching):
             parallel = all(f.plugin.thread_safe_raw
                            and not f.plugin.stateful_batch
                            for f in matching)
@@ -447,13 +560,15 @@ class Engine:
             if got is not None:
                 return got
         with self._ingest_lock:
-            return self._log_append_decoded(ins, tag, data, n_records)
+            return self._log_append_decoded(ins, tag, data, n_records,
+                                            cond_routing)
 
     def _log_append_decoded(self, ins: InputInstance, tag: str, data: bytes,
-                            n_records: Optional[int]) -> int:
+                            n_records: Optional[int],
+                            cond_routing: bool) -> int:
         """The decoded path of ``input_log_append`` (under the engine's
         lock): decode, count the input, filter chain, stream processor,
-        pool append."""
+        pool append (split by route mask under ``cond_routing``)."""
         sp = self.sp
         sp_on = sp is not None and ins is not sp.emitter_instance
         # saved and restored: an emitter re-enters input_log_append from
@@ -486,12 +601,44 @@ class Engine:
                 log.exception("stream processor failed")
             finally:
                 sp.release()
+        if cond_routing:
+            self._append_split(ins, tag, events)
+            return len(events)
         payload = b"".join(
             ev.raw if ev.raw is not None else reencode_event(ev)
             for ev in events)
         with ins.ingest_lock:
             ins.pool.append(tag, payload, len(events))
         return len(events)
+
+    def _append_split(self, ins: InputInstance, tag: str,
+                      events: List[LogEvent]) -> None:
+        """Conditional routing (reference :1192-1245,
+        split_and_append_route_payloads, src/flb_input_log.c:1495): each
+        record goes to the chunk of the outputs that admit it, a bit an
+        output; the chunk carries that mask and the outputs' names. An
+        output that matches the tag with no condition admits every
+        record; a record no output admits is not appended."""
+        outputs = self.outputs
+        candidates = [(1 << i, o.route_condition)
+                      for i, o in enumerate(outputs) if o.route.matches(tag)]
+        groups: Dict[int, list] = {}
+        for ev in events:
+            mask = 0
+            for bit, cond in candidates:
+                if cond is None or cond.eval(ev.body):
+                    mask |= bit
+            if mask:
+                groups.setdefault(mask, []).append(
+                    ev.raw if ev.raw is not None else reencode_event(ev))
+        with ins.ingest_lock:
+            for mask, parts in groups.items():
+                chunk = ins.pool.append(tag, b"".join(parts), len(parts),
+                                        routes_mask=mask)
+                if chunk.route_names is None:
+                    chunk.route_names = tuple(
+                        o.display_name for i, o in enumerate(outputs)
+                        if (mask >> i) & 1)
 
     def _ingest_raw(self, ins: InputInstance, tag: str, data: bytes,
                     matching: List[FilterInstance],
@@ -664,25 +811,96 @@ class Engine:
     # ------------------------------------------------------------------
 
     def flush_all(self) -> None:
-        """Drain ready chunks and start one flush per (chunk, route).
-        While the engine runs, only its loop thread calls this (the timer,
-        the stop drain, ``flush_now``), so chunks reach each output in
-        the order they were drained."""
-        chunks: List[Chunk] = []
+        """Drain ready chunks into tasks and start their route flushes:
+        the backlog first, then each input's pool in order (the order
+        the reference's fair queue pops under its one default tenant,
+        fluentbit_tpu/core/qos.py:467-500). When the task map is full,
+        that chunk and the rest of the cycle park on the backlog
+        (reference :1624-1730). While the engine runs, only its loop
+        thread calls this (the timer, the stop drain, ``flush_now``)."""
+        if self.started_at:
+            self.m_uptime.set(time.time() - self.started_at)
         with self._ingest_lock:
+            chunks, self._backlog = self._backlog, []
             for ins in self.inputs:
                 with ins.ingest_lock:  # parallel raw appends
                     chunks.extend(ins.pool.drain())
-        for chunk in chunks:
-            for out in self.outputs:
-                if (out.route.matches(chunk.tag)
-                        and chunk.event_type in out.plugin.event_types):
-                    self._spawn_flush(chunk, out)
+        for i, chunk in enumerate(chunks):
+            if not self._dispatch_chunk(chunk):
+                with self._ingest_lock:
+                    self._backlog.extend(chunks[i:])
+                break
 
-    def _spawn_flush(self, chunk: Chunk, out: OutputInstance) -> None:
-        coro = self._flush_one(chunk, out)
+    def _dispatch_chunk(self, chunk: Chunk) -> bool:
+        """Resolve a chunk's routes (by ``route_names``, else by
+        ``routes_mask``, else by tag) and give it a task in the map
+        (reference :1762-1839). Returns False only when the map is full
+        (the chunk must park); a chunk no output takes is done."""
+        outputs = self.outputs
+        if chunk.route_names is not None:
+            routes = [o for o in outputs
+                      if o.display_name in chunk.route_names
+                      and chunk.event_type in o.plugin.event_types]
+        elif chunk.routes_mask:
+            routes = [o for i, o in enumerate(outputs)
+                      if (chunk.routes_mask >> i) & 1
+                      and chunk.event_type in o.plugin.event_types]
+        else:
+            routes = [o for o in outputs
+                      if o.route.matches(chunk.tag)
+                      and chunk.event_type in o.plugin.event_types]
+        if not routes:
+            return True
+        with self._task_lock:
+            if len(self._task_map) >= self.service.task_map_size:
+                now = time.time()
+                if now - self._task_map_warned > 5.0:
+                    self._task_map_warned = now
+                    log.warning("task map full (%d tasks in flight): "
+                                "chunk dispatch paused until slots free",
+                                len(self._task_map))
+                return False
+            # every route counted before the first spawn: a route that
+            # completes inline must not free the slot under its siblings
+            task = Task(chunk, len(routes))
+            self._task_map[task.id] = task
+        for out in routes:
+            self._spawn_flush(task, out)
+        return True
+
+    def _task_unref(self, task: Task) -> None:
+        """flb_task_users_dec: the last route to finish frees the slot."""
+        with self._task_lock:
+            task.users -= 1
+            if task.users == 0:
+                self._task_map.pop(task.id, None)
+
+    def _enqueue_event(self, priority: int, fn) -> None:
+        """Queue a ready callback in the bucket queue and wake the loop
+        to drain it (flb_engine_handle_event's demux order)."""
+        with self._event_queue_lock:
+            self._event_queue.add(priority, fn)
+        self.loop.call_soon_threadsafe(self._drain_event_queue)
+
+    def _drain_event_queue(self) -> None:
+        while True:
+            with self._event_queue_lock:
+                if not self._event_queue:
+                    return
+                fn = self._event_queue.pop()
+            try:
+                fn()
+            except Exception:
+                log.exception("engine event callback failed")
+
+    def _spawn_flush(self, task: Task, out: OutputInstance,
+                     priority: Optional[int] = None) -> None:
+        """Start one route's flush on the loop, at ``priority`` (flush
+        by default; a retry's fire comes at the top). With the engine
+        not running, the flush runs here, its retries too."""
+        coro = self._flush_one(task, out)
         if self.loop is None or not self.running:
-            asyncio.run(coro)  # engine not started: flush inline
+            asyncio.run(coro)
             return
 
         def _create():
@@ -691,40 +909,155 @@ class Engine:
             fut.add_done_callback(self._pending_flushes.discard)
 
         try:
-            self.loop.call_soon_threadsafe(_create)
-        except RuntimeError:  # loop closed mid-stop
+            self._enqueue_event(
+                PRIORITY_FLUSH if priority is None else priority, _create)
+        except RuntimeError:  # loop closed mid-stop: the route drops
             coro.close()
-            log.error("output %s: engine stopped, %d records dropped",
-                      out.display_name, chunk.records)
+            self.m_out_errors.inc(1, (out.display_name,))
+            self.m_out_dropped.inc(task.chunk.records, (out.display_name,))
+            self._task_unref(task)
 
-    async def _flush_one(self, chunk: Chunk, out: OutputInstance) -> None:
+    async def _flush_one(self, task: Task, out: OutputInstance) -> None:
+        """One (task × output) flush attempt. A RETRY does not wait
+        here: it arms a loop timer that spawns a new attempt
+        (``_schedule_retry``), so a chunk in backoff holds no coroutine
+        and no slot of the output's flush semaphore. With the engine not
+        running the retries wait inline."""
+        delay = await self._flush_body(task, out)
+        if delay is None:
+            return
+        if self.loop is not None and self.running:
+            self._schedule_retry(task, out, delay)
+            return
+        while delay is not None:
+            await asyncio.sleep(delay)
+            delay = await self._flush_body(task, out)
+
+    async def _flush_body(self, task: Task, out: OutputInstance
+                          ) -> Optional[float]:
+        """The attempt (reference :1976-2067): the output's flush slot
+        (one for a synchronous or no_multiplex output, N for ``workers
+        N``), then the test formatter, the worker pool or the plugin on
+        this loop. A flush that raises is the output's ERROR. Returns the
+        backoff delay of a retry, else None."""
+        chunk = task.chunk
+        data = chunk.get_bytes()
+        sem = out.flush_semaphore
+        if sem is not None:
+            await sem.acquire()
         try:
-            result = await out.plugin.flush(chunk.get_bytes(), chunk.tag, self)
-        except asyncio.CancelledError:
-            raise
-        except Exception:
-            log.exception("output %s flush raised", out.display_name)
-            result = FlushResult.ERROR
-        if result != FlushResult.OK:
-            # no retry scheduler in this slice: a non-OK flush drops
-            log.error("output %s: flush returned %s, %d records dropped",
-                      out.display_name, result.name, chunk.records)
+            if out.test_formatter is not None:
+                try:
+                    out.test_formatter(data, chunk.tag)
+                    result = FlushResult.OK
+                except Exception:
+                    log.exception("test formatter failed")
+                    result = FlushResult.ERROR
+            else:
+                try:
+                    if out.worker_pool is not None:
+                        result = await out.worker_pool.submit(
+                            out.plugin.flush(data, chunk.tag, self))
+                    else:
+                        result = await out.plugin.flush(data, chunk.tag,
+                                                        self)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    log.exception("output %s flush raised",
+                                  out.display_name)
+                    result = FlushResult.ERROR
+        finally:
+            if sem is not None:
+                sem.release()
+        return self._handle_flush_result(task, out, result)
+
+    def _schedule_retry(self, task: Task, out: OutputInstance,
+                        delay: float) -> None:
+        """Arm the retry's timer (flb_sched_request_create →
+        flb_engine_dispatch_retry; reference :2088-2132): it fires at
+        the top priority. Once the engine is stopping, the retry drops
+        instead; ``_main`` drops those still pending after the grace
+        wait."""
+        key = (task.chunk.id, out.name)
+
+        def _fire():
+            self._pending_retries.pop(key, None)
+            self._spawn_flush(task, out, priority=PRIORITY_TOP)
+
+        def _register():
+            if self._stopping:
+                self._drop_retry(task, out)
+                return
+            handle = self.loop.call_later(delay, _fire)
+            self._pending_retries[key] = (task, out, handle)
+
+        try:
+            self.loop.call_soon_threadsafe(_register)
+        except RuntimeError:
+            self._drop_retry(task, out)
+
+    def _drop_retry(self, task: Task, out: OutputInstance) -> None:
+        """Count a retry dropped at stop like every other drop."""
+        self.m_out_errors.inc(1, (out.display_name,))
+        self.m_out_dropped.inc(task.chunk.records, (out.display_name,))
+        self._task_unref(task)
+
+    def _handle_flush_result(self, task: Task, out: OutputInstance,
+                             result) -> Optional[float]:
+        """handle_output_event (src/flb_engine.c:302-540; reference
+        :2150-2187): OK counts the delivery; RETRY returns the backoff
+        while the attempts stay within the output's ``retry_limit`` (the
+        service's when unset; -1 has no limit); ERROR, or a RETRY past
+        the limit, drops the chunk for this output and counts it."""
+        name = out.display_name
+        chunk = task.chunk
+        if result == FlushResult.OK:
+            self.m_out_proc_records.inc(chunk.records, (name,))
+            self.m_out_proc_bytes.inc(chunk.size, (name,))
+            self.m_latency.observe(time.time() - chunk.created, (name,))
+            self._task_unref(task)
+            return None
+        if result == FlushResult.RETRY:
+            attempts = task.retries.get(out.name, 0) + 1
+            task.retries[out.name] = attempts
+            limit = out.retry_limit if out.retry_limit is not None \
+                else self.service.retry_limit
+            if limit == -1 or attempts <= limit:
+                self.m_out_retries.inc(1, (name,))
+                return backoff_full_jitter(self.service.scheduler_base,
+                                           self.service.scheduler_cap,
+                                           attempts)
+            self.m_out_retries_failed.inc(1, (name,))
+        log.warning("output %s: flush returned %s, %d records dropped",
+                    name, getattr(result, "name", result), chunk.records)
+        self.m_out_errors.inc(1, (name,))
+        self.m_out_dropped.inc(chunk.records, (name,))
+        self._task_unref(task)
+        return None
 
     def flush_now(self) -> None:
-        """Force a flush cycle and wait for pending flushes to settle."""
+        """Force a flush cycle and wait until its tasks settle: delivered
+        or dropped, retries included (at most 5 s)."""
         if self.loop is None or not self.running:
             self.flush_all()
             return
-        # the cycle runs on the loop thread, in order with the timer's;
-        # call_soon_threadsafe callbacks run FIFO, so once the sentinel
-        # fires every flush the cycle spawned is in _pending_flushes
+        # the cycle runs on the loop thread, in order with the timer's,
+        # and spawns its flushes before the wait below begins
         settled = threading.Event()
+
+        def _cycle():
+            try:
+                self.flush_all()
+                self._drain_event_queue()
+            finally:
+                settled.set()
+
         try:
-            self.loop.call_soon_threadsafe(self.flush_all)
-            self.loop.call_soon_threadsafe(settled.set)
+            self.loop.call_soon_threadsafe(_cycle)
         except RuntimeError:
             return
         settled.wait(timeout=5)
         deadline = time.time() + 5
-        while self._pending_flushes and time.time() < deadline:
+        while self._task_map and time.time() < deadline:
             time.sleep(0.01)

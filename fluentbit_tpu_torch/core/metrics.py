@@ -52,6 +52,12 @@ class _Metric:
         with self._lock:
             return list(self._values.items())
 
+    def get(self, labels: Sequence[str] = ()) -> float:
+        """One series' value (a histogram's: its count); 0 if unset."""
+        k = self._key(labels)
+        with self._lock:
+            return self._values.get(k, 0.0)
+
     def clear(self) -> None:
         """Drop every labeled series (frequency-mode top-k refresh)."""
         with self._lock:

@@ -13,12 +13,14 @@ flb_filter.c.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import enum
 import threading
-from typing import Any, Dict, List, Optional, Type
+from typing import Any, Callable, Dict, List, Optional, Type
 
-from .config import ConfigMapEntry, Properties, apply_config_map
+from .config import (OUTPUT_INSTANCE_KEYS, ConfigMapEntry, Properties,
+                     apply_config_map, parse_bool)
 from .router import Route
 from ..codec.chunk import ChunkPool, EVENT_TYPE_LOGS
 
@@ -113,7 +115,16 @@ class FilterPlugin(Plugin):
 
 
 class OutputPlugin(Plugin):
-    """Output vtable: async ``flush(chunk_bytes, tag, engine) -> FlushResult``."""
+    """Output vtable: async ``flush(chunk_bytes, tag, engine) -> FlushResult``.
+
+    ``synchronous`` (FLB_OUTPUT_SYNCHRONOUS) and ``no_multiplex``
+    (FLB_OUTPUT_NO_MULTIPLEX): one flush in flight at a time; a
+    synchronous plugin also gets no worker threads. A plugin may define
+    ``worker_init(index)`` and ``worker_exit(index)``, which each of its
+    worker threads runs."""
+
+    synchronous: bool = False
+    no_multiplex: bool = False
 
     async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
         return FlushResult.OK
@@ -121,6 +132,9 @@ class OutputPlugin(Plugin):
 
 class Instance:
     """A configured plugin instance (flb_input_instance etc.)."""
+
+    #: the engine's keys this kind of instance reads itself
+    instance_keys = frozenset()
 
     def __init__(self, plugin: Plugin):
         self.plugin = plugin
@@ -136,7 +150,8 @@ class Instance:
 
     def configure(self) -> None:
         """Apply config_map + core keys."""
-        apply_config_map(self.plugin.config_map, self.properties, self.plugin)
+        apply_config_map(self.plugin.config_map, self.properties, self.plugin,
+                         self.instance_keys)
         self.alias = self.properties.get("alias")
         match = self.properties.get("match")
         match_regex = self.properties.get("match_regex")
@@ -185,8 +200,48 @@ class FilterInstance(Instance):
 
 
 class OutputInstance(Instance):
+    """An output, with what the engine's delivery reads of it (reference
+    ``OutputInstance``, fluentbit_tpu/core/plugin.py:319-413)."""
+
+    instance_keys = OUTPUT_INSTANCE_KEYS
+
     def __init__(self, plugin: OutputPlugin):
         super().__init__(plugin)
+        self.retry_limit: Optional[int] = None  # None: the service's
+        self.workers: int = 0
+        # the flush-concurrency bound, built at configure(): 1 for a
+        # synchronous or no_multiplex output, N for ``workers N``, else
+        # none
+        self.flush_semaphore: Optional[asyncio.Semaphore] = None
+        self.worker_pool = None  # OutputWorkerPool when workers > 0
+        # records failing the condition never enter this output's chunks
+        self.route_condition = None
+        # flb_output_set_test's formatter: takes each flush's bytes
+        # instead of the plugin (src/flb_engine_dispatch.c:101-137)
+        self.test_formatter: Optional[Callable] = None
+
+    def configure(self) -> None:
+        super().configure()
+        conds = self.properties.get_all("route_condition")
+        if conds:
+            from .conditions import Condition
+
+            self.route_condition = Condition.from_route_conditions(conds)
+        rl = self.properties.get("retry_limit")
+        if rl is not None:
+            if str(rl).lower() in ("no_limits", "false",
+                                   "no_retries_forever", "unlimited"):
+                self.retry_limit = -1
+            else:
+                self.retry_limit = int(rl)
+        w = self.properties.get("workers")
+        if w is not None:
+            self.workers = int(w)
+        if self.plugin.synchronous or self.plugin.no_multiplex or \
+                parse_bool(self.properties.get("no_multiplex", False)):
+            self.flush_semaphore = asyncio.Semaphore(1)
+        elif self.workers > 0:
+            self.flush_semaphore = asyncio.Semaphore(self.workers)
 
 
 class Registry:

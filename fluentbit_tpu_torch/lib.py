@@ -2,7 +2,8 @@
 
 The port's counterpart of ``fluentbit_tpu/lib.py`` (reference:
 src/flb_lib.c + include/fluent-bit/flb_lib.h: flb_create / flb_input /
-flb_filter / flb_output / flb_*_set / flb_start / flb_stop / flb_lib_push).
+flb_filter / flb_output / flb_*_set / flb_start / flb_stop / flb_lib_push /
+flb_output_set_test).
 
 Usage::
 
@@ -11,6 +12,8 @@ Usage::
     in_ffd = ctx.input("lib")
     ctx.filter("grep", match="*", regex="log aa")
     ctx.output("lib", callback=cb)
+    ctx.output("file", match="*", path="/var/log/out", retry_limit="5",
+               workers="2")
     ctx.sp_task("CREATE STREAM s WITH (tag='sp.out') AS SELECT COUNT(*) "
                 "FROM TAG:'*' WINDOW TUMBLING (60 SECOND);")
     ctx.start()
@@ -20,9 +23,11 @@ Usage::
 
 from __future__ import annotations
 
+from typing import Callable
+
 from .core.config import ServiceConfig
 from .core.engine import Engine
-from .core.plugin import InputInstance
+from .core.plugin import InputInstance, OutputInstance
 from .ops.device import DeviceLike, resolve
 
 # ensure plugin registration
@@ -59,6 +64,19 @@ class FLBContext:
         accumulate multi-value keys (grep's Regex/Exclude rules)."""
         for k, v in props.items():
             self._handles[ffd].set(k, v)
+
+    def output_set_test(self, ffd: int, mode: str,
+                        callback: Callable) -> None:
+        """flb_output_set_test: in ``"formatter"`` mode each flush's
+        bytes go to ``callback(data, tag)`` instead of the plugin, and
+        count as delivered unless it raises
+        (src/flb_engine_dispatch.c:101-137)."""
+        ins = self._handles[ffd]
+        if not isinstance(ins, OutputInstance):
+            raise TypeError("handle is not an output")
+        if mode != "formatter":
+            raise ValueError(f"unknown test mode {mode!r}")
+        ins.test_formatter = callback
 
     def service_set(self, **props) -> None:
         """[SERVICE] properties after create (the config loader's path)."""
@@ -101,6 +119,12 @@ class FLBContext:
 
     def flush_now(self) -> None:
         self.engine.flush_now()
+
+    @property
+    def metrics(self):
+        """The engine's registry: the input, filter and output counter
+        families, uptime, delivery latency and the filters' own."""
+        return self.engine.metrics
 
     def bound_port(self, ffd: int):
         """The port a server input (forward, http) listens on once

@@ -1,11 +1,14 @@
-"""Basic outputs: stdout, null, lib, prometheus_exporter.
+"""Basic outputs: stdout, null, lib, file, counter, flowcounter, exit,
+prometheus_exporter, retry.
 
-The port's own copy of the ``stdout``, ``null``, ``lib`` and
-``prometheus_exporter`` outputs of ``fluentbit_tpu/plugins/outputs_basic.py``
-(reference: plugins/out_stdout, plugins/out_null, plugins/out_lib,
-plugins/out_prometheus_exporter).
+The port's own copy of ``fluentbit_tpu/plugins/outputs_basic.py``
+(reference: plugins/out_stdout, out_null, out_lib, out_file,
+out_counter, out_flowcounter, out_exit, out_prometheus_exporter, and
+out_retry, the test plugin that always answers FLB_RETRY).
 stdout prints log records as ``json_lines`` (config 1) or in the classic
-``print`` form; its other formats wait for a later slice.
+``print`` form; its other formats wait for a later slice. file appends
+to ``<path>/<file or tag>`` and answers RETRY on any ``OSError`` (a
+full disk, a directory not there yet), so the engine retries it.
 prometheus_exporter keeps the latest snapshot of each metric and renders
 them as Prometheus text (config 4); serving that text over HTTP waits
 for the admin server's slice.
@@ -14,7 +17,9 @@ for the admin server's slice.
 from __future__ import annotations
 
 import json
+import os
 import sys
+import time
 
 from ..codec.chunk import EVENT_TYPE_LOGS, EVENT_TYPE_METRICS
 from ..codec.events import decode_events
@@ -93,6 +98,107 @@ class LibOutput(OutputPlugin):
         if self.callback is not None:
             self.callback(data, tag)
         return FlushResult.OK
+
+
+@registry.register
+class FileOutput(OutputPlugin):
+    """plugins/out_file: append records to ``<path>/<file or tag>``, one
+    line a record: ``out_file`` (``tag: [ts, record]``), ``plain`` (the
+    record's JSON) or ``json_lines`` (the JSON with ``date`` first)."""
+
+    name = "file"
+    config_map = [
+        ConfigMapEntry("path", "str", default="."),
+        ConfigMapEntry("file", "str"),
+        ConfigMapEntry("format", "str", default="out_file"),
+        ConfigMapEntry("mkdir", "bool", default="false"),
+    ]
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        path = os.path.join(self.path or ".", self.file or tag)
+        fmt = (self.format or "out_file").lower()
+        try:
+            if self.mkdir:
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "a", encoding="utf-8") as f:
+                for ev in decode_events(data):
+                    body = json.dumps(ev.body, default=_json_default)
+                    if fmt == "plain":
+                        f.write(body + "\n")
+                    elif fmt == "json_lines":
+                        f.write(json.dumps({"date": ev.ts_float, **ev.body},
+                                           default=_json_default) + "\n")
+                    else:
+                        f.write(f"{tag}: [{ev.ts_float:.9f}, {body}]\n")
+        except OSError:
+            return FlushResult.RETRY
+        return FlushResult.OK
+
+
+@registry.register
+class CounterOutput(OutputPlugin):
+    """plugins/out_counter: prints the cumulative record count a flush."""
+
+    name = "counter"
+
+    def init(self, instance, engine) -> None:
+        self.total = 0
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        self.total += len(decode_events(data))
+        sys.stdout.write(
+            f"{time.time():.9f},{self.total} (total = {self.total})\n")
+        return FlushResult.OK
+
+
+@registry.register
+class FlowCounterOutput(OutputPlugin):
+    """plugins/out_flowcounter: records and bytes a tag
+    (``counts[tag] = [records, bytes]``)."""
+
+    name = "flowcounter"
+    config_map = [ConfigMapEntry("unit", "str", default="minute")]
+
+    def init(self, instance, engine) -> None:
+        self.counts = {}
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        cnt = self.counts.setdefault(tag, [0, 0])
+        cnt[0] += len(decode_events(data))
+        cnt[1] += len(data)
+        return FlushResult.OK
+
+
+@registry.register
+class ExitOutput(OutputPlugin):
+    """plugins/out_exit: stops the engine after ``flush_count`` flushes."""
+
+    name = "exit"
+    config_map = [ConfigMapEntry("flush_count", "int", default=1)]
+
+    def init(self, instance, engine) -> None:
+        self._seen = 0
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        self._seen += 1
+        if self._seen >= self.flush_count:
+            engine.request_stop()
+        return FlushResult.OK
+
+
+@registry.register
+class RetryOutput(OutputPlugin):
+    """plugins/out_retry: always answers RETRY (exercises the retry
+    scheduler); ``attempts`` counts its flushes."""
+
+    name = "retry"
+
+    def init(self, instance, engine) -> None:
+        self.attempts = 0
+
+    async def flush(self, data: bytes, tag: str, engine) -> FlushResult:
+        self.attempts += 1
+        return FlushResult.RETRY
 
 
 def _metrics_payloads(data: bytes) -> list:

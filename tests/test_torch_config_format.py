@@ -9,7 +9,10 @@ from every ``conf/baseline*`` file (config 5's
 ``streams_file`` / ``[STREAM_TASK]`` applied. What the port does not
 have raises by name: processors, DSO plugins, multiline parsers,
 ``[CUSTOM]``, YAML without PyYAML, and every unported instance or
-service key.
+service key. The delivery keys (service ``scheduler.base``,
+``scheduler.cap``, ``retry_limit`` and ``task_map_size``; output
+``retry_limit``, ``workers``, ``no_multiplex`` and ``route_condition``)
+load as in the reference.
 """
 
 import json
@@ -261,8 +264,8 @@ def test_unported_sections_and_service_keys_raise_by_name(text, word):
     ("tls", "on", "TLS"),
     ("tls.verify", "off", "TLS"),
     ("tenant.weight", "2", "qos plane"),
-    ("retry_limit", "3", "retry scheduler"),
-    ("route_condition", "x", "conditional routing"),
+    ("flush_timeout", "5", "flush deadlines"),
+    ("http2", "on", "HTTP/2 outputs"),
     ("net.keepalive", "on", "connection pools"),
     ("port", "1", "unknown property 'port'"),
 ])
@@ -271,6 +274,58 @@ def test_unported_instance_keys_raise_by_name(key, value, word):
     ctx.input("dummy", **{key: value})
     with pytest.raises(ValueError, match=word):
         ctx.start()
+
+
+def test_delivery_keys_load_as_in_the_reference(tmp_path):
+    """The service's retry keys and an output's retry, worker and
+    routing keys, from a classic config, set what the reference's do."""
+    conf = tmp_path / "d.conf"
+    conf.write_text("""
+[SERVICE]
+    Flush          0.05
+    scheduler.base 3
+    scheduler.cap  30
+    Retry_Limit    4
+    task_map_size  16
+
+[INPUT]
+    Name  lib
+    Tag   t
+
+[OUTPUT]
+    Name             null
+    Match            t
+    Retry_Limit      no_limits
+    Workers          2
+    route_condition  $level eq error
+    route_condition  $code gte 500
+
+[OUTPUT]
+    Name          null
+    Match         t
+    Retry_Limit   2
+    no_multiplex  on
+""")
+    got = []
+    for pkg, cf in ((ref, jcf), (flb, tcf)):
+        ctx = pkg.create(device="cpu") if pkg is flb else pkg.create()
+        cf.apply_to_context(ctx, cf.load_config_file(str(conf)),
+                            str(tmp_path))
+        svc = ctx.engine.service
+        outs = ctx.engine.outputs
+        for o in outs:
+            o.configure()
+        rules = [[(r.ra.pattern, r.op, r.value)
+                  for r in o.route_condition.rules]
+                 if o.route_condition is not None else None for o in outs]
+        got.append((svc.scheduler_base, svc.scheduler_cap, svc.retry_limit,
+                    svc.task_map_size,
+                    [(o.retry_limit, o.workers,
+                      getattr(o.flush_semaphore, "_value", None))
+                     for o in outs], rules))
+    assert got[0] == got[1]
+    assert got[1] == (3.0, 30.0, 4, 16, [(-1, 2, 2), (2, 0, 1)], [
+        [("$level", "eq", "error"), ("$code", "gte", 500)], None])
 
 
 def test_yaml_processors_raise_by_name():

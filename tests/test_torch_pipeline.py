@@ -148,6 +148,8 @@ PORT_MODULES = (
     "utils/__init__.py", "plugins/filter_kubernetes.py",
     "config_format/__init__.py",  # config 5 and the config loader
     "codec/_native_codec.py",  # the event codec extension
+    "core/scheduler.py", "core/bucket_queue.py", "core/conditions.py",
+    "core/output_thread.py",  # the delivery core
 )
 
 #: what a module that loads or builds the reference's native library or

@@ -1,7 +1,8 @@
 """Run pipelines through one tree's own chip_smoke.py phases.
 
-    python tools/compare_phases.py <tree root> [config1] [config2]
-        [config2j] [config2r] [config3] [config4] [config5] [flux]
+    python tools/compare_phases.py <tree root> [config1] [config1null]
+        [config2] [config2j] [config2r] [config3] [config4] [config5]
+        [delivery] [flux]
 
 On a host with a CUDA card. The tree's root (a checkout, or a
 ``git archive`` of another commit unpacked in a git-ignored directory)
@@ -10,8 +11,12 @@ goes first on ``sys.path``, so its ``fluentbit_tpu_torch`` and its
 only reads a kernel's time for a busy share, a fixed stand-in. config1
 is the raw path on pre-encoded chunks (``phase_raw_chunks``: regex, then
 regex + Exclude, with the p50 raw steps, the overflow re-check among
-them); config2j is the json parser's batch hook, a phase a tree before
-it lacks (then reported as failed). Prints one line ``compare: <root>
+them); config1null is the same chunks, regex only, into a null output
+(built here from the tree's package, so every tree has it); delivery is
+the smoke's delivery phase (config 1's appends to a file output that
+retries and to out_retry, then under a route_condition). config2j and
+delivery are phases a tree before them lacks (then reported as
+failed). Prints one line ``compare: <root>
 {...}`` with each phase's lines/s, p50 steps and launches (or its
 failure). To compare two trees, run them in turns in one call: parent,
 change, change, parent.
@@ -22,7 +27,7 @@ import logging
 import os
 import sys
 
-KEYS = ("lines_per_s", "cpu_lines_per_s", "hook", "cpu_hook", "p50_ms",
+KEYS = ("lines_per_s", "ingest_lines_per_s", "p50_latency_s", "cpu_lines_per_s", "hook", "cpu_hook", "p50_ms",
         "cpu_p50_ms", "appends", "launches", "raw_launches",
         "mesh_lines_per_s", "p50_append_raw", "cpu_p50_append_raw",
         "as_written_lines_per_s", "kube_p50_ms", "grep_p50_ms",
@@ -30,10 +35,35 @@ KEYS = ("lines_per_s", "cpu_lines_per_s", "hook", "cpu_hook", "p50_ms",
 
 
 def pick(res: dict) -> dict:
-    """The KEYS of a phase's result; config1's per rule set."""
+    """The KEYS of a phase's result; config1's per rule set, delivery's
+    per run."""
     if "regex" in res:
         return {label: pick(r) for label, r in res.items()}
+    if "routed" in res:
+        return {label: pick(res[label]) for label in ("raw", "routed")}
     return {k: res[k] for k in KEYS if k in res}
+
+
+def config1_null(cs, flb, chunks: list) -> dict:
+    """Config 1's pre-encoded chunks (regex only) on cuda into a null
+    output: lines/s from the first append until ``flush_now`` returns."""
+    import time
+
+    ctx = flb.create(device="cuda", flush="50ms", grace="2")
+    ctx.input("lib", tag="bench.apache")
+    ctx.filter("grep", match="bench.*", regex="log " + cs.APACHE2)
+    ctx.output("null", match="*")
+    ctx.start()
+    ins = ctx.engine.inputs[0]
+    try:
+        t0 = time.perf_counter()
+        for data, n in chunks:
+            ctx.engine.input_log_append(ins, "bench.apache", data, n)
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.stop()
+    return {"lines_per_s": sum(n for _d, n in chunks) / wall}
 
 
 def main() -> int:
@@ -74,11 +104,17 @@ def main() -> int:
         try:
             if w in ("config2", "config2j") and ndjson is None:
                 ndjson = cs.ndjson_corpus(0, cs.CONFIG2_LINES)
-            if w == "config1":
+            if w in ("config1", "config1null", "delivery"):
                 appends = cs.make_appends(0, cs.APPENDS, cs.RECORDS)
                 chunks = cs.encode_chunks(encode_event, EventTime, appends)
+            if w == "config1":
                 res = cs.phase_raw_chunks(tg, flb, decode_events, chunks,
                                           appends, card)
+            elif w == "config1null":
+                res = config1_null(cs, flb, chunks)
+            elif w == "delivery":
+                res = cs.phase_delivery(tg, flb, decode_events, appends,
+                                        card, cs.APPENDS)
             elif w == "config2":
                 res = cs.phase_config2(np, torch, tu, assemble, flb,
                                        decode_events, ndjson, card)
