@@ -191,6 +191,20 @@ CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level"}
 OUTPUT_INSTANCE_KEYS = frozenset(
     {"retry_limit", "workers", "no_multiplex", "route_condition"})
 
+#: the TLS keys (reference src/tls/flb_tls.c), declared in the config map
+#: of each plugin that dials or listens with TLS (forward in and out, http
+#: in) and read by ``core.tls``; on every other plugin they raise
+TLS_CONFIG = [
+    ConfigMapEntry("tls", "bool", default=False),
+    ConfigMapEntry("tls.verify", "bool", default=True),
+    ConfigMapEntry("tls.ca_file", "str"),
+    ConfigMapEntry("tls.crt_file", "str"),
+    ConfigMapEntry("tls.key_file", "str"),
+    ConfigMapEntry("tls.vhost", "str"),
+]
+
+_NO_TLS = "TLS on this plugin (forward and http take it)"
+
 #: the reference's other common keys (its CORE_INSTANCE_KEYS), which the
 #: port cannot honour yet: setting one raises, naming what is missing.
 #: ``host`` and ``port`` are accepted only by the plugins that declare
@@ -200,12 +214,12 @@ UNPORTED_INSTANCE_KEYS = {
     "storage.type": "filesystem storage",
     "storage.pause_on_chunks_overlimit": "filesystem storage",
     "threaded": "threaded inputs",
-    "tls": "TLS on plugin connections",
-    "tls.verify": "TLS on plugin connections",
-    "tls.ca_file": "TLS on plugin connections",
-    "tls.crt_file": "TLS on plugin connections",
-    "tls.key_file": "TLS on plugin connections",
-    "tls.vhost": "TLS on plugin connections",
+    "tls": _NO_TLS,
+    "tls.verify": _NO_TLS,
+    "tls.ca_file": _NO_TLS,
+    "tls.crt_file": _NO_TLS,
+    "tls.key_file": _NO_TLS,
+    "tls.vhost": _NO_TLS,
     "http2": "HTTP/2 outputs",
     "proxy": "HTTP proxy outputs",
     "flush_timeout": "flush deadlines (guard)",
@@ -227,6 +241,14 @@ class ServiceConfig:
     scheduler_cap: float = 2000.0    # retry backoff cap  (flb_scheduler.h:30)
     retry_limit: int = 1             # default per-output retries
     task_map_size: int = 2048        # FLB_CONFIG_DEFAULT_TASK_MAP_SIZE
+    # SIGHUP in the CLI: a validated full-restart reload
+    hot_reload: bool = False
+    # the breakers of core/guard.py (the forward output's destinations)
+    guard_breaker_failures: int = 5      # consecutive failures to open
+    guard_breaker_error_rate: float = 0.5  # windowed failure fraction
+    guard_breaker_window: int = 20       # outcomes in the rate window
+    guard_breaker_cooldown: float = 5.0  # open → half-open delay
+    guard_breaker_probes: int = 1        # half-open successes to close
 
     _KEYMAP = {
         "flush": ("flush", parse_time),
@@ -235,6 +257,12 @@ class ServiceConfig:
         "scheduler.cap": ("scheduler_cap", parse_time),
         "retry_limit": ("retry_limit", int),
         "task_map_size": ("task_map_size", int),
+        "hot_reload": ("hot_reload", parse_bool),
+        "guard.breaker_failures": ("guard_breaker_failures", int),
+        "guard.breaker_error_rate": ("guard_breaker_error_rate", float),
+        "guard.breaker_window": ("guard_breaker_window", int),
+        "guard.breaker_cooldown": ("guard_breaker_cooldown", parse_time),
+        "guard.breaker_probes": ("guard_breaker_probes", int),
     }
 
     def set(self, key: str, value: Any) -> None:
@@ -255,5 +283,5 @@ class ServiceConfig:
 #: families): each raises when set
 UNPORTED_SERVICE_KEYS = {
     "daemon", "log_level", "http_server", "http_listen", "http_port",
-    "hot_reload", "hot_reload_diff",
+    "hot_reload_diff",
 }

@@ -29,9 +29,12 @@ loop timer with full-jitter backoff (``_schedule_retry``; no coroutine
 waits), up to ``retry_limit`` times, then the chunk drops and counts; an
 output's ``route_condition`` splits the decoded records into chunks per
 route mask at ingest. The output counter families, the uptime gauge and
-the delivery latency histogram count it. Storage, qos, the guard (flush
-deadlines, breakers), failpoints, processors, chunk trace, hot reload,
-the admin HTTP server and multiline wait for later slices.
+the delivery latency histogram count it. ``guard`` holds the named
+circuit breakers (the forward output's), and ``reload_count`` /
+``reload_callback`` the CLI's full-restart reloads. Storage, qos, the
+rest of the guard (flush deadlines, shedding, breakers on every flush),
+failpoints, processors, chunk trace, reload by diff, the admin HTTP
+server and multiline wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → task → per-route flush),
@@ -154,6 +157,15 @@ class Engine:
         self._task_map_warned = 0.0
         self.started_at = 0.0
         self.sp = None  # the stream processor, made by the first sp_task
+        # the CLI's full-restart reloads so far, and its SIGHUP hook
+        # (reference core/engine.py:142, :164)
+        self.reload_count = 0
+        self.reload_callback = None
+        # the named circuit breakers (core/guard.py; the forward output's
+        # destinations)
+        from .guard import Guard
+
+        self.guard = Guard(self)
 
     def _init_metrics(self) -> None:
         """The input, filter and output families, the uptime gauge and
@@ -423,6 +435,16 @@ class Engine:
             while not self._stopping:
                 await asyncio.sleep(flush_interval)
                 self.flush_all()
+            # the server inputs stop first, listeners and connections:
+            # what one acked after the drain below would never be flushed
+            # (the reference drains first and keeps acking)
+            servers = [ins.collector_task for ins in self.inputs
+                       if ins.collector_task is not None
+                       and getattr(ins.plugin, "server_task_needed", False)]
+            for task in servers:
+                task.cancel()
+            if servers:
+                await asyncio.gather(*servers, return_exceptions=True)
             # graceful drain (grace period, src/flb_engine.c:1137-1160)
             self.flush_all()
             await asyncio.sleep(0.05)  # let queued flush spawns run

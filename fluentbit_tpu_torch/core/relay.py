@@ -1,21 +1,53 @@
-"""The forward input's dedup ledger.
+"""Relay state: the forward input's dedup ledger, the forward output's
+chunk id and partition spool.
 
-The port's own copy of ``DedupLedger`` from
-``fluentbit_tpu/core/relay.py`` in its in-memory form (``root=None``):
-a map chunk-id → [absorbed-at, absorb-count] with a retry-window TTL.
-The forward input records each chunk id the first time its records are
-absorbed and acks a redelivery of the same id inside the window without
-absorbing it again. The durable form (an fstore sidecar under a storage
-path) waits for the port's storage; asking for it raises.
+The port's own copy of ``fluentbit_tpu/core/relay.py``:
+
+- :func:`stable_chunk_id`, the forward hop's chunk id: a digest of the
+  tag and the uncompressed entry stream, so a resend of the same chunk
+  (a reconnect, a backoff, a spool replay) carries the same id;
+- :class:`DedupLedger` in its in-memory form (``root=None``): chunk id →
+  [absorbed-at, absorb-count] with a retry-window TTL. The forward input
+  records each chunk id the first time its records are absorbed and acks
+  a redelivery of the same id inside the window without absorbing it
+  again. The durable form (an fstore sidecar under ``storage.path``)
+  waits for the port's storage; asking for it raises;
+- :class:`ForwardSpool`, where the forward output parks a packed chunk
+  when every upstream refuses (a partition), with a record-offset
+  sidecar (``core.sidecar``) and a JSON envelope (tag, chunk id, record
+  count), replayed in spool order on heal.
+
+The reference meters the spool against the chunk tenant's storage quota
+(``qos.admit_storage``); for a chunk of no tenant that declares a
+storage limit that admits, and the port has no qos plane and no tenant
+stamps, so the port's spool is unmetered, as the reference's is without
+tenants.
 """
 
 from __future__ import annotations
 
+import hashlib
+import mmap
+import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["DedupLedger"]
+from .fstore import FStore, FStoreFile
+from .sidecar import SIDECAR_SUFFIX, SidecarWriter, read_sidecar
+
+__all__ = ["DedupLedger", "ForwardSpool", "stable_chunk_id"]
+
+
+def stable_chunk_id(tag: str, blob: bytes) -> str:
+    """The forward hop's chunk id: a digest of (tag, entry stream) over
+    the uncompressed packed entries, so the id survives compression
+    settings, reconnects, backoff resends and spool replays."""
+    h = hashlib.sha256()
+    h.update(tag.encode("utf-8", "replace"))
+    h.update(b"\x00")
+    h.update(blob)
+    return h.hexdigest()[:32]
 
 
 class DedupLedger:
@@ -72,3 +104,87 @@ class DedupLedger:
         """chunk id → absorb count."""
         with self._lock:
             return {cid: rec[1] for cid, rec in self._seen.items()}
+
+
+class ForwardSpool:
+    """Partition-time buffer for the forward output.
+
+    One spooled chunk is one fstore file holding the packed entry
+    stream, a ``.offs`` record-offset sidecar and a JSON meta sidecar
+    with the wire envelope (tag, chunk id, record count, tenant and
+    priority stamps). Files are named by an increasing sequence, so
+    replay keeps spool order.
+    """
+
+    STREAM = "forward-spool"
+
+    def __init__(self, root: str):
+        self._stream = FStore(root).stream(self.STREAM)
+        self._lock = threading.Lock()
+        seq = 0
+        for f in self._stream.files():
+            name = f.name.split(".", 1)[0]
+            if name.isdigit():
+                seq = max(seq, int(name) + 1)
+        self._seq = seq
+
+    def put(self, tag: str, blob: bytes, ends: List[int], meta: dict
+            ) -> FStoreFile:
+        """Spool one packed entry stream, its offset table and its
+        envelope. The payload is flushed before the sidecars (replay
+        copes with either file being ahead)."""
+        with self._lock:
+            name = "%012d" % self._seq
+            self._seq += 1
+        f = self._stream.create(name)
+        with open(f.path, "wb") as fh:
+            fh.write(blob)
+            fh.flush()
+            os.fsync(fh.fileno())
+        w = SidecarWriter(f.path + SIDECAR_SUFFIX)
+        w.append_ends(len(blob), ends)
+        w.finalize()
+        f.set_meta(dict(meta, n=len(ends)), durable=True)
+        return f
+
+    def pending(self) -> List[FStoreFile]:
+        """Spooled chunks in replay (spool) order."""
+        return [f for f in self._stream.files()
+                if not f.name.endswith(SIDECAR_SUFFIX)]
+
+    @staticmethod
+    def load(f: FStoreFile) -> Optional[Tuple[bytes, int, dict]]:
+        """Map one spooled chunk for replay: ``(payload, n, meta)``. The
+        record count comes from the ``.offs`` table when it validates,
+        else from the envelope; a file with neither is None (the caller
+        drops it: it cannot be framed)."""
+        meta = f.meta()
+        try:
+            with open(f.path, "rb") as fh:
+                size = os.fstat(fh.fileno()).st_size
+                if size == 0:
+                    return None
+                mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            return None
+        try:
+            n = None
+            got = read_sidecar(f.path + SIDECAR_SUFFIX, size)
+            if got is not None and got[1].size:
+                n = int(got[1].size)
+            if n is None:
+                n = int(meta.get("n") or 0)
+            if n <= 0:
+                return None
+            return bytes(mm), n, meta
+        finally:
+            mm.close()
+
+    @staticmethod
+    def drop(f: FStoreFile) -> None:
+        """Delete a delivered (acked) spool chunk and its sidecars."""
+        try:
+            os.unlink(f.path + SIDECAR_SUFFIX)
+        except OSError:
+            pass
+        f.delete()

@@ -225,6 +225,9 @@ class GrepFilter(FilterPlugin):
         #: atomic)
         self.raw_step_seconds: collections.deque = collections.deque(
             maxlen=4096)
+        #: (records, segments) of each raw append, the most recent only:
+        #: one kernel launch a segment and rule group
+        self.raw_appends: collections.deque = collections.deque(maxlen=4096)
         self._mesh = self._mesh_resolved = None
         self._program = None
         if self.rules and all(r.dfa is not None for r in self.rules):
@@ -347,7 +350,7 @@ class GrepFilter(FilterPlugin):
         if n_records is not None and n_records < self.tpu_batch_records:
             return None
         tm = self.raw_timings
-        steps = [0.0, 0.0, 0.0]
+        steps = [0.0, 0.0, 0.0, 0]
         got = self._device_match_raw(data, n_records, mesh=self._grep_mesh(),
                                      steps=steps)
         if got is None:
@@ -369,7 +372,8 @@ class GrepFilter(FilterPlugin):
                 raise RuntimeError("grep: compact found a record span "
                                    "outside the chunk")
             tm.add("compact_s", compact_s)
-        self.raw_step_seconds.append((*steps, compact_s))
+        self.raw_step_seconds.append((*steps[:3], compact_s))
+        self.raw_appends.append((n, steps[3]))
         return (n_keep, out, n)
 
     def _device_match_raw(self, data, n_records, mesh=None, steps=None):
@@ -390,8 +394,9 @@ class GrepFilter(FilterPlugin):
         False)``. Overflow rows (-2) are decoded and re-checked with the
         regex on the host. Returns ``(mask bool [R, n], offsets[n+1],
         n)``, or None to decline; adds the call's extract, kernel and
-        overflow seconds to ``raw_timings`` and writes them into
-        ``steps`` (a list of three) when given."""
+        overflow seconds to ``raw_timings`` and writes them, and the
+        number of segments, into ``steps`` (a list of four) when
+        given."""
         from .. import native
         from ..core.chunk_batch import double_buffered, segment_bounds
 
@@ -514,7 +519,7 @@ class GrepFilter(FilterPlugin):
         overflow_s = time.perf_counter() - t0
         tm.add("overflow_s", overflow_s)
         if steps is not None:
-            steps[:] = (extract_s[0], kernel_s, overflow_s)
+            steps[:] = (extract_s[0], kernel_s, overflow_s, len(bounds))
         return mask, offsets, n
 
     def filter(self, events: list, tag: str, engine) -> tuple:

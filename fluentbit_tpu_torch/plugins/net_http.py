@@ -5,8 +5,10 @@ The port's own copy of the server half of ``fluentbit_tpu/plugins/net_http.py``
 or NDJSON; the URI path becomes the tag (``/`` keeps the input's tag),
 or ``tag_key`` names a record field that does. Keep-alive connections,
 ``Content-Length`` or chunked bodies, and Content-Encoding identity,
-gzip or deflate; any other encoding answers 400. TLS, HTTP/2, zstd and
-snappy wait for a later slice.
+gzip or deflate; any other encoding answers 400. ``tls on`` (with
+``tls.crt_file`` and ``tls.key_file``) wraps the listener
+(``core.tls.server_context``). HTTP/2, zstd and snappy wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 from ..codec.events import encode_event, now_event_time
-from ..core.config import ConfigMapEntry
+from ..core.config import TLS_CONFIG, ConfigMapEntry
 from ..core.plugin import InputPlugin, registry
+from ..core.tls import server_context
 
 log = logging.getLogger("flb.http")
 
@@ -128,7 +131,12 @@ class HttpServerInputBase(InputPlugin):
 
     def init(self, instance, engine) -> None:
         self.bound_port: Optional[int] = None
+        # built here, so a bad certificate raises from start()
+        self._ssl = server_context(instance)
         self._writers: set = set()
+        # set once the listener closes: a request still buffered on a
+        # connection is not taken (its answer could not be written)
+        self._closed = False
 
     def handle_request(self, engine, method, path, headers,
                        body):  # pragma: no cover
@@ -139,7 +147,7 @@ class HttpServerInputBase(InputPlugin):
         try:
             while True:
                 req = await read_http_request(reader)
-                if req is None:
+                if req is None or self._closed:
                     break
                 method, uri, headers, body = req
                 decoded = _decode_content(headers, body)
@@ -171,13 +179,15 @@ class HttpServerInputBase(InputPlugin):
         until it is cancelled, then closes the listener and every open
         connection."""
         server = await asyncio.start_server(
-            lambda r, w: self._handle(engine, r, w), self.listen, self.port)
+            lambda r, w: self._handle(engine, r, w), self.listen, self.port,
+            ssl=self._ssl)
         self.bound_port = server.sockets[0].getsockname()[1]
 
         async def serve() -> None:
             try:
                 await asyncio.Event().wait()
             finally:
+                self._closed = True
                 server.close()
                 for w in list(self._writers):
                     w.close()
@@ -195,7 +205,7 @@ class HttpInput(HttpServerInputBase):
         ConfigMapEntry("port", "int", default=9880),
         ConfigMapEntry("tag_key", "str"),
         ConfigMapEntry("successful_response_code", "int", default=201),
-    ]
+    ] + TLS_CONFIG
 
     def handle_request(self, engine, method, path, headers, body):
         if method != "POST":

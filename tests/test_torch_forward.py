@@ -411,12 +411,12 @@ def test_dedup_ledger_equals_reference():
 
 
 def test_unported_forward_options_raise_by_name():
-    """TLS on the listener, a defer_ack_window other than its default
-    and a durable ledger raise, naming what is not ported."""
+    """A defer_ack_window other than its default, a threaded input and
+    a durable ledger raise, naming what is not ported."""
     from fluentbit_tpu_torch.core.relay import DedupLedger
 
-    for props, word in (({"tls": "on"}, "'tls' is not ported"),
-                        ({"tls.crt_file": "/x"}, "'tls.crt_file'"),
+    for props, word in (({"threaded": "on"}, "'threaded' is not ported"),
+                        ({"storage.type": "filesystem"}, "'storage.type'"),
                         ({"defer_ack_window": "10"}, "defer_ack_window"),
                         ({"tenant": "a"}, "'tenant' is not ported"),
                         ({"mem_buf_limit": "5M"}, "'mem_buf_limit'")):

@@ -150,6 +150,8 @@ PORT_MODULES = (
     "codec/_native_codec.py",  # the event codec extension
     "core/scheduler.py", "core/bucket_queue.py", "core/conditions.py",
     "core/output_thread.py",  # the delivery core
+    "core/guard.py", "core/tls.py", "core/fstore.py", "core/sidecar.py",
+    "__main__.py", "supervisor.py",  # the relay tier and the CLI
 )
 
 #: what a module that loads or builds the reference's native library or
