@@ -244,7 +244,38 @@ Phases (any failure exits non-zero):
    aggregator stopped after a third of the edge's appends and started
    again on the same port after two thirds, the edge's output with a
    ``storage_spool``: chunks spooled, as many replayed, every record
-   out exactly once.
+   out exactly once;
+19. the guard and failpoint planes, faults injected only through the
+   port's ``failpoints.enable``, on config 1's first 16 appends of 4096
+   records (the raw path, K3) into lib outputs, ``scheduler.base`` 0.05:
+   (a) ``output.flush.lib.0=1*hang(5000)`` with ``flush_timeout 0.5s``:
+   one flush timeout, one retry, every kept record delivered exactly
+   once and equal to the cpu run's (the plain K3) and to Python ``re``;
+   (b) every flush of ``lib.0`` hanging past ``flush_timeout 0.2s``
+   until its breaker opens (5 failures in a row; the site is disarmed
+   then), ``guard.breaker_cooldown 0.5s``, ``retry_limit 5``: the
+   transitions open, half-open and closed, short-circuits, as many
+   retries as timeouts and no exhausted retry or drop, every record
+   once; (c) (b) with ``task_map_size 4``, ``guard.shed_watermark 0.5``
+   and a healthy second output: ``lib.0``'s chunks shed and all
+   readmitted, each output with every record once; (d)
+   ``device.dispatch=1*return`` on config 1 (K3, raw path, ``ctx.push``)
+   and on phase 17's config 5 chain (kubernetes, grep Exclude: K4 on the
+   decoded path, 24 messages of >= 32 records appended as in_forward
+   appends them): the append that launches raises ``DeviceError`` to its
+   caller, ``fluentbit_device_launch_failures_total{lane="grep"}`` is 1,
+   the next appends launch and their records equal the same appends on
+   cpu; (e) ``codec.fallback=1*return`` on config 2j's json hook over
+   8192 lines: one decline, records equal to the unarmed run's and to
+   ``json.loads``. ``Guard.health()`` is printed after each step, and
+   config 1's lines/s with the guard on and with ``guard.enable off``.
+
+Phase 4d (a) runs with ``guard.enable off``: it measures the delivery
+core alone, and its ``retry`` output, which answers RETRY on every
+flush, would open its breaker (phase 19 runs the guard). The relay
+edges' forward output takes ``flush_timeout 60s``: it sends its chunks
+one at a time behind a lock, and a flush waiting there counts against
+the default deadline (2 x grace), as in the reference.
 
 Phases 3 and 4 pin K3: phase 3 builds its programs with
 ``kernel="scan"``; in phase 4 config 1's Exclude rule (16 states) takes
@@ -803,9 +834,12 @@ def phase_delivery(tg, flb, decode_events, appends: list, card: str,
         # (a) the raw path, a file that answers RETRY until its directory
         # exists, and out_retry
         target = os.path.join(base, "out")
+        # the delivery core alone (see the module's notes): out_retry
+        # would open its breaker with the guard on
         ctx = flb.create(device="cuda", flush="50ms", grace="2",
                          **{"scheduler.base": "0.05",
-                            "scheduler.cap": "0.1"})
+                            "scheduler.cap": "0.1",
+                            "guard.enable": "off"})
         in_ffd = ctx.input("lib", tag="bench.apache")
         ctx.filter("grep", match="bench.*", regex="log " + APACHE2)
         ctx.output("file", match="*", path=target, file="delivered.txt",
@@ -4480,8 +4514,10 @@ def edge_ctx(flb, cache_dir: str, out_props: dict, flush: str = "1",
     edge.input("forward", port="0", listen="127.0.0.1")
     edge.filter("kubernetes", match="kube.*", merge_log="on",
                 buffer_size="0", kube_meta_preload_cache_dir=cache_dir)
+    # one chunk at a time goes out behind the output's lock, and a flush
+    # queued there counts against its deadline (see the module's notes)
     edge.output("forward", match="*", require_ack_response="on",
-                **out_props)
+                flush_timeout="60s", **out_props)
     return edge
 
 
@@ -4851,6 +4887,366 @@ def phase_relay(np, tg, flb, decode_events, config5: dict, card: str) -> dict:
     return res
 
 
+# phase 19: the guard and failpoint planes on the main paths
+GUARD_APPENDS = 16  # config 1 at its own depth: 16 appends of 4096 records
+
+
+def guard_ctx(flb, device: str, outputs: int = 1, out_props=None,
+              **service):
+    """Config 1 for the guard phase: lib input → grep apache2 → ``outputs``
+    lib outputs (each with ``out_props``), each collecting its chunks."""
+    sinks = [[] for _ in range(outputs)]
+    ctx = flb.create(device=device, flush="50ms", grace="2",
+                     **{"scheduler.base": "0.05", "scheduler.cap": "0.1",
+                        **service})
+    in_ffd = ctx.input("lib", tag="bench.apache")
+    ctx.filter("grep", match="bench.*", regex="log " + APACHE2)
+    for sink in sinks:
+        ctx.output("lib", match="*", callback=lambda data, tag, s=sink:
+                   s.append(bytes(data)), **(out_props or {}))
+    return ctx, in_ffd, sinks
+
+
+def record_counter(decode_events, chunks: list) -> collections.Counter:
+    """Every delivered record's bytes, counted: exactly once is a count of
+    1 each."""
+    return collections.Counter(ev.raw for data in chunks
+                               for ev in decode_events(data))
+
+
+def guard_families(e, name: str) -> dict:
+    g = e.guard
+    return {"flush_timeouts": g.m_timeouts.get((name,)),
+            "short_circuits": g.m_short_circuit.get((name,)),
+            "shed_chunks": g.m_shed.get((name,)),
+            "transitions": {s: g.m_transitions.get((name, s))
+                            for s in ("open", "half-open", "closed")},
+            "breaker": g.breaker(name).state_name(),
+            "retries": e.m_out_retries.get((name,)),
+            "retries_failed": e.m_out_retries_failed.get((name,)),
+            "errors": e.m_out_errors.get((name,)),
+            "dropped": e.m_out_dropped.get((name,)),
+            "proc_records": e.m_out_proc_records.get((name,))}
+
+
+def guard_run(tg, flb, decode_events, appends: list, arm: dict,
+              outputs: int, out_props: dict, service: dict, until,
+              disarm_when=None) -> tuple:
+    """Config 1's appends on cuda with the failpoints of ``arm`` armed
+    (the port's own ``failpoints.enable``), until ``until(engine,
+    sinks)``; every failpoint is disarmed once ``disarm_when(engine)``
+    holds. Returns the engine, each output's delivered record counter,
+    the launches, the wall and each site's trigger count."""
+    from fluentbit_tpu_torch import failpoints
+
+    ctx, in_ffd, sinks = guard_ctx(flb, "cuda", outputs, out_props,
+                                   **service)
+    e = ctx.engine
+    tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+    ctx.start()
+    try:
+        for name, spec in arm.items():
+            failpoints.enable(name, spec)
+        t0 = time.perf_counter()
+        for _recs, text in appends:
+            ctx.push(in_ffd, text)
+        deadline = time.perf_counter() + 60
+        triggered = {}
+        while not until(e, sinks):
+            if disarm_when is not None and not triggered and disarm_when(e):
+                triggered = {n: s["triggered"]
+                             for n, s in failpoints.snapshot().items()}
+                failpoints.reset()
+            if time.perf_counter() > deadline:
+                raise SystemExit("guard: timed out; " + json.dumps(
+                    {o.display_name: guard_families(e, o.display_name)
+                     for o in e.outputs}))
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        triggered = triggered or {n: s["triggered"] for n, s in
+                                  failpoints.snapshot().items()}
+    finally:
+        failpoints.reset()
+        ctx.stop()
+    launches = {"grep_dfa": tg.grep_dfa.launches,
+                "grep_assoc": tg.grep_assoc.launches}
+    got = [record_counter(decode_events, s) for s in sinks]
+    return e, got, launches, wall, triggered
+
+
+def phase_guard(tg, flb, decode_events, appends: list, config5: dict,
+                ndjson: bytes, card: str) -> dict:
+    """The guard and failpoint planes on config 1 (K3, the raw path) and
+    config 5 (K4, the decoded path), faults injected only through the
+    port's failpoints; health() after each step."""
+    from fluentbit_tpu_torch import failpoints
+    from fluentbit_tpu_torch.codec.events import encode_event
+    from fluentbit_tpu_torch.ops.device import DeviceError
+
+    appends = appends[:GUARD_APPENDS]
+    n_records = sum(len(r) for r, _ in appends)
+    cpu_out, _w, _g = run_pipeline(flb, "cpu", appends, False)
+    want = record_counter(decode_events, [cpu_out])
+    python_re = collections.Counter(
+        json.dumps(b, sort_keys=True)
+        for b in expected_bodies(appends, exclude=False))
+    n_kept = sum(want.values())
+    report = {"records": n_records, "kept": n_kept, "card": card}
+    logging.getLogger("flb.guard").setLevel(logging.ERROR)
+    logging.getLogger("flb.failpoints").setLevel(logging.ERROR)
+    logging.getLogger("flb.engine").setLevel(logging.ERROR)
+
+    def delivered(outs):
+        return lambda e, sinks: all(
+            e.m_out_proc_records.get((f"lib.{i}",)) >= n_kept
+            for i in outs) and not e._task_map and not e.guard.shed_count()
+
+    def bodies(counter) -> collections.Counter:
+        out = collections.Counter()
+        for raw, n in counter.items():
+            out[json.dumps(decode_events(raw)[0].body, sort_keys=True)] += n
+        return out
+
+    def check(step, got, e, launches, extra=()):
+        res = {"exactly_once_equals_cpu": all(g == want for g in got),
+               "equals_python_re": all(bodies(g) == python_re
+                                       for g in got),
+               "launches": launches,
+               "health": e.guard.health(),
+               **{o.display_name: guard_families(e, o.display_name)
+                  for o in e.outputs}}
+        res.update(extra)
+        log(f"guard ({step}): " + json.dumps(res))
+        failed = [k for k in ("exactly_once_equals_cpu", "equals_python_re")
+                  if not res[k]]
+        if launches != {"grep_dfa": GUARD_APPENDS, "grep_assoc": 0}:
+            failed.append("launches")
+        return res, failed
+
+    # (a) a deadline: the first flush hangs 5 s, soft-killed at 0.5 s
+    e, got, launches, wall, trig = guard_run(
+        tg, flb, decode_events, appends,
+        {"output.flush.lib.0": "1*hang(5000)"}, 1,
+        {"flush_timeout": "0.5s"}, {}, delivered([0]))
+    res, failed = check("a", got, e, launches, {"triggered": trig})
+    f = res["lib.0"]
+    if (f["flush_timeouts"], f["retries"], f["dropped"]) != (1, 1, 0) \
+            or e.m_failpoint_triggered.get(("output.flush.lib.0",)) != 1:
+        failed.append("deadline")
+    if failed:
+        raise SystemExit(f"guard (a) failed {failed}: {res}")
+    report["a"] = res
+
+    # (b) a breaker: every flush hangs past a 0.2 s deadline until the
+    # breaker opens (5 failures in a row; the site is disarmed then);
+    # dispatch and retries short-circuit (not counted against a
+    # retry_limit of 5) until one probe after the 0.5 s cooldown closes
+    # it. How many flushes hang before the open is the timer's
+    def sick_open(e):
+        return e.guard.breaker("lib.0").state_name() == "open"
+
+    e, got, launches, wall, trig = guard_run(
+        tg, flb, decode_events, appends,
+        {"output.flush.lib.0": "hang(5000)"}, 1,
+        {"flush_timeout": "0.2s", "retry_limit": "5"},
+        {"guard.breaker_cooldown": "0.5s"}, delivered([0]), sick_open)
+    res, failed = check("b", got, e, launches, {"triggered": trig})
+    f = res["lib.0"]
+    if f["flush_timeouts"] < 5 or f["retries"] != f["flush_timeouts"] \
+            or f["retries_failed"] or f["dropped"] \
+            or f["breaker"] != "closed" or not f["short_circuits"] \
+            or not all(f["transitions"][s] >= 1
+                       for s in ("open", "half-open", "closed")):
+        failed.append("breaker")
+    if failed:
+        raise SystemExit(f"guard (b) failed {failed}: {res}")
+    report["b"] = res
+
+    # (c) (b) with a task map of 4 and a 0.5 watermark, and a healthy
+    # second output: the retry-held slots of the sick route are shed and
+    # readmitted for it alone
+    e, got, launches, wall, trig = guard_run(
+        tg, flb, decode_events, appends,
+        {"output.flush.lib.0": "hang(5000)"}, 2,
+        {"flush_timeout": "0.2s", "retry_limit": "5"},
+        {"guard.breaker_cooldown": "0.5s", "task_map_size": "4",
+         "guard.shed_watermark": "0.5"}, delivered([0, 1]), sick_open)
+    res, failed = check("c", got, e, launches, {"triggered": trig})
+    f, h = res["lib.0"], res["lib.1"]
+    if not f["shed_chunks"] or f["dropped"] or h["shed_chunks"] \
+            or h["proc_records"] != n_kept or e.guard.shed_count():
+        failed.append("shed")
+    if failed:
+        raise SystemExit(f"guard (c) failed {failed}: {res}")
+    report["c"] = res
+
+    # (d) a device fault at the launch's boundary: config 1's raw path
+    # (K3) and config 5's decoded path (K4)
+    report["d"] = guard_device_fault(tg, flb, decode_events, encode_event,
+                                     DeviceError, appends, config5)
+
+    # (e) a host fault: config 2j's json hook forced to decline
+    texts = tail_texts(ndjson)[:GUARD_JSON_LINES]
+    data = ("\n".join(texts) + "\n").encode()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "guard.ndjson")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        clean = run_config2(flb, "cuda", path, "json_plain", reserve=False)
+        failpoints.enable("codec.fallback", "1*return")
+        try:
+            forced = run_config2(flb, "cuda", path, "json_plain",
+                                 reserve=False)
+            trig = failpoints.snapshot()["codec.fallback"]["triggered"]
+        finally:
+            failpoints.reset()
+    got, ref = ([body for _, body in parsed_records(decode_events,
+                                                    r["chunks"])]
+                for r in (forced, clean))
+    res = {"lines": len(texts), "records_equal": got == ref,
+           "records_equal_python_json": got == config2j_fold(texts),
+           "hook": forced["hook"], "clean_hook": clean["hook"],
+           "triggered": trig}
+    log("guard (e): " + json.dumps(res))
+    if not (res["records_equal"] and res["records_equal_python_json"]) \
+            or trig != 1 or forced["hook"]["declines"] != 1 \
+            or clean["hook"]["declines"]:
+        raise SystemExit(f"guard (e) failed: {res}")
+    report["e"] = res
+
+    # config 1's lines/s with the guard on (the default) and off, in
+    # turns: on, off, off, on
+    rates = {"guard_on": [], "guard_off": []}
+    for label in ("guard_on", "guard_off", "guard_off", "guard_on"):
+        service = {"guard.enable": "off"} if label == "guard_off" else {}
+        e, got, launches, wall, _t = guard_run(
+            tg, flb, decode_events, appends, {}, 1, {}, service,
+            delivered([0]))
+        if got[0] != want or e.guard.health()["status"] != "ok":
+            raise SystemExit(f"guard throughput run {label}: records "
+                             "differ or not healthy")
+        rates[label].append(n_records / wall)
+    rates["card"] = card
+    log("guard rates: " + json.dumps(rates))
+    report["rates"] = rates
+    report["launches"] = {
+        "grep_dfa": sum(report[s]["launches"]["grep_dfa"]
+                        for s in "abc") + report["d"]["launches"]["grep_dfa"],
+        "grep_assoc": report["d"]["launches"]["grep_assoc"]}
+    logging.getLogger("flb.engine").setLevel(logging.NOTSET)
+    return report
+
+
+GUARD_JSON_LINES = 8192  # config 2j's lines the host fault runs over
+GUARD_K8S_MESSAGES = 24  # config 5's messages the device fault runs over
+
+
+def guard_device_fault(tg, flb, decode_events, encode_event, DeviceError,
+                       appends: list, config5: dict) -> dict:
+    """``device.dispatch=1*return`` after grep's launch: the append that
+    launches raises DeviceError to its caller, counted once under lane
+    grep; the next append launches and its records equal the plain
+    version's (the same append on cpu)."""
+    from fluentbit_tpu_torch import failpoints
+
+    out = {}
+    # config 1, K3 on the raw path: two appends through ctx.push
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ctx, in_ffd, sinks = guard_ctx(flb, device)
+        e = ctx.engine
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        ctx.start()
+        raised = None
+        try:
+            if device == "cuda":
+                failpoints.enable("device.dispatch", "1*return")
+                try:
+                    ctx.push(in_ffd, appends[0][1])
+                except DeviceError as exc:
+                    raised = str(exc)
+                failpoints.reset()
+            ctx.push(in_ffd, appends[1][1])
+            ctx.flush_now()
+        finally:
+            failpoints.reset()
+            ctx.stop()
+        runs[device] = (raised, record_counter(decode_events, sinks[0]),
+                        e.m_device_failures.get(("grep",)),
+                        {"grep_dfa": tg.grep_dfa.launches,
+                         "grep_assoc": tg.grep_assoc.launches},
+                        e.guard.health()["status"])
+    raised, got, failures, launches, health = runs["cuda"]
+    res1 = {"raised": raised, "launch_failures_grep": failures,
+            "next_append_equals_plain": got == runs["cpu"][1],
+            "launches": launches, "health": health}
+    log("guard (d) config 1: " + json.dumps(res1))
+    if raised is None or failures != 1 or not res1[
+            "next_append_equals_plain"] or launches != {"grep_dfa": 2,
+                                                        "grep_assoc": 0}:
+        raise SystemExit(f"guard (d) config 1 failed: {res1}")
+    out["config1"] = res1
+
+    # config 5, K4 on the decoded path: phase 17's messages of >= 32
+    # records through the chain kubernetes → grep Exclude, appended as
+    # in_forward appends them
+    traffic = config5["traffic"]
+    msgs = [(tag, ents) for tag, per in traffic["per_tag"].items()
+            for ents in per if len(ents) >= 32][:GUARD_K8S_MESSAGES]
+    chunks = [(tag, b"".join(encode_event(rec, ts) for ts, rec in ents),
+               len(ents)) for tag, ents in msgs]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        got = []
+        ctx = flb.create(device=device, flush="50ms", grace="2")
+        ctx.input("lib", tag="kube.guard")
+        ctx.filter("kubernetes", match="kube.*", merge_log="on",
+                   buffer_size="0",
+                   kube_meta_preload_cache_dir=config5["cache_dir"])
+        ctx.filter("grep", match="kube.*", exclude=f"log {K8S_EXCLUDE}")
+        ctx.output("lib", match="*",
+                   callback=lambda data, tag: got.append(bytes(data)))
+        e = ctx.engine
+        ins = e.inputs[0]
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        ctx.start()
+        raised = None
+        try:
+            if device == "cuda":
+                failpoints.enable("device.dispatch", "1*return")
+                try:
+                    e.input_log_append(ins, chunks[0][0], chunks[0][1],
+                                       chunks[0][2])
+                except DeviceError as exc:
+                    raised = str(exc)
+                failpoints.reset()
+            for tag, data, n in chunks[1:]:
+                e.input_log_append(ins, tag, data, n)
+            ctx.flush_now()
+        finally:
+            failpoints.reset()
+            ctx.stop()
+        runs[device] = (raised, record_counter(decode_events, got),
+                        e.m_device_failures.get(("grep",)),
+                        {"grep_dfa": tg.grep_dfa.launches,
+                         "grep_assoc": tg.grep_assoc.launches},
+                        e.guard.health()["status"])
+    raised, got, failures, launches, health = runs["cuda"]
+    res5 = {"raised": raised, "launch_failures_grep": failures,
+            "messages": len(chunks),
+            "next_appends_equal_plain": got == runs["cpu"][1],
+            "launches": launches, "health": health}
+    log("guard (d) config 5: " + json.dumps(res5))
+    if raised is None or failures != 1 or not res5[
+            "next_appends_equal_plain"] or launches != {
+                "grep_dfa": 0, "grep_assoc": len(chunks)}:
+        raise SystemExit(f"guard (d) config 5 failed: {res5}")
+    out["config5"] = res5
+    out["launches"] = {"grep_dfa": res1["launches"]["grep_dfa"],
+                       "grep_assoc": res5["launches"]["grep_assoc"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4970,6 +5366,8 @@ def main() -> int:
                         k8s_dir)
         relay = timed("relay", phase_relay, np, tg, flb, decode_events,
                       config5, env["card"])
+        guard = timed("guard", phase_guard, tg, flb, decode_events, appends,
+                      config5, ndjson, env["card"])
     log("phase_seconds (each with the data made before it): "
         + json.dumps(seconds))
 
@@ -4988,6 +5386,8 @@ def main() -> int:
         # written, the parser's batch hook takes it with no kernel
         "launches_config2r": config2r["decoded"]["launches"]["grep_dfa"],
         "launches_config2r_raw": config2r["raw_launches"]["grep_dfa"],
+        # phase 19: config 1 under injected faults, (a)-(d)
+        "launches_guard": guard["launches"]["grep_dfa"],
         "config2r_k3": config2r["k3"],
         "config1_rows": mesh["main_rows"][0],
         "global_ms": main_shape["global_ms"],
@@ -5082,6 +5482,8 @@ def main() -> int:
         "launches_config5": config5["launches"]["grep_assoc"],
         # phase 18 (a): the aggregator's Exclude rule on grep's raw path
         "launches_relay_aggregator": relay["launches"]["grep_assoc"],
+        # phase 19 (d): config 5's decoded path under device.dispatch
+        "launches_guard": guard["launches"]["grep_assoc"],
         "config5_rows": config5["k4_rows"],
         "max_abs_err": max([r["max_abs_err"] for r in assoc]
                            + [mesh["main_rows"][1]["max_abs_err"]]

@@ -5,7 +5,7 @@ first call builds the extension with ``g++`` into
 ``fluentbit_tpu_torch/_build/`` (``ops/cuda_build.py``), imports it as
 ``fbtpu_torch_codec`` and registers the port's ``LogEvent`` and
 ``EventTime`` with it, once and under a lock. A failed build, or an
-interpreter without ``Python.h``, raises RuntimeError naming the file:
+interpreter without ``Python.h``, raises DeviceError naming the file:
 there is no pure-Python stand-in and no switch that turns the codec off,
 and a later call tries again.
 """

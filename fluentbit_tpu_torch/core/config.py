@@ -184,7 +184,10 @@ def _attr_name(name: str) -> str:
 
 # Instance-level keys consumed by the engine, valid for every plugin
 # (reference: flb_input.c/flb_output.c/flb_filter.c common properties).
-CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level"}
+# ``flush_timeout``, the guard's flush deadline, is read by outputs and
+# taken on every instance, as in the reference.
+CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level",
+                      "flush_timeout"}
 
 #: the engine's keys of an output instance (``OutputInstance.configure``):
 #: retries, worker threads, one flush at a time, conditional routing
@@ -222,7 +225,6 @@ UNPORTED_INSTANCE_KEYS = {
     "tls.vhost": _NO_TLS,
     "http2": "HTTP/2 outputs",
     "proxy": "HTTP proxy outputs",
-    "flush_timeout": "flush deadlines (guard)",
     "tenant": "qos plane",
     "net.keepalive": "upstream connection pools",
     "net.keepalive_idle_timeout": "upstream connection pools",
@@ -243,12 +245,19 @@ class ServiceConfig:
     task_map_size: int = 2048        # FLB_CONFIG_DEFAULT_TASK_MAP_SIZE
     # SIGHUP in the CLI: a validated full-restart reload
     hot_reload: bool = False
-    # the breakers of core/guard.py (the forward output's destinations)
+    # core/guard.py: flush deadlines, a breaker on every output (and the
+    # forward output's destinations), the watchdog and breaker shedding
+    guard_enable: bool = True
+    guard_flush_timeout: float = 0.0     # 0: the deadline is 2 x grace
     guard_breaker_failures: int = 5      # consecutive failures to open
     guard_breaker_error_rate: float = 0.5  # windowed failure fraction
     guard_breaker_window: int = 20       # outcomes in the rate window
     guard_breaker_cooldown: float = 5.0  # open → half-open delay
     guard_breaker_probes: int = 1        # half-open successes to close
+    guard_shed_watermark: float = 0.8    # task-map occupancy fraction
+    guard_stall_after: float = 30.0      # heartbeat age: "stalled"
+    guard_leak_grace: float = 5.0        # soft-kill to leaked-thread count
+    guard_worker_start_timeout: float = 10.0  # worker pool start bound
 
     _KEYMAP = {
         "flush": ("flush", parse_time),
@@ -258,11 +267,18 @@ class ServiceConfig:
         "retry_limit": ("retry_limit", int),
         "task_map_size": ("task_map_size", int),
         "hot_reload": ("hot_reload", parse_bool),
+        "guard.enable": ("guard_enable", parse_bool),
+        "guard.flush_timeout": ("guard_flush_timeout", parse_time),
         "guard.breaker_failures": ("guard_breaker_failures", int),
         "guard.breaker_error_rate": ("guard_breaker_error_rate", float),
         "guard.breaker_window": ("guard_breaker_window", int),
         "guard.breaker_cooldown": ("guard_breaker_cooldown", parse_time),
         "guard.breaker_probes": ("guard_breaker_probes", int),
+        "guard.shed_watermark": ("guard_shed_watermark", float),
+        "guard.stall_after": ("guard_stall_after", parse_time),
+        "guard.leak_grace": ("guard_leak_grace", parse_time),
+        "guard.worker_start_timeout":
+            ("guard_worker_start_timeout", parse_time),
     }
 
     def set(self, key: str, value: Any) -> None:
@@ -270,7 +286,7 @@ class ServiceConfig:
         mapped = self._KEYMAP.get(lk)
         if mapped is None:
             if lk in UNPORTED_SERVICE_KEYS or lk.split(".")[0] in (
-                    "storage", "guard", "qos", "tpu"):
+                    "storage", "qos", "tpu"):
                 raise ValueError(f"service property {key!r} is not "
                                  "ported")
             raise ValueError(f"unknown service property {key!r}")
@@ -279,8 +295,8 @@ class ServiceConfig:
 
 
 #: the reference's other [SERVICE] keys (its ServiceConfig._KEYMAP,
-#: beside the ``storage.*``, ``guard.*``, ``qos.*`` and ``tpu.*``
-#: families): each raises when set
+#: beside the ``storage.*``, ``qos.*`` and ``tpu.*`` families): each
+#: raises when set
 UNPORTED_SERVICE_KEYS = {
     "daemon", "log_level", "http_server", "http_listen", "http_port",
     "hot_reload_diff",

@@ -29,12 +29,24 @@ loop timer with full-jitter backoff (``_schedule_retry``; no coroutine
 waits), up to ``retry_limit`` times, then the chunk drops and counts; an
 output's ``route_condition`` splits the decoded records into chunks per
 route mask at ingest. The output counter families, the uptime gauge and
-the delivery latency histogram count it. ``guard`` holds the named
-circuit breakers (the forward output's), and ``reload_count`` /
-``reload_callback`` the CLI's full-restart reloads. Storage, qos, the
-rest of the guard (flush deadlines, shedding, breakers on every flush),
-failpoints, processors, chunk trace, reload by diff, the admin HTTP
-server and multiline wait for later slices.
+the delivery latency histogram count it. ``guard`` (``core/guard.py``)
+gives every tracked flush a deadline, a breaker to every output (and to
+the forward output's destinations), and rides the flush timer with its
+watchdog and breaker shedding; ``reload_count`` / ``reload_callback``
+are the CLI's full-restart reloads. The failpoint plane
+(``failpoints/``) has its sites here (``engine.flush_dispatch``,
+``engine.retry_schedule``, ``output.flush[.<output>]``) and its
+triggers count in ``fluentbit_failpoint_triggered_total``.
+
+The host error policy is the reference's: a filter that raises is
+logged and its records pass on, a batch hook that raises is logged and
+declines, a raw chain's bytes that do not decode are appended as they
+are, and a stream-processor task or flux attach that fails is logged. A
+device error (``ops.device.DEVICE_ERRORS``: a failed build or launch) is
+none of these: the engine counts it in
+``fluentbit_device_launch_failures_total{lane}`` and it reaches the
+caller of the append. Storage, qos, processors, chunk trace, reload by
+diff, the admin HTTP server and multiline wait for later slices.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → task → per-route flush),
@@ -57,9 +69,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .. import failpoints as _fp
 from ..codec.chunk import Chunk
 from ..codec.events import (LogEvent, decode_events, fast_count_records,
                             reencode_event)
+from ..ops.device import DEVICE_ERRORS
+from . import guard as _guard
 from .bucket_queue import PRIORITY_FLUSH, PRIORITY_TOP, BucketQueue
 from .chunk_batch import RawChunk
 from .config import ServiceConfig
@@ -104,16 +119,24 @@ class _RawTail:
     takes the engine's lock and the order is Engine lock, then input
     lock."""
 
-    __slots__ = ("tag", "data", "remaining", "n_records", "deltas",
+    __slots__ = ("tag", "data", "remaining", "n", "n_records", "deltas",
                  "in_bytes")
 
-    def __init__(self, tag, data, remaining, n_records, deltas, in_bytes):
+    def __init__(self, tag, data, remaining, n, n_records, deltas,
+                 in_bytes):
         self.tag = tag
         self.data = data
         self.remaining = remaining  # the declining filter onward
+        self.n = n  # the records of ``data``, None when not yet counted
         self.n_records = n_records
         self.deltas = deltas
         self.in_bytes = in_bytes
+
+
+def _lane_of(plugin) -> str:
+    """The device lane of a filter's errors that carry none: ``flux``
+    for the sketch filters, ``grep`` for the matchers."""
+    return "flux" if plugin.name in ("flux", "log_to_metrics") else "grep"
 
 
 class Engine:
@@ -161,11 +184,9 @@ class Engine:
         # (reference core/engine.py:142, :164)
         self.reload_count = 0
         self.reload_callback = None
-        # the named circuit breakers (core/guard.py; the forward output's
-        # destinations)
-        from .guard import Guard
-
-        self.guard = Guard(self)
+        # flush deadlines, a breaker on every output, the watchdog and
+        # breaker shedding (core/guard.py)
+        self.guard = _guard.Guard(self)
 
     def _init_metrics(self) -> None:
         """The input, filter and output families, the uptime gauge and
@@ -213,6 +234,17 @@ class Engine:
         self.m_latency = m.histogram(
             "fluentbit", "output", "latency_seconds",
             "chunk create → delivered latency", ("name",))
+        # every armed failpoint that fires (reference :232)
+        self.m_failpoint_triggered = m.counter(
+            "fluentbit", "", "failpoint_triggered_total",
+            "Faults triggered by the failpoint plane", ("name",))
+        # a device error that passed through the engine to the caller of
+        # an append, by lane: grep (the DFA matchers) or flux (the
+        # sketch and window kernels) (reference :248)
+        self.m_device_failures = m.counter(
+            "fluentbit", "device", "launch_failures_total",
+            "Device launches that raised (XlaRuntimeError, injected "
+            "faults, resource exhaustion)", ("lane",))
 
     # ------------------------------------------------------------------
     # configuration
@@ -306,8 +338,8 @@ class Engine:
         aggregation state on the engine's device, and the task reads its
         windows from it. ``allow_flux=False``, ``WITH (flux='off')`` or
         ``FBTPU_FLUX_SQL=off`` pin the exact per-event evaluation. When
-        ``attach_flux`` raises, so does this call (the reference package
-        logs and keeps the exact path)."""
+        ``attach_flux`` raises, the error is logged and the query stays
+        on the exact path, as in the reference; a device error raises."""
         from ..stream_processor import StreamProcessor
 
         if self.sp is None:
@@ -319,9 +351,13 @@ class Engine:
 
             try:
                 attach_flux(self, task)
-            except Exception:
+            except DEVICE_ERRORS as exc:
                 self.sp.tasks.remove(task)
+                self._count_device_error(exc, "flux")
                 raise
+            except Exception:
+                log.exception("flux attach failed; query %r stays on the "
+                              "exact evaluation path", sql)
         if self.sp._emitter is None:
             ins = self.hidden_input("emitter",
                                     alias="emitter_for_stream_processor")
@@ -363,7 +399,8 @@ class Engine:
     def start(self) -> None:
         """Init every instance and the outputs' worker pools, then spawn
         the engine thread (flb_start). A worker pool that does not start
-        raises, naming its output."""
+        within ``guard.worker_start_timeout`` fails its output over to
+        flushes on the engine's loop."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
         for ins in self.inputs + self.filters + self.outputs:
@@ -371,13 +408,13 @@ class Engine:
                 continue  # hidden instances are initialized at creation
             ins.configure()
             ins.plugin.init(ins, self)
-        try:
-            for out in self.outputs:
-                self._ensure_worker_pool(out)
-        except Exception:
-            self._stop_worker_pools()
-            raise
+        for out in self.outputs:
+            self._ensure_worker_pool(out)
         self.started_at = time.time()
+        self.guard.heartbeat = time.time()
+        # the failpoint trigger → metric bridge (walked only when a
+        # fault fires)
+        _fp.add_listener(self._on_failpoint_trigger)
         self._stopping = False
         self._start_error = None
         self._thread = threading.Thread(target=self._run, name="flb-engine",
@@ -389,17 +426,29 @@ class Engine:
             self._thread.join(timeout=10)
             self._thread = None
             self._stop_worker_pools()
+            _fp.remove_listener(self._on_failpoint_trigger)
             raise RuntimeError("engine failed to start") from self._start_error
 
     def _ensure_worker_pool(self, out: OutputInstance) -> None:
         """The output's worker threads (flb_output_thread_pool_create,
         src/flb_output_thread.c:472), when ``workers`` is set and the
-        plugin is not synchronous."""
+        plugin is not synchronous. A pool whose workers do not all start
+        within ``guard.worker_start_timeout`` is stopped, counted in
+        ``fluentbit_guard_worker_start_failures_total``, and the output
+        flushes on the engine's loop (reference :657-680)."""
         if out.workers <= 0 or out.worker_pool is not None \
                 or out.plugin.synchronous:
             return
-        out.worker_pool = OutputWorkerPool(out.display_name, out.workers,
-                                           out.plugin)
+        pool = OutputWorkerPool(
+            out.display_name, out.workers, out.plugin,
+            start_timeout=self.service.guard_worker_start_timeout)
+        if pool.failed:
+            log.error("output %s: worker pool startup failed; failing "
+                      "over to inline flush", out.display_name)
+            self.guard.m_worker_start_fail.inc(1, (out.display_name,))
+            pool.stop()
+        else:
+            out.worker_pool = pool
 
     def _stop_worker_pools(self) -> None:
         for out in self.outputs:
@@ -445,7 +494,9 @@ class Engine:
                 task.cancel()
             if servers:
                 await asyncio.gather(*servers, return_exceptions=True)
-            # graceful drain (grace period, src/flb_engine.c:1137-1160)
+            # graceful drain (grace period, src/flb_engine.c:1137-1160);
+            # the shed chunks go back to the backlog first
+            self.guard.readmit_all()
             self.flush_all()
             await asyncio.sleep(0.05)  # let queued flush spawns run
             deadline = time.time() + self.service.grace
@@ -473,10 +524,16 @@ class Engine:
             self._started.clear()
 
     async def _collector(self, ins: InputInstance) -> None:
-        """Interval collector (flb_input_set_collector_time)."""
+        """Interval collector (flb_input_set_collector_time). A collect
+        that raises is logged and the next one runs; a device error ends
+        the collector with it."""
         while True:
             try:
                 ins.plugin.collect(self)
+            except DEVICE_ERRORS:
+                log.exception("input %s collect hit a device error; its "
+                              "collector stops", ins.display_name)
+                raise
             except Exception:
                 log.exception("input %s collect failed", ins.display_name)
             await asyncio.sleep(ins.plugin.collect_interval)
@@ -493,8 +550,7 @@ class Engine:
         self._stopping = True
         self._thread.join(timeout=self.service.grace + 10)
         if self._thread.is_alive():
-            log.warning("engine thread did not exit within %.1fs at stop()",
-                        self.service.grace + 10)
+            self._dump_stuck_shutdown()
         self._thread = None
         try:
             if self.sp is not None and self.sp.tasks:
@@ -505,11 +561,51 @@ class Engine:
                 self.flush_all()
         finally:
             self._stop_worker_pools()
+            device_error = None
             for ins in self.inputs + self.filters + self.outputs:
                 try:
                     ins.plugin.exit()
+                except DEVICE_ERRORS as exc:
+                    # the other instances still exit; the first device
+                    # error (a flux drain's emit) raises after them
+                    self._count_device_error(exc, _lane_of(ins.plugin))
+                    device_error = device_error or exc
                 except Exception:
                     log.exception("%s exit failed", ins.display_name)
+            _fp.remove_listener(self._on_failpoint_trigger)
+            if device_error is not None:
+                raise device_error
+
+    def _dump_stuck_shutdown(self) -> None:
+        """The engine thread outlived ``grace`` + 10 s at ``stop()``: say
+        so, and dump every thread's stack with faulthandler (reference
+        :932-948)."""
+        import faulthandler
+        import sys
+
+        log.warning(
+            "engine thread did not exit within %.1fs at stop(): shutdown "
+            "is stuck; dumping all thread stacks to stderr",
+            self.service.grace + 10)
+        try:
+            faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        except Exception:
+            log.exception("thread stack dump failed")
+
+    def _on_failpoint_trigger(self, name: str, _action: str) -> None:
+        self.m_failpoint_triggered.inc(1, (name,))
+
+    def _count_device_error(self, exc: BaseException, lane: str) -> None:
+        """Count a device error once, under its lane (a ``DeviceError``
+        names its own; ``lane`` is the caller's for torch's errors), as
+        it passes through the engine on its way to the caller."""
+        if getattr(exc, "_fbtpu_counted", False):
+            return
+        self.m_device_failures.inc(1, (getattr(exc, "lane", lane),))
+        try:
+            exc._fbtpu_counted = True
+        except AttributeError:
+            pass
 
     @property
     def running(self) -> bool:
@@ -541,11 +637,12 @@ class Engine:
         force the decoded path: its hidden flux filter absorbs inside
         the chain.
 
-        A filter or hook that raises fails the append: no path has a
-        silent pass-through (the reference package logs, and declines or
-        continues). A stream-processor task that raises is logged and the
-        append's records are kept, as in the reference (an SQL task's
-        error is host Python, never a device failure)."""
+        A filter that raises is logged and its records pass on; a hook
+        that raises is logged and declines; a stream-processor task that
+        raises is logged and the append's records are kept: the
+        reference's policy. A device error (``DEVICE_ERRORS``) is counted
+        in ``fluentbit_device_launch_failures_total`` and raises to the
+        caller."""
         tag = tag or ins.tag or ins.plugin.name
         matching = [f for f in self.filters if f.route.matches(tag)]
         sp = self.sp
@@ -619,6 +716,9 @@ class Engine:
             sp.hold()
             try:
                 sp.do(events, tag)
+            except DEVICE_ERRORS as exc:
+                self._count_device_error(exc, "flux")
+                raise
             except Exception:
                 log.exception("stream processor failed")
             finally:
@@ -673,7 +773,9 @@ class Engine:
         ran, or the bytes cannot be counted (the decoded path re-runs
         the whole chain); or a ``_RawTail`` when one declines after such
         a hook. ``committed`` is set before a stateful hook is called:
-        its effects are out once it has run."""
+        its effects are out once it has run. A hook or raw filter that
+        raises is logged and declines (reference :1366-1368); a device
+        error raises."""
         in_bytes = len(data)
         n = n_records
         chunk = RawChunk(data, tag, n, src=ins, engine=self)
@@ -683,24 +785,31 @@ class Engine:
             plugin = f.plugin
             prev = data
             got = None
-            if plugin.can_process_batch():
-                if chunk.data is not data:
-                    chunk.replace(data, n)
-                else:
-                    chunk.n = n
-                if plugin.stateful_batch:
-                    committed = True
-                t0 = time.perf_counter()
-                got = plugin.process_batch(chunk)
-                if got is not None:
-                    f.note_batch(time.perf_counter() - t0)
-            if got is None and plugin.can_filter_raw():
-                got = plugin.filter_raw(data, tag, self, n_records=n)
+            try:
+                if plugin.can_process_batch():
+                    if chunk.data is not data:
+                        chunk.replace(data, n)
+                    else:
+                        chunk.n = n
+                    if plugin.stateful_batch:
+                        committed = True
+                    t0 = time.perf_counter()
+                    got = plugin.process_batch(chunk)
+                    if got is not None:
+                        f.note_batch(time.perf_counter() - t0)
+                if got is None and plugin.can_filter_raw():
+                    got = plugin.filter_raw(data, tag, self, n_records=n)
+            except DEVICE_ERRORS as exc:
+                self._count_device_error(exc, _lane_of(plugin))
+                raise
+            except Exception:
+                log.exception("filter %s raw path failed", f.display_name)
+                got = None
             if got is None:
                 self.m_filter_batch_decline.inc(1, (f.display_name,))
                 if not committed:
                     return None  # the decoded path re-runs the chain
-                return _RawTail(tag, data, matching[fi:], n_records,
+                return _RawTail(tag, data, matching[fi:], n, n_records,
                                 deltas, in_bytes)
             if len(got) == 3:
                 n2, data, n_in = got
@@ -754,31 +863,46 @@ class Engine:
             ins.pool.append(tag, data, n)
         return n
 
-    def _finish_raw_tail(self, ins: InputInstance, cont: _RawTail) -> int:
+    def _finish_raw_tail(self, ins: InputInstance, cont: _RawTail):
         """Finish a ``_RawTail`` (reference :1450): the remaining filters
         on the decoded records, then the raw path's commit. Called with
-        no raw-path lock held."""
-        n, data, n_in = self._raw_tail_decoded(cont.data, cont.tag,
-                                               cont.remaining, ins)
-        n_records = cont.n_records
-        if n_records is None and not cont.deltas:
-            # the first filter declined before any count was found: the
-            # tail's decode is the append's input count
-            n_records = n_in
-        # the tail's own add/drop counts were made by _run_filters
+        no raw-path lock held. When the bytes do not decode, they are
+        appended as they are; None when they cannot even be counted (the
+        decoded path then takes the append)."""
+        tail = self._raw_tail_decoded(cont.data, cont.tag, cont.remaining,
+                                      ins)
+        n, data, n_records = cont.n, cont.data, cont.n_records
+        if tail is not None:
+            n, data, n_in = tail
+            if n_records is None and not cont.deltas:
+                # the first filter declined before any count was found:
+                # the tail's decode is the append's input count
+                n_records = n_in
+            # the tail's own add/drop counts were made by _run_filters
+        elif n is None:
+            n = fast_count_records(data)
+            if n is None:
+                return None
         return self._finish_raw_append(ins, cont.tag, data, n, n_records,
                                        cont.deltas, cont.in_bytes)
 
     def _raw_tail_decoded(self, data, tag: str,
                           remaining: List[FilterInstance],
-                          ins: InputInstance) -> tuple:
+                          ins: InputInstance) -> Optional[tuple]:
         """The decoded path's filter code over the remaining filters only
         (reference :1479), with ``_ingest_src`` at the appending input so
         the own-emitter guards fire as on the decoded path. Returns
-        ``(n_out, data_out, n_in)``; bytes that do not decode raise, as
-        they do on the decoded path (the reference appends them as
-        they are)."""
-        events = decode_events(bytes(data))
+        ``(n_out, data_out, n_in)``, or None when the bytes do not
+        decode (a filter broke its contract: the caller appends them as
+        they are, reference :1467-1473)."""
+        try:
+            events = decode_events(bytes(data))
+        except DEVICE_ERRORS:
+            raise  # the codec extension's build failed
+        except Exception:
+            log.exception("raw-chain tail decode failed; remaining "
+                          "filters skipped for this append")
+            return None
         n_in = len(events)
         with self._ingest_lock:
             prev_src, self._ingest_src = self._ingest_src, ins
@@ -810,14 +934,22 @@ class Engine:
         """flb_filter_do equivalent (src/flb_filter.c:119-330), counting
         each filter's added and dropped records (reference :1578-1617).
         ``filters`` restricts the pass to a sub-chain (the raw path's
-        decoded tail)."""
+        decoded tail). A filter that raises is logged and its input
+        passes on (reference :1594-1598); a device error raises."""
         for f in (self.filters if filters is None else filters):
             if not events:
                 break
             if not f.route.matches(tag):
                 continue
             before = len(events)
-            result, new_events = f.plugin.filter(events, tag, self)
+            try:
+                result, new_events = f.plugin.filter(events, tag, self)
+            except DEVICE_ERRORS as exc:
+                self._count_device_error(exc, _lane_of(f.plugin))
+                raise
+            except Exception:
+                log.exception("filter %s failed", f.display_name)
+                continue
             if result == FilterResult.MODIFIED:
                 events = new_events if new_events is not None else []
                 after = len(events)
@@ -839,14 +971,28 @@ class Engine:
         fluentbit_tpu/core/qos.py:467-500). When the task map is full,
         that chunk and the rest of the cycle park on the backlog
         (reference :1624-1730). While the engine runs, only its loop
-        thread calls this (the timer, the stop drain, ``flush_now``)."""
+        thread calls this (the timer, the stop drain, ``flush_now``).
+        The guard's watchdog rides it (``housekeeping``); the failpoint
+        site ``engine.flush_dispatch`` fires between the drain and the
+        tasks, and an injected failure parks the cycle's chunks on the
+        backlog (a panic raises)."""
         if self.started_at:
             self.m_uptime.set(time.time() - self.started_at)
+        self.guard.housekeeping()
         with self._ingest_lock:
             chunks, self._backlog = self._backlog, []
             for ins in self.inputs:
                 with ins.ingest_lock:  # parallel raw appends
                     chunks.extend(ins.pool.drain())
+        if _fp.ACTIVE and chunks:
+            try:
+                _fp.fire("engine.flush_dispatch")
+            except _fp.FailpointError:
+                log.warning("flush dispatch failed (injected); %d "
+                            "chunk(s) re-queued", len(chunks))
+                with self._ingest_lock:
+                    self._backlog.extend(chunks)
+                return
         for i, chunk in enumerate(chunks):
             if not self._dispatch_chunk(chunk):
                 with self._ingest_lock:
@@ -857,7 +1003,9 @@ class Engine:
         """Resolve a chunk's routes (by ``route_names``, else by
         ``routes_mask``, else by tag) and give it a task in the map
         (reference :1762-1839). Returns False only when the map is full
-        (the chunk must park); a chunk no output takes is done."""
+        (the chunk must park); a chunk no output takes is done, and so is
+        one the guard sheds (every route behind an open breaker, the map
+        at the watermark)."""
         outputs = self.outputs
         if chunk.route_names is not None:
             routes = [o for o in outputs
@@ -872,6 +1020,8 @@ class Engine:
                       if o.route.matches(chunk.tag)
                       and chunk.event_type in o.plugin.event_types]
         if not routes:
+            return True
+        if self.guard.maybe_shed(chunk, routes):
             return True
         with self._task_lock:
             if len(self._task_map) >= self.service.task_map_size:
@@ -918,8 +1068,16 @@ class Engine:
     def _spawn_flush(self, task: Task, out: OutputInstance,
                      priority: Optional[int] = None) -> None:
         """Start one route's flush on the loop, at ``priority`` (flush
-        by default; a retry's fire comes at the top). With the engine
+        by default; a retry's fire comes at the top). While the output's
+        breaker is open, a retry is scheduled instead, not counted
+        against ``retry_limit`` (reference :1877-1895). With the engine
         not running, the flush runs here, its retries too."""
+        if self.loop is not None and self.running:
+            delay = self.guard.short_circuit_delay(out)
+            if delay is not None:
+                self.guard.m_short_circuit.inc(1, (out.display_name,))
+                self._schedule_retry(task, out, delay)
+                return
         coro = self._flush_one(task, out)
         if self.loop is None or not self.running:
             asyncio.run(coro)
@@ -927,6 +1085,7 @@ class Engine:
 
         def _create():
             fut = asyncio.ensure_future(coro)
+            self.guard.track(task, out, fut)
             self._pending_flushes.add(fut)
             fut.add_done_callback(self._pending_flushes.discard)
 
@@ -944,8 +1103,15 @@ class Engine:
         here: it arms a loop timer that spawns a new attempt
         (``_schedule_retry``), so a chunk in backoff holds no coroutine
         and no slot of the output's flush semaphore. With the engine not
-        running the retries wait inline."""
-        delay = await self._flush_body(task, out)
+        running the retries wait inline. A flush the guard soft-killed
+        past its deadline is a RETRY (reference :1914-1932); any other
+        cancel (the stop) propagates."""
+        try:
+            delay = await self._flush_body(task, out)
+        except asyncio.CancelledError:
+            if not self.guard.consume_timeout(task, out):
+                raise
+            delay = self._handle_flush_result(task, out, FlushResult.RETRY)
         if delay is None:
             return
         if self.loop is not None and self.running:
@@ -960,13 +1126,22 @@ class Engine:
         """The attempt (reference :1976-2067): the output's flush slot
         (one for a synchronous or no_multiplex output, N for ``workers
         N``), then the test formatter, the worker pool or the plugin on
-        this loop. A flush that raises is the output's ERROR. Returns the
-        backoff delay of a retry, else None."""
+        this loop. The guard's deadline runs from the slot's acquire,
+        and ``guard.CANCEL_EVENT`` holds the attempt's cancel flag; the
+        async failpoint sites ``output.flush`` and
+        ``output.flush.<output>`` fire before the plugin. A flush that
+        raises is the output's ERROR. Returns the backoff delay of a
+        retry, else None."""
         chunk = task.chunk
         data = chunk.get_bytes()
         sem = out.flush_semaphore
         if sem is not None:
             await sem.acquire()
+        rec = self.guard.flight(task, out)
+        if rec is not None:
+            rec.started = time.time()
+            rec.begun = True
+            _guard.CANCEL_EVENT.set(rec.cancel_event)
         try:
             if out.test_formatter is not None:
                 try:
@@ -977,9 +1152,18 @@ class Engine:
                     result = FlushResult.ERROR
             else:
                 try:
+                    if _fp.ACTIVE:
+                        # async sites: a hang suspends this flush only,
+                        # and the guard's deadline can cancel it
+                        await _fp.fire_async("output.flush")
+                        await _fp.fire_async(
+                            "output.flush." + out.display_name)
                     if out.worker_pool is not None:
+                        if rec is not None:
+                            rec.worker = True
                         result = await out.worker_pool.submit(
-                            out.plugin.flush(data, chunk.tag, self))
+                            self._worker_flush(out.plugin, data,
+                                               chunk.tag, rec))
                     else:
                         result = await out.plugin.flush(data, chunk.tag,
                                                         self)
@@ -994,14 +1178,37 @@ class Engine:
                 sem.release()
         return self._handle_flush_result(task, out, result)
 
+    async def _worker_flush(self, plugin, data: bytes, tag: str, rec):
+        """The plugin's flush on a worker's loop, with the attempt's
+        cancel flag in ``guard.CANCEL_EVENT`` there too (a context
+        variable does not cross ``run_coroutine_threadsafe``) and its
+        end marked, so the watchdog tells a soft-kill that landed late
+        from a thread wedged in sync code."""
+        if rec is not None:
+            _guard.CANCEL_EVENT.set(rec.cancel_event)
+        try:
+            return await plugin.flush(data, tag, self)
+        finally:
+            if rec is not None:
+                rec.worker_done = True
+
     def _schedule_retry(self, task: Task, out: OutputInstance,
                         delay: float) -> None:
         """Arm the retry's timer (flb_sched_request_create →
         flb_engine_dispatch_retry; reference :2088-2132): it fires at
         the top priority. Once the engine is stopping, the retry drops
         instead; ``_main`` drops those still pending after the grace
-        wait."""
+        wait. An injected failure of the site ``engine.retry_schedule``
+        drops the retry as the stop does."""
         key = (task.chunk.id, out.name)
+        if _fp.ACTIVE:
+            try:
+                _fp.fire("engine.retry_schedule")
+            except _fp.FailpointError:
+                log.warning("retry scheduling failed (injected); "
+                            "dropping retry for %s", out.display_name)
+                self._drop_retry(task, out)
+                return
 
         def _fire():
             self._pending_retries.pop(key, None)
@@ -1031,10 +1238,12 @@ class Engine:
         :2150-2187): OK counts the delivery; RETRY returns the backoff
         while the attempts stay within the output's ``retry_limit`` (the
         service's when unset; -1 has no limit); ERROR, or a RETRY past
-        the limit, drops the chunk for this output and counts it."""
+        the limit, drops the chunk for this output and counts it. Every
+        outcome feeds the output's breaker (reference :2157-2177)."""
         name = out.display_name
         chunk = task.chunk
         if result == FlushResult.OK:
+            self.guard.on_result(out, ok=True)
             self.m_out_proc_records.inc(chunk.records, (name,))
             self.m_out_proc_bytes.inc(chunk.size, (name,))
             self.m_latency.observe(time.time() - chunk.created, (name,))
@@ -1046,11 +1255,13 @@ class Engine:
             limit = out.retry_limit if out.retry_limit is not None \
                 else self.service.retry_limit
             if limit == -1 or attempts <= limit:
+                self.guard.on_result(out, ok=False)
                 self.m_out_retries.inc(1, (name,))
                 return backoff_full_jitter(self.service.scheduler_base,
                                            self.service.scheduler_cap,
                                            attempts)
             self.m_out_retries_failed.inc(1, (name,))
+        self.guard.on_result(out, ok=False)
         log.warning("output %s: flush returned %s, %d records dropped",
                     name, getattr(result, "name", result), chunk.records)
         self.m_out_errors.inc(1, (name,))

@@ -92,6 +92,13 @@ class Gauge(_Metric):
         with self._lock:
             self._values[self._key(labels)] = float(value)
 
+    def set_max(self, value: float, labels: Sequence[str] = ()) -> None:
+        """Keep the largest value ever set (a high-water mark)."""
+        k = self._key(labels)
+        with self._lock:
+            if value > self._values.get(k, float("-inf")):
+                self._values[k] = float(value)
+
 
 class Histogram(_Metric):
     kind = "histogram"

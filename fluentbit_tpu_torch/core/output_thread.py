@@ -7,11 +7,14 @@ round-robin, and each worker runs the plugin's ``worker_init`` and
 ``worker_exit`` hooks. The engine awaits a flush's result from its own
 loop, where the retry and the counters are handled.
 
-One rule differs from the reference: a pool whose workers do not all
-start within ``start_timeout`` raises, naming the output (the reference
-fails the output over to flushes on the engine's loop and counts it in
-a guard metric; the port has no guard, and no fallback of its is
-silent).
+A pool whose workers do not all start within ``start_timeout`` is marked
+``failed``: the engine stops it, counts it in
+``fluentbit_guard_worker_start_failures_total`` and flushes the output
+on its own loop. The failpoint sites ``output.worker_start`` (a worker,
+before the ready barrier) and ``output.worker_flush`` (``submit``, before
+the handoff) inject a wedged or dead worker and a failed handoff; the
+engine's ``_worker_flush`` carries the guard's cancel flag
+(``guard.CANCEL_EVENT``) onto the worker's loop.
 
 Reference: src/flb_output_thread.c (round-robin assignment :439-496,
 cb_worker_init :249, cb_worker_exit :375).
@@ -25,6 +28,8 @@ import logging
 import threading
 from typing import List
 
+from .. import failpoints as _fp
+
 log = logging.getLogger("flb.output_thread")
 
 
@@ -33,6 +38,9 @@ class OutputWorkerPool:
                  start_timeout: float = 10.0):
         self.name = name
         self.plugin = plugin
+        # True when the workers missed the ready barrier: the caller
+        # must not submit to loops that will never run anything
+        self.failed = False
         self._start_timeout = start_timeout
         self._loops: List[asyncio.AbstractEventLoop] = []
         self._threads: List[threading.Thread] = []
@@ -47,15 +55,26 @@ class OutputWorkerPool:
         try:
             ready.wait(timeout=start_timeout)
         except threading.BrokenBarrierError:
-            self.stop()
-            raise RuntimeError(
-                f"output {name}: {workers} worker thread(s) did not start "
-                f"within {start_timeout:.1f}s") from None
+            self.failed = True
+            log.error("output %s: %d worker thread(s) did not start within "
+                      "%.1fs; the pool is unusable, the output flushes "
+                      "inline", name, workers, start_timeout)
 
     def _worker(self, index: int, ready: threading.Barrier) -> None:
         loop = asyncio.new_event_loop()
         asyncio.set_event_loop(loop)
         self._loops.append(loop)
+        if _fp.ACTIVE:
+            try:
+                # a wedged start (delay or hang past the timeout) or a
+                # worker that dies before serving (return)
+                _fp.fire("output.worker_start")
+            except OSError:
+                log.error("%s worker %d start failed (injected)",
+                          self.name, index)
+                ready.abort()  # fail the start now, not at the timeout
+                loop.close()
+                return
         init = getattr(self.plugin, "worker_init", None)
         if init is not None:
             try:
@@ -85,9 +104,16 @@ class OutputWorkerPool:
     def submit(self, coro) -> "asyncio.Future":
         """Run the coroutine on the next worker's loop (round-robin);
         returns an awaitable for the calling loop."""
-        if not self._loops:
+        if self.failed or not self._loops:
             coro.close()
-            raise RuntimeError(f"output {self.name}: worker pool stopped")
+            raise RuntimeError(f"output {self.name}: worker pool never "
+                               "started or stopped")
+        if _fp.ACTIVE:
+            try:
+                _fp.fire("output.worker_flush")
+            except BaseException:
+                coro.close()
+                raise
         loop = self._loops[next(self._rr) % len(self._loops)]
         return asyncio.wrap_future(
             asyncio.run_coroutine_threadsafe(coro, loop))

@@ -20,7 +20,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Type
 
 from .config import (OUTPUT_INSTANCE_KEYS, ConfigMapEntry, Properties,
-                     apply_config_map, parse_bool)
+                     apply_config_map, parse_bool, parse_time)
 from .router import Route
 from ..codec.chunk import ChunkPool, EVENT_TYPE_LOGS
 
@@ -209,6 +209,9 @@ class OutputInstance(Instance):
         super().__init__(plugin)
         self.retry_limit: Optional[int] = None  # None: the service's
         self.workers: int = 0
+        # the guard's flush deadline for this output (None: the
+        # service's guard.flush_timeout, else 2 x grace; core/guard.py)
+        self.flush_timeout: Optional[float] = None
         # the flush-concurrency bound, built at configure(): 1 for a
         # synchronous or no_multiplex output, N for ``workers N``, else
         # none
@@ -227,6 +230,9 @@ class OutputInstance(Instance):
             from .conditions import Condition
 
             self.route_condition = Condition.from_route_conditions(conds)
+        ft = self.properties.get("flush_timeout")
+        if ft is not None:
+            self.flush_timeout = parse_time(ft)
         rl = self.properties.get("retry_limit")
         if rl is not None:
             if str(rl).lower() in ("no_limits", "false",

@@ -17,6 +17,7 @@ import asyncio
 import ssl
 from typing import Optional
 
+from .. import failpoints as _fp
 from .config import parse_bool
 
 
@@ -58,9 +59,13 @@ async def open_connection(ins, host: str, port: int, timeout=None):
     one deadline for the whole dial; SNI and verification use the host
     name (or ``tls.vhost``), not the address dialed. When every address
     fails, the host's cache entry is dropped and the last error
-    raises."""
+    raises. The failpoint site ``upstream.connect`` fires first: its
+    ``FailpointError`` is an ``OSError``, so each caller's dial-failure
+    handling engages as it is."""
     from .upstream import invalidate_dns, resolve
 
+    if _fp.ACTIVE:
+        _fp.fire("upstream.connect")
     ctx = client_context(ins)
     try:
         addrs = await resolve(host, port)

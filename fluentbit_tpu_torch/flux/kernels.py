@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.device import dispatch_point
 from ..ops.mesh import (Mesh, MeshLaunches, build_mesh, pad_to_devices,
                         partition_rules, shard_leaf)
 from ..ops.sketch import (_SketchKernel, _check_rows, _vec16,
@@ -215,7 +216,8 @@ class FusedAbsorb(_FluxLaunch):
     """K10, the flux absorb: see :func:`fused_absorb_plain` for what it
     computes. CPU tensors take the plain version (not counted in
     ``launches``); CUDA tensors launch the kernel on the current stream;
-    anything else raises."""
+    anything else raises. The ``device.dispatch`` site fires after
+    either."""
 
     def __call__(self, seg: torch.Tensor, valid: torch.Tensor,
                  fields: Sequence[Rows], stacks: Sequence[torch.Tensor],
@@ -225,11 +227,14 @@ class FusedAbsorb(_FluxLaunch):
                  n_seg: int,
                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
         if seg.device.type == "cpu":
-            return fused_absorb_plain(seg, valid, fields, stacks, comp,
-                                      comp_len, table, hll_p=hll_p,
-                                      n_seg=n_seg, counts=counts)
-        return self._run("fused_absorb", seg, valid, fields, stacks, comp,
-                         comp_len, table, hll_p, n_seg, counts)
+            out = fused_absorb_plain(seg, valid, fields, stacks, comp,
+                                     comp_len, table, hll_p=hll_p,
+                                     n_seg=n_seg, counts=counts)
+        else:
+            out = self._run("fused_absorb", seg, valid, fields, stacks,
+                            comp, comp_len, table, hll_p, n_seg, counts)
+        dispatch_point("flux")
+        return out
 
 
 class SegmentCounts(_FluxLaunch):
@@ -240,9 +245,12 @@ class SegmentCounts(_FluxLaunch):
                  n_seg: int,
                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
         if seg.device.type == "cpu":
-            return segment_counts_plain(seg, valid, n_seg, counts)
-        return self._run("segment_counts", seg, valid, (), (), None, None,
-                         None, 0, n_seg, counts)
+            out = segment_counts_plain(seg, valid, n_seg, counts)
+        else:
+            out = self._run("segment_counts", seg, valid, (), (), None,
+                            None, None, 0, n_seg, counts)
+        dispatch_point("flux")
+        return out
 
 
 #: the process's flux kernel wrappers (one build, one launch count each)

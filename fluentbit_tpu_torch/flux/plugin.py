@@ -44,6 +44,7 @@ from .. import native
 from ..codec.events import encode_event, now_event_time
 from ..core.config import ConfigMapEntry
 from ..core.plugin import FilterPlugin, FilterResult, registry
+from ..ops.device import DEVICE_ERRORS
 from .exporter import FluxExporter
 from .state import FluxSpec, FluxState, WindowSpec
 
@@ -180,6 +181,8 @@ class FluxFilter(FilterPlugin):
             buf += encode_event(r, now_event_time())
         try:
             self._emitter.add_record(self.tag, bytes(buf), len(rows))
+        except DEVICE_ERRORS:
+            raise
         except Exception:
             log.exception("flux %s emit failed; rows dropped "
                           "(state already rolled over)", what)
@@ -262,11 +265,10 @@ class FluxFilter(FilterPlugin):
                 return None
             n = got[2]
             numcols[f] = got[:2]
-        # the one commit: nothing below declines. The refresh reads the
-        # registers back from the device; an error there fails the
-        # append (the reference logs it and defers the export)
+        # the one commit: nothing below declines (a raise past it would
+        # be a decline, and the decoded tail would absorb the chunk again)
         self.state.absorb_batch(n, strcols, numcols)
-        self._refresh(force=False)
+        self._refresh_or_defer()
         return (n, data, n)
 
     # ------------------------------------------------------------- filter
@@ -279,9 +281,20 @@ class FluxFilter(FilterPlugin):
             # the rows this filter emitted itself
             return (FilterResult.NOTOUCH, events)
         self.state.absorb_events(events)
-        # a device error in the refresh's readback fails the append
-        self._refresh(force=False)
+        self._refresh_or_defer()
         return (FilterResult.NOTOUCH, events)
+
+    def _refresh_or_defer(self) -> None:
+        """The metrics refresh after an absorb: a host error is logged
+        and the export deferred to the next refresh (reference
+        :307-308, :322-323); a device error in the registers' readback
+        raises."""
+        try:
+            self._refresh(force=False)
+        except DEVICE_ERRORS:
+            raise
+        except Exception:
+            log.exception("flux metrics refresh failed; export deferred")
 
     def _refresh(self, force: bool) -> None:
         t0 = time.perf_counter()

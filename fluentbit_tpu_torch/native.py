@@ -54,7 +54,7 @@ _tls = threading.local()
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     """The codec library, built (``cuda_build.libraries`` serialises the
-    build) and bound on first use; raises RuntimeError if ``g++`` fails,
+    build) and bound on first use; raises DeviceError if ``g++`` fails,
     and a later call tries again."""
     lib = cuda_build.libraries.load("codec_host")
     lib.fbtpu_count_records.restype = ctypes.c_longlong

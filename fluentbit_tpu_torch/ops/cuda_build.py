@@ -11,7 +11,9 @@ carries a digest of the source, the headers it may include and the
 flags (for the extension also the include directory and the
 interpreter's ``EXT_SUFFIX``), so an edited source, or a build for
 another Python, never loads. Nothing here runs at import: the first
-``load`` of a library builds it, and a failed build raises.
+``load`` of a library builds it, and a failed build raises
+``ops.device.DeviceError`` (lane ``flux`` for the sketch kernels,
+``grep`` for the rest).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+from .device import DeviceError
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -54,6 +58,9 @@ GXX_SOURCES = HOST_SOURCES + tuple(EXT_SOURCES)
 #: bulk table copy): part of every CUDA library's digest
 HEADERS = ("bulk_copy.cuh",)
 
+#: the lane of a source's build errors (``grep`` where not listed)
+LANES = {"sketch": "flux"}
+
 #: keep the ``a``: plain sm_90 refuses wgmma/setmaxnreg in later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -74,7 +81,7 @@ def nvcc() -> str:
     for c in candidates:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise DeviceError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the CUDA kernels build from csrc/ at first use")
 
 
@@ -82,7 +89,7 @@ def gxx() -> str:
     """Path of ``g++`` on ``PATH`` (``nvcc`` needs it too)."""
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found on PATH; the host codecs build "
+        raise DeviceError("g++ not found on PATH; the host codecs build "
                            "from csrc/codec_host.cpp and csrc/codec_py.cpp "
                            "at first use")
     return found
@@ -144,7 +151,7 @@ class KernelLibraries:
     def load(self, name: str):
         """The loaded library of ``csrc/<name>`` (a ``ctypes.CDLL``; for
         an extension of ``EXT_SOURCES`` the imported module), built first
-        if it has no current build. Raises RuntimeError with the
+        if it has no current build. Raises DeviceError with the
         compiler's output if the build fails."""
         with self._lock:
             lib = self._loaded.get(name)
@@ -171,7 +178,7 @@ class KernelLibraries:
             if name in EXT_SOURCES:
                 header = Path(python_include()) / "Python.h"
                 if not header.is_file():
-                    raise RuntimeError(
+                    raise DeviceError(
                         f"{header} not found: the event codec "
                         f"{source_path(name)} builds against the "
                         "interpreter's C headers (install its -dev "
@@ -191,16 +198,17 @@ class KernelLibraries:
         for name, out, tmp, proc in running:
             report = proc.communicate()[0]
             if proc.returncode != 0:
-                failed.append(f"build of {name} failed: "
-                              f"{os.path.basename(proc.args[0])} exit "
-                              f"{proc.returncode} on {source_path(name)}"
-                              f"\n{report}")
+                failed.append((name, f"build of {name} failed: "
+                               f"{os.path.basename(proc.args[0])} exit "
+                               f"{proc.returncode} on {source_path(name)}"
+                               f"\n{report}"))
                 continue
             os.replace(tmp, out)
             self.build_log[name] = {"seconds": time.perf_counter() - t0,
                                     "ptxas": report.strip()}
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise DeviceError("\n".join(msg for _n, msg in failed),
+                              lane=LANES.get(failed[0][0], "grep"))
 
 
 #: the process's native libraries (one build and one load per source)

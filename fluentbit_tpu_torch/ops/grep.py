@@ -51,7 +51,8 @@ import torch
 
 from ..regex.dfa import ACC, DEAD, DFA, compile_dfa, compose_supersteps
 from . import cuda_build
-from .device import ArrayLike, DeviceLike, resolve, to_device
+from .device import (ArrayLike, DeviceError, DeviceLike, dispatch_point,
+                     resolve, to_device)
 from .mesh import (Mesh, MeshLaunches, mesh_key, pad_to_devices,
                    partition_rules, replicated_table_bytes, shard_leaf)
 
@@ -580,12 +581,13 @@ class _Kernel:
         return self._fn
 
     def _launch(self, dev: torch.device, *args) -> None:
-        """Launch on ``dev``'s current stream; raise on a CUDA error."""
+        """Launch on ``dev``'s current stream; raise DeviceError on a
+        CUDA error."""
         fn = self._launcher()
         with torch.cuda.device(dev):
             rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+            raise DeviceError(f"{self.symbol} failed: CUDA error {rc}")
         with _COUNT_LOCK:
             self.launches += 1
 
@@ -750,7 +752,8 @@ def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor, k: int,
     over S states in segments of ``segment``): the plain version for CPU
     tensors, the CUDA kernel for everything else (which raises off
     CUDA). ``counts`` (int32 [R]), when given, gains each rule's matched
-    rows."""
+    rows. The failpoint site ``device.dispatch`` fires after the launch,
+    on either route."""
     if batch.device.type == "cpu":
         if kernel == "assoc":
             mask = match_assoc_plain(t, batch, lengths, k, S, segment)
@@ -758,10 +761,12 @@ def match_rows(t: Tables, batch: torch.Tensor, lengths: torch.Tensor, k: int,
             mask = match_plain(t, batch, lengths, k)
         if counts is not None:
             counts += counts_plain(mask)
-        return mask
-    if kernel == "assoc":
-        return grep_assoc(t, batch, lengths, k, S, segment, counts=counts)
-    return grep_dfa(t, batch, lengths, k, counts=counts)
+    elif kernel == "assoc":
+        mask = grep_assoc(t, batch, lengths, k, S, segment, counts=counts)
+    else:
+        mask = grep_dfa(t, batch, lengths, k, counts=counts)
+    dispatch_point("grep")
+    return mask
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .device import ArrayLike, DeviceLike, resolve, to_device
+from .device import (ArrayLike, DeviceError, DeviceLike, dispatch_point,
+                     resolve, to_device)
 from .mesh import Mesh, MeshLaunches, mesh_key, pad_to_devices
 
 FNV_OFFSET = 0x811C9DC5
@@ -229,7 +230,8 @@ class _SketchKernel:
         with torch.cuda.device(dev):
             rc = self._fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
+            raise DeviceError(f"{self.symbol} failed: CUDA error {rc}",
+                              lane="flux")
         self.launches += 1
 
 
@@ -393,35 +395,38 @@ cms_mesh = MeshLaunches()
 def hll_update_rows(registers: torch.Tensor, batch: torch.Tensor,
                     lengths: torch.Tensor, p: int) -> None:
     """The plain version for CPU tensors, the kernel for everything else
-    (which raises off CUDA)."""
+    (which raises off CUDA); then the ``device.dispatch`` site."""
     if registers.device.type == "cpu":
         hll_update_plain(registers, batch, lengths, p)
     else:
         hll_update(registers, batch, lengths, p)
+    dispatch_point("flux")
 
 
 def hll_update_groups_rows(registers: Sequence[torch.Tensor],
                            batch: torch.Tensor, lengths: torch.Tensor,
                            seg: torch.Tensor, p: int) -> None:
     """The plain version for CPU registers, the kernel for everything else
-    (which raises off CUDA)."""
+    (which raises off CUDA); then the ``device.dispatch`` site."""
     if not registers:
         return
     if registers[0].device.type == "cpu":
         hll_update_groups_plain(registers, batch, lengths, seg, p)
     else:
         hll_update_groups(registers, batch, lengths, seg, p)
+    dispatch_point("flux")
 
 
 def cms_update_rows(table: torch.Tensor, batch: torch.Tensor,
                     lengths: torch.Tensor,
                     weights: Optional[torch.Tensor] = None) -> None:
     """The plain version for CPU tensors, the kernel for everything else
-    (which raises off CUDA)."""
+    (which raises off CUDA); then the ``device.dispatch`` site."""
     if table.device.type == "cpu":
         cms_update_plain(table, batch, lengths, weights)
     else:
         cms_update(table, batch, lengths, weights)
+    dispatch_point("flux")
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from ..core.metrics import DEFAULT_BUCKETS, MetricsRegistry
 from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor
 from ..ops.batch import assemble, bucket_size, staging
+from ..ops.device import DEVICE_ERRORS
 from ..ops.sketch import CountMin, HyperLogLog
 from .filter_grep import legacy_keep, legacy_keep_mask, parse_grep_rules
 
@@ -240,12 +241,12 @@ class LogToMetricsFilter(FilterPlugin):
             if self._interval <= 0:
                 try:
                     self._emit_snapshot()
-                except (ValueError, TypeError, OverflowError):
-                    # the payload did not pack. The inc is committed: a
-                    # raise would re-count it on the decoded tail, so the
-                    # snapshot is deferred (_dirty stays set), as in the
-                    # reference. The emit is a typed host append that runs
-                    # no filter; a device error (RuntimeError) raises
+                except DEVICE_ERRORS:
+                    raise
+                except Exception:
+                    # the inc is committed: a raise would re-count it on
+                    # the decoded tail, so the snapshot is deferred
+                    # (_dirty stays set), as in the reference
                     log.exception("log_to_metrics snapshot emit failed; "
                                   "snapshot deferred")
         if self.discard_logs:

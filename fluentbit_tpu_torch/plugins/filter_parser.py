@@ -58,6 +58,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import failpoints as _fp
 from .. import native
 from ..codec import _native_codec
 from ..codec.events import LogEvent, decode_events, reencode_event
@@ -220,7 +221,13 @@ class ParserFilter(FilterPlugin):
         ``FallbackError`` (a legacy or non-canonical record, a ``bin``
         value, an integer past 64 bits, a lone surrogate, invalid UTF-8
         in the text) declines: the decoded path gives that chunk's
-        defined result."""
+        defined result. The failpoint site ``codec.fallback`` forces the
+        decline (reference :260-267)."""
+        if _fp.ACTIVE:
+            try:
+                _fp.fire("codec.fallback")
+            except _fp.FailpointError:
+                return None
         mod = _native_codec.load()
         data = chunk.as_bytes()
         try:

@@ -56,6 +56,7 @@ from ..core.config import ConfigMapEntry, parse_bool
 from ..core.plugin import FilterPlugin, FilterResult, registry
 from ..core.record_accessor import RecordAccessor, Template
 from ..ops.batch import assemble, bucket_size, staging
+from ..ops.device import DEVICE_ERRORS
 from ..ops.grep import program_for
 from ..regex import FlbRegex
 
@@ -299,20 +300,7 @@ class RewriteTagFilter(FilterPlugin):
                 groups.items(), key=lambda kv: kv[1][2]):
             count = int(members.sum())
             payload = native.compact(data, offsets, members)
-            try:
-                # the port's emitter never refuses (see init); the records
-                # re-enter the pipeline under their new tag
-                self.emitter.add_record(new_tag, payload, count)
-            except RuntimeError:
-                # a device, launch or build error in the new tag's chain
-                # fails the append
-                raise
-            except Exception:
-                # any other error of the new tag's chain: the groups
-                # before it are out, so the originals of this one are
-                # kept, as the reference degrades it
-                log.exception("rewrite_tag emitter append failed for tag "
-                              "%r; originals kept", new_tag)
+            if not self._emit_group(new_tag, payload, count):
                 continue
             emitted += count
             keep &= ~drop
@@ -324,6 +312,22 @@ class RewriteTagFilter(FilterPlugin):
         if n_keep == 0:
             return (0, b"", n)
         return (n_keep, native.compact(data, offsets, keep), n)
+
+    def _emit_group(self, new_tag: str, payload: bytes, count: int) -> bool:
+        """One new tag's records into the emitter (the port's emitter
+        never refuses, see init); they re-enter the pipeline under the
+        new tag. False when that tag's chain raised: the groups before
+        it are out, so the originals of this one are kept, as the
+        reference degrades it (:355-361). A device error raises."""
+        try:
+            self.emitter.add_record(new_tag, payload, count)
+        except DEVICE_ERRORS:
+            raise
+        except Exception:
+            log.exception("rewrite_tag emitter append failed for tag %r; "
+                          "originals kept", new_tag)
+            return False
+        return True
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         # records re-entering from our OWN emitter are never re-matched
@@ -371,11 +375,12 @@ class RewriteTagFilter(FilterPlugin):
                 keep[b] = False
         emitted = 0
         for new_tag, items in pending.items():
-            # the port's emitter never refuses (see init), so the
-            # originals go by their rules' keep flags alone
-            self.emitter.add_record(new_tag,
+            if not self._emit_group(new_tag,
                                     b"".join(raw for _, raw in items),
-                                    len(items))
+                                    len(items)):
+                for b, _ in items:
+                    keep[b] = True
+                continue
             emitted += len(items)
         if emitted:
             self._m_emit.inc(emitted, (self.instance.display_name,))

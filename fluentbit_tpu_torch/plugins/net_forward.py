@@ -63,6 +63,7 @@ import socket
 import time
 from typing import Optional
 
+from .. import failpoints as _fp
 from ..codec.events import encode_event, iter_events
 from ..codec.msgpack import EventTime, OutOfData, Unpacker, packb
 from ..core.config import TLS_CONFIG, ConfigMapEntry
@@ -72,6 +73,7 @@ from ..core.relay import DedupLedger, ForwardSpool, stable_chunk_id
 from ..core.scheduler import backoff_full_jitter
 from ..core.tls import open_connection, server_context
 from ..core.upstream import close_quietly, parse_upstream_file
+from ..ops.device import DEVICE_ERRORS
 
 log = logging.getLogger("flb.forward")
 
@@ -184,6 +186,10 @@ class ForwardInput(InputPlugin):
                 await self._handle_conn(reader, writer, engine)
             except (ConnectionError, asyncio.IncompleteReadError):
                 pass
+            except DEVICE_ERRORS:
+                # counted by the engine; the connection ends unacked
+                log.exception("in_forward append hit a device error")
+                raise
             except Exception:
                 log.exception("in_forward connection failed")
             finally:
@@ -290,6 +296,14 @@ class ForwardInput(InputPlugin):
                 # it has no bucket (the stamp is not carried further)
                 self._absorb(engine, tag, buf, n, cid)
         if ack_ref is not None:
+            if _fp.ACTIVE:
+                try:
+                    # absorbed, the ack not yet written: the lost-ack
+                    # window (the edge resends, the ledger dedups; the
+                    # connection stays up)
+                    _fp.fire("forward.ack_drop")
+                except _fp.FailpointError:
+                    return
             writer.write(packb({"ack": ack_ref}))
             await writer.drain()
 
@@ -483,6 +497,9 @@ class ForwardOutput(OutputPlugin):
             self._cur_breaker = None
 
     async def _handshake(self) -> None:
+        if _fp.ACTIVE:
+            # a peer that accepts the dial but never finishes the auth
+            _fp.fire("forward.handshake")
         u = Unpacker()
         helo = await self._read_msg(u)
         if not (isinstance(helo, list) and helo and helo[0] == "HELO"):
@@ -600,6 +617,16 @@ class ForwardOutput(OutputPlugin):
 
     async def _send_chunk(self, wire: bytes,
                           chunk_id: Optional[str]) -> None:
+        if _fp.ACTIVE:
+            # the connection torn before any byte of the frame (a reset)
+            _fp.fire("forward.conn_reset")
+            d = _fp.fire("forward.partial_write")
+            if d and d[0] == "partial":
+                # the frame cut after n bytes, then the link dies: the
+                # receiver must drop the torn tail without absorbing it
+                self._writer.write(wire[: max(1, int(d[1]))])
+                await io_deadline(self._writer.drain())
+                raise ConnectionError("forward: injected partial write")
         self._writer.write(wire)
         await io_deadline(self._writer.drain())
         if chunk_id is None:
@@ -625,6 +652,20 @@ class ForwardOutput(OutputPlugin):
         if len(self._ack_rtts) > 256:
             del self._ack_rtts[:128]
         self._m_rtt.observe(rtt, (self._iname,))
+        if _fp.ACTIVE:
+            try:
+                _fp.fire("forward.dup_delivery")
+            except _fp.FailpointError:
+                # an ambiguous ack: the same frame delivered again after
+                # its ack (the aggregator's ledger absorbs it zero
+                # times; its ack is read here, not taken for the next
+                # chunk's)
+                self.n_resends += 1
+                self._m_resends.inc(1, (self._iname,))
+                self._writer.write(wire)
+                await io_deadline(self._writer.drain())
+                await asyncio.wait_for(self._read_msg(u),
+                                       timeout=self.ack_timeout)
 
     # -- partition degrade + heal replay --------------------------------
 

@@ -24,6 +24,7 @@ from ..codec.events import encode_event, now_event_time
 from ..core.config import TLS_CONFIG, ConfigMapEntry
 from ..core.plugin import InputPlugin, registry
 from ..core.tls import server_context
+from ..ops.device import DEVICE_ERRORS
 
 log = logging.getLogger("flb.http")
 
@@ -158,6 +159,8 @@ class HttpServerInputBase(InputPlugin):
                         status, resp = self.handle_request(
                             engine, method, uri.split("?")[0], headers,
                             decoded)
+                    except DEVICE_ERRORS:
+                        raise  # counted by the engine; no answer
                     except Exception:
                         log.exception("%s request handler failed", self.name)
                         status, resp = 500, b"{}"

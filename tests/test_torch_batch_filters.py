@@ -35,6 +35,7 @@ from fluentbit_tpu.core.engine import Engine as RefEngine
 from fluentbit_tpu_torch.codec.events import decode_events, encode_event
 from fluentbit_tpu_torch.codec.msgpack import Unpacker, packb
 from fluentbit_tpu_torch.core.engine import Engine
+from fluentbit_tpu_torch.ops.device import DeviceError
 from test_torch_filter_parser import PARSERS, prefilter_events
 from test_torch_flux import closed_print, corpus, fingerprint
 from test_torch_native_codec import DOCS
@@ -154,39 +155,42 @@ def test_rewrite_tag_emitter_reentry_passes_untouched():
 
 
 def test_rewrite_tag_emit_error_keeps_the_group(monkeypatch):
-    """An error of a new tag's chain other than a device one: that
-    group's originals stay and the other groups go out, as in the
-    reference; a RuntimeError (a device, launch or build error) fails
-    the append."""
+    """An error of a new tag's chain other than a device one (a
+    ValueError, and a RuntimeError, which failed the append before the
+    host error policy was ported): that group's originals stay and the
+    other groups go out, as in the reference. A device error fails the
+    append and is counted under lane grep."""
     rules = ["$log ^alpha routed.alpha false", "$log ^beta routed.beta false"]
-    ref, port = build([("rewrite_tag", [("match", "t")]
-                        + [("rule", r) for r in rules])])
     data = encoded([{"log": ("alpha" if i % 2 else "beta") + f" {i}"}
                     for i in range(20)])
-    for e in (ref, port):
-        emitter = e.filters[0].plugin.emitter
+    for error in (ValueError, RuntimeError):
+        ref, port = build([("rewrite_tag", [("match", "t")]
+                            + [("rule", r) for r in rules])])
+        for e in (ref, port):
+            emitter = e.filters[0].plugin.emitter
 
-        def add_record(tag, payload, n, orig=emitter.add_record):
-            if tag == "routed.beta":
-                raise ValueError("the new tag's chain failed")
-            return orig(tag, payload, n)
+            def add_record(tag, payload, n, orig=emitter.add_record):
+                if tag == "routed.beta":
+                    raise error("the new tag's chain failed")
+                return orig(tag, payload, n)
 
-        monkeypatch.setattr(emitter, "add_record", add_record)
-    assert append_both((ref, port), data) == (10, 10)
-    got = drained(port)
-    assert got == drained(ref)
-    assert [(name, tag, r) for name, tag, _b, r in got] == [
-        ("dummy.0", "t", 10), ("emitter_for_rewrite_tag.0", "routed.alpha",
-                               10)]
-    assert families(port) == families(ref)
+            monkeypatch.setattr(emitter, "add_record", add_record)
+        assert append_both((ref, port), data) == (10, 10)
+        got = drained(port)
+        assert got == drained(ref)
+        assert [(name, tag, r) for name, tag, _b, r in got] == [
+            ("dummy.0", "t", 10),
+            ("emitter_for_rewrite_tag.0", "routed.alpha", 10)]
+        assert families(port) == families(ref)
 
     def device_error(tag, payload, n):
-        raise RuntimeError("CUDA error: an illegal memory access")
+        raise DeviceError("grep_assoc failed: CUDA error 700")
 
     monkeypatch.setattr(port.filters[0].plugin.emitter, "add_record",
                         device_error)
-    with pytest.raises(RuntimeError, match="CUDA"):
+    with pytest.raises(DeviceError, match="CUDA"):
         port.input_log_append(port.inputs[0], "t", data(port))
+    assert port.m_device_failures.get(("grep",)) == 1
 
 
 def test_stateful_hook_then_decline_does_not_emit_twice():
@@ -431,7 +435,34 @@ def run_lib_inputs(create, appends, threaded, filt=PARSER_FILTER, **kw):
     return {t: b"".join(v) for t, v in got.items()}, ctx
 
 
+def pushed_in_turn(create, appends, filt=PARSER_FILTER, **kw):
+    """``run_lib_inputs``'s chain with no engine thread: each input's
+    appends pushed in turn, then each tag's bytes from its input's pool,
+    in the order of the pushes (no flush cycle runs to reorder them)."""
+    ctx = create(**kw)
+    ctx.parser("apache2", **PARSERS["apache2"])
+    ffds = [ctx.input("lib", tag=f"t{i}") for i in range(len(appends))]
+    props = dict(filt)
+    ctx.filter(props.pop("name"), match="t*", **props)
+    e = ctx.engine
+    for x in e.inputs + e.filters:
+        x.configure()
+        x.plugin.init(x, e)
+    for ffd, texts in zip(ffds, appends):
+        for text in texts:
+            assert ctx.push(ffd, text) > 0
+    return {x.tag: b"".join(c.get_bytes() for c in x.pool.drain())
+            for x in e.inputs}
+
+
 def test_parallel_inputs_equal_serial_and_reference():
+    """The port's runs, serial and threaded, give each tag's bytes in the
+    order of the pushes: the reference's pushed in turn with no flush
+    cycle. The reference's run through its engine thread has the same
+    records; its order across flush cycles is not fixed (its
+    ``flush_now`` runs a cycle beside the timer's, see
+    ``test_torch_pipeline.push_ordered``), so it is compared record by
+    record as a multiset."""
     appends = [[json.dumps([[1700000000 + k + 0.5, b] for b in
                             prefilter_events(10 * i + k, 40)])
                 for k in range(6)] for i in range(4)]
@@ -441,7 +472,13 @@ def test_parallel_inputs_equal_serial_and_reference():
     par, ctx = run_lib_inputs(fluentbit_tpu_torch.create, appends, True,
                               device="cpu")
     assert sorted(ref) == ["t0", "t1", "t2", "t3"]
-    assert par == serial == ref
+    assert par == serial == pushed_in_turn(fluentbit_tpu.create, appends)
+
+    def records(data):
+        return sorted(ev.raw for ev in decode_events(data))
+
+    assert {t: records(v) for t, v in par.items()} == {
+        t: records(v) for t, v in ref.items()}
     assert ctx.engine.filters[0].batch_taken == 24
     assert ctx.engine.filters[0].plugin.thread_safe_raw
     assert families(ctx.engine) == families(serial_ctx.engine)

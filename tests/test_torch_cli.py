@@ -111,7 +111,7 @@ def test_unported_and_bad_options_raise_by_name(argv, word):
     ("HTTP_Server On", "'http_server' is not ported"),
     ("HTTP_Port 2021", "'http_port' is not ported"),
     ("Hot_Reload_Diff On", "'hot_reload_diff' is not ported"),
-    ("guard.enable On", "'guard.enable' is not ported"),
+    ("qos.enable On", "'qos.enable' is not ported"),
 ])
 def test_unported_service_keys_in_a_config_raise(tmp_path, line, word):
     conf = tmp_path / "s.conf"

@@ -242,7 +242,7 @@ UNPORTED = [
      "'storage.path' is not ported"),
     ("[SERVICE]\n    HTTP_Server On\n", "'http_server' is not ported"),
     ("[SERVICE]\n    Log_Level debug\n", "'log_level' is not ported"),
-    ("[SERVICE]\n    guard.enable off\n", "'guard.enable' is not ported"),
+    ("[SERVICE]\n    qos.enable off\n", "'qos.enable' is not ported"),
     ("[SERVICE]\n    Nope 1\n", "unknown service property 'nope'"),
     ("[FOO]\n    Name x\n", r"unknown config section \[foo\]"),
     ("[INPUT]\n    Tag x\n", "without Name"),
@@ -264,7 +264,7 @@ def test_unported_sections_and_service_keys_raise_by_name(text, word):
     ("tls", "on", "TLS"),
     ("tls.verify", "off", "TLS"),
     ("tenant.weight", "2", "qos plane"),
-    ("flush_timeout", "5", "flush deadlines"),
+    ("proxy", "http://p:3128", "HTTP proxy outputs"),
     ("http2", "on", "HTTP/2 outputs"),
     ("net.keepalive", "on", "connection pools"),
     ("port", "1", "unknown property 'port'"),

@@ -23,7 +23,6 @@ same small function.
 
 import asyncio
 import collections
-import functools
 import json
 import os
 import random
@@ -438,19 +437,24 @@ def test_workers_under_thread_pressure(both):
     assert not any(t.name.startswith(prefix) for t in threading.enumerate())
 
 
-def test_worker_pool_that_does_not_start_raises(both, monkeypatch):
-    """A worker that misses the start barrier makes ``start()`` raise,
-    naming the output (the reference fails over to inline flushes)."""
-    monkeypatch.setattr(port_engine, "OutputWorkerPool", functools.partial(
-        port_engine.OutputWorkerPool, start_timeout=0.1))
-    ctx = port.create(device="cpu", flush="20ms", grace="1")
-    ctx.input("lib")
-    ctx.output("delivery_probe", match="*", workers="2",
-               init_sleep_ms="400")
-    with pytest.raises(RuntimeError, match="output delivery_probe.0"):
-        ctx.start()
-    assert ctx.engine.outputs[0].worker_pool is None
-    assert not ctx.engine.running
+def test_worker_pool_that_does_not_start_raises(both):
+    """A worker that misses the start barrier no longer makes ``start()``
+    raise (the name is kept from when it did): within
+    ``guard.worker_start_timeout`` the pool fails over to flushes on the
+    engine's loop and counts it, as in the reference. The deliveries,
+    the output families and the failure count are equal."""
+    recs = bodies(6)
+    res = run_both([("delivery_probe", {"match": "*", "workers": "2",
+                                        "init_sleep_ms": "400"})],
+                   [("t", recs)], expect=len(recs),
+                   service={"guard.worker_start_timeout": "0.1s"})
+    for ctx, sinks in res:
+        e = ctx.engine
+        assert e.outputs[0].worker_pool is None
+        assert e.guard.m_worker_start_fail.get(("delivery_probe.0",)) == 1
+        assert set(e.outputs[0].plugin.threads) == {"engine"}
+        assert [ev.body for _t, d in sinks[0]
+                for ev in decode_events(d)] == recs
 
 
 # ---------------------------------------------------------------- routing

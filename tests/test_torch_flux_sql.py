@@ -24,7 +24,9 @@ from fluentbit_tpu.core.engine import Engine as JEngine
 from fluentbit_tpu.flux.query import eligible as jeligible
 from fluentbit_tpu.stream_processor import parse_sql as jparse
 from fluentbit_tpu_torch.core.engine import Engine as TEngine
+from fluentbit_tpu.flux import query as jquery
 from fluentbit_tpu_torch.flux import query as tquery
+from fluentbit_tpu_torch.ops.device import DeviceError
 from fluentbit_tpu_torch.ops.mesh import Mesh
 from fluentbit_tpu_torch.stream_processor import parse_sql as tparse
 
@@ -205,15 +207,34 @@ def test_hidden_filter_stays_last_and_skips_the_sp_emitter():
     assert out[0][1][0]["COUNT(*)"] == 10
 
 
-def test_sp_task_raises_when_attach_flux_raises(monkeypatch):
+def test_sp_task_raises_when_attach_flux_raises(monkeypatch, caplog):
+    """A host error in ``attach_flux`` no longer raises (the name is kept
+    from when it did): it is logged and the query stays on the exact
+    path, as in the reference. A device error still raises, counted
+    under lane flux, and leaves no task."""
     def boom(*args, **kwargs):
         raise RuntimeError("attach failed")
 
     monkeypatch.setattr(tquery, "FluxState", boom)
+    monkeypatch.setattr(jquery, "FluxState", boom)
+    tasks = []
+    for e in (TEngine(device=torch.device("cpu")), JEngine()):
+        with caplog.at_level("ERROR", logger="flb.engine"):
+            task = e.sp_task(SQL)
+        assert e.sp.tasks == [task] and task.flux is None
+        tasks.append(task)
+    assert [r.getMessage().split(";")[0] for r in caplog.records] == [
+        "flux attach failed"] * 2
+
+    def device_boom(*args, **kwargs):
+        raise DeviceError("flux absorb failed: CUDA error 700", lane="flux")
+
+    monkeypatch.setattr(tquery, "FluxState", device_boom)
     e = TEngine(device=torch.device("cpu"))
-    with pytest.raises(RuntimeError, match="attach failed"):
+    with pytest.raises(DeviceError, match="CUDA error 700"):
         e.sp_task(SQL)
     assert e.sp.tasks == []
+    assert e.m_device_failures.get(("flux",)) == 1
     # an ineligible query never reaches it
     task = e.sp_task(SQL.replace("WITH (tag='out')",
                                  "WITH (tag='out', flux='off')"))

@@ -29,6 +29,8 @@ import fluentbit_tpu_torch as flb
 from fluentbit_tpu.codec.msgpack import EventTime as JEventTime
 from fluentbit_tpu_torch.codec import msgpack as tmp
 from fluentbit_tpu_torch.codec.msgpack import EventTime, Unpacker, packb
+from fluentbit_tpu_torch.codec.events import decode_events
+from test_torch_pipeline import push_ordered_bytes
 
 PLACEHOLDER = "\u0001INVALID\u0001"  # 9 bytes, replaced on the wire
 
@@ -161,10 +163,17 @@ def serve(create, sends, n_records, server_props=None, filters=(), **kw):
     return {tag: b"".join(parts) for tag, parts in got.items()}, ctx
 
 
-def both(sends, n_records, server_props=None):
+def both(sends, n_records, server_props=None, ordered=True):
+    """``serve`` in each package. With ``ordered`` (every record of a
+    tag sent once, at an increasing second), the reference's bytes of
+    each tag come in the order sent (``push_ordered``: its
+    ``flush_now`` beside the timer may queue a tag's chunks in either
+    order), and the port's as they came."""
     want, ref_ctx = serve(ref.create, sends, n_records, server_props)
     got, port_ctx = serve(flb.create, sends, n_records, server_props,
                           device="cpu")
+    if ordered:
+        want = {t: push_ordered_bytes(v) for t, v in want.items()}
     return (want, got, ref_ctx.engine.inputs[0].plugin,
             port_ctx.engine.inputs[0].plugin)
 
@@ -321,8 +330,16 @@ def test_resent_chunk_absorbed_once():
     assert health == ref_plugin.health_block()
     assert (health["absorbed"], health["dedup_hits"],
             health["dedup_entries"]) == (2, 3, 2)
-    want, undup, _, _ = both(sends, 32, {"dedup": "off"})
-    assert undup == want
+    # dedup off: every resend absorbed again. The port's records come in
+    # the order sent; the reference's are the same records, its chunks
+    # in an order its flush cycles decide (see push_ordered)
+    want, undup, _, _ = both(sends, 32, {"dedup": "off"}, ordered=False)
+    sent = [ev.raw for ev in decode_events(got["app.r"])]
+    first, other = sent[:8], sent[8:]
+    assert [ev.raw for ev in decode_events(undup["app.r"])] == (
+        first + other + first + first + other)
+    assert sorted(ev.raw for ev in decode_events(want["app.r"])) == sorted(
+        ev.raw for ev in decode_events(undup["app.r"]))
     assert len(list(Unpacker(undup["app.r"]))) == 32
 
 

@@ -45,6 +45,7 @@ from fluentbit_tpu_torch.core import guard as tguard
 from fluentbit_tpu_torch.core import relay as trelay
 from fluentbit_tpu_torch.core import upstream as tupstream
 from fluentbit_tpu_torch.plugins.net_forward import ForwardOutput
+from test_torch_pipeline import push_ordered_bytes
 
 SHARED_KEY = "s3cret"
 EXCLUDE = "DROP"
@@ -161,6 +162,17 @@ def run_edge(pkg, out_props, chunks, service=None, until=None):
     finally:
         stop_edge(ctx)
     return ctx.engine.outputs[0].plugin
+
+
+def as_sent(edge, got: dict) -> dict:
+    """What an aggregator received from ``edge``, each tag's records held
+    to the order the edge's appends were made: as they came from the
+    port's edge; from the reference's in the order of the appends
+    (``push_ordered``: its ``flush_now`` beside the timer may queue, and
+    so send, a tag's chunks in either order)."""
+    if edge == "port":
+        return got
+    return {t: push_ordered_bytes(v) for t, v in got.items()}
 
 
 def stop_edge(ctx) -> None:
@@ -439,7 +451,7 @@ def test_relay_pairings_equal(edge, agg):
         got = a.stop()
     assert {t: len(v) for t, v in got.items()} == {
         t: len(v) for t, v in want.items()}
-    assert got == want
+    assert as_sent(edge, got) == want
     h = out.health_block()
     assert h["acks_waited"] >= len(TAGS) and h["acks_lost"] == 0
     assert h["resends"] == 0 and h["spooled"] == 0
@@ -491,7 +503,7 @@ def test_tls_and_ha_failover(tmp_path, certs, edge):
                        until=lambda: a.count >= n_want)
     finally:
         got = a.stop()
-    assert got == want
+    assert as_sent(edge, got) == want
     h = out.health_block()
     assert h["upstreams"] == {f"127.0.0.1:{dead}": "open",
                               f"localhost:{a.port}": "closed"}
@@ -571,7 +583,7 @@ def test_lost_ack_redelivered_absorbed_once(edge):
     finally:
         proxy.close()
         got = a.stop()
-    assert got == want
+    assert as_sent(edge, got) == want
     h = out.health_block()
     assert (h["acks_waited"], h["acks_lost"], h["resends"]) == (2, 1, 0)
     assert proxy.dropped == 1
@@ -617,7 +629,7 @@ def test_partition_spooled_then_replayed_on_heal(tmp_path, edge):
         stop_edge(ctx)
         got = holder["agg"].stop() if "agg" in holder else {}
     out = holder["out"]
-    assert got == want
+    assert as_sent(edge, got) == want
     assert out.n_spooled == out.n_replayed == len(TAGS)
     assert not os.listdir(tmp_path / "spool" / "forward-spool")
     text = ctx.engine.metrics.to_prometheus()
@@ -665,7 +677,7 @@ def test_http_input_with_tls(certs):
     ("output", "null", {"tls.verify": "off"}, "'tls.verify' is not ported"),
     ("output", "forward", {"net.keepalive": "on"},
      "'net.keepalive' is not ported"),
-    ("output", "forward", {"flush_timeout": "5"}, "flush deadlines"),
+    ("output", "forward", {"proxy": "http://p:3128"}, "HTTP proxy"),
     ("input", "forward", {"tls": "on"}, "tls on requires tls.crt_file"),
     ("input", "http", {"tls": "on"}, "tls on requires tls.crt_file"),
     ("output", "forward", {"tls.ca_file": "/nonexistent/ca.pem"},
@@ -696,8 +708,8 @@ def test_unported_or_bad_tls_keys_raise(kind, name, props, word):
         ctx.start()
 
 
-@pytest.mark.parametrize("key", ["guard.enable", "guard.flush_timeout",
-                                 "guard.shed_watermark", "hot_reload_diff",
+@pytest.mark.parametrize("key", ["qos.enable", "storage.path",
+                                 "tpu.enable", "hot_reload_diff",
                                  "http_server"])
 def test_unported_service_keys_raise(key):
     with pytest.raises(ValueError, match=f"'{key}' is not ported"):
@@ -707,12 +719,18 @@ def test_unported_service_keys_raise(key):
 def test_ported_service_keys_set_what_the_reference_sets():
     keys = {"hot_reload": "on", "guard.breaker_failures": "3",
             "guard.breaker_error_rate": "0.25", "guard.breaker_window": "8",
-            "guard.breaker_cooldown": "1500ms", "guard.breaker_probes": "2"}
+            "guard.breaker_cooldown": "1500ms", "guard.breaker_probes": "2",
+            "guard.enable": "off", "guard.flush_timeout": "750ms",
+            "guard.shed_watermark": "0.6", "guard.stall_after": "12s",
+            "guard.leak_grace": "2", "guard.worker_start_timeout": "3s"}
     a = flb.create(device="cpu", **keys).service
     b = ref.create(**keys).service
     for attr in ("hot_reload", "guard_breaker_failures",
                  "guard_breaker_error_rate", "guard_breaker_window",
-                 "guard_breaker_cooldown", "guard_breaker_probes"):
+                 "guard_breaker_cooldown", "guard_breaker_probes",
+                 "guard_enable", "guard_flush_timeout",
+                 "guard_shed_watermark", "guard_stall_after",
+                 "guard_leak_grace", "guard_worker_start_timeout"):
         assert getattr(a, attr) == getattr(b, attr), attr
     assert packb(a.guard_breaker_cooldown) == packb(1.5)
 

@@ -10,6 +10,7 @@ library of the reference's ``native/`` (its host codec is its own
 
 import ast
 import json
+import math
 import pathlib
 import random
 import subprocess
@@ -20,8 +21,28 @@ import torch
 
 import fluentbit_tpu
 import fluentbit_tpu_torch
+from fluentbit_tpu_torch.codec.events import decode_events
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def push_ordered(events, time_of=lambda ev: ev.ts_float):
+    """One tag's events as the reference delivered them, stably sorted
+    by the whole second of their time: the order of the pushes, in every
+    test that gives a tag's records increasing seconds over its appends.
+    That is what the reference's order is held to. It orders a tag's
+    chunks only within one flush cycle: its ``flush_now`` runs a cycle on
+    the caller's thread beside the timer's on the engine's loop
+    (fluentbit_tpu/core/engine.py:2205-2207), so two cycles can queue one
+    tag's chunks in either order, and the stable sort keeps each chunk's
+    own order. The port's events are compared as they came: all its
+    cycles run on its loop, in the order of the pushes."""
+    return sorted(events, key=lambda ev: math.floor(time_of(ev)))
+
+
+def push_ordered_bytes(data: bytes) -> bytes:
+    """``push_ordered`` over the events of one tag's bytes."""
+    return b"".join(ev.raw for ev in push_ordered(decode_events(data)))
 
 APACHE2 = (
     r'^(?<host>[^ ]*) [^ ]* (?<user>[^ ]*) \[(?<time>[^\]]*)\] '
@@ -152,6 +173,7 @@ PORT_MODULES = (
     "core/output_thread.py",  # the delivery core
     "core/guard.py", "core/tls.py", "core/fstore.py", "core/sidecar.py",
     "__main__.py", "supervisor.py",  # the relay tier and the CLI
+    "failpoints/__init__.py", "ops/device.py",  # the guard's slice
 )
 
 #: what a module that loads or builds the reference's native library or

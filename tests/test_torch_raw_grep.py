@@ -26,6 +26,7 @@ from fluentbit_tpu_torch.core import engine as engine_mod
 from fluentbit_tpu_torch.core.chunk_batch import (RawChunk, double_buffered,
                                                   segment_bounds)
 from fluentbit_tpu_torch.ops import cuda_build
+from fluentbit_tpu_torch.ops.device import DeviceError
 from fluentbit_tpu_torch.ops import grep as tg
 from fluentbit_tpu_torch.plugins import filter_grep
 from fluentbit_tpu_torch.plugins.filter_grep import GrepFilter
@@ -244,21 +245,26 @@ def _chunk(n):
 
 
 def test_failed_launch_raises_without_fallback(monkeypatch):
+    """A launch that returns an error code raises DeviceError, which the
+    raw path's host error policy (log and decline) does not take: the
+    append raises, no decoded re-run, nothing pooled, and the engine
+    counts it under lane grep."""
     decoded = []
     monkeypatch.setattr(engine_mod, "decode_events",
                         lambda data: decoded.append(data) or [])
 
     def boom(self, batch, lengths):
-        raise RuntimeError("grep_dfa failed: CUDA error 700")
+        raise DeviceError("grep_dfa failed: CUDA error 700")
 
     monkeypatch.setattr(tg.TorchGrepProgram, "dispatch", boom)
     ctx = _started_ctx([("regex", "log GET")])
     try:
         ins = ctx.engine.inputs[0]
-        with pytest.raises(RuntimeError, match="CUDA error 700"):
+        with pytest.raises(DeviceError, match="CUDA error 700"):
             ctx.engine.input_log_append(ins, "app.log", _chunk(64), 64)
         assert decoded == []
         assert ins.pool.drain() == []
+        assert ctx.engine.m_device_failures.get(("grep",)) == 1
     finally:
         ctx.stop()
 

@@ -24,6 +24,7 @@ from fluentbit_tpu.codec.events import decode_events as jax_decode_events
 from fluentbit_tpu_torch.codec.events import decode_events
 from fluentbit_tpu_torch.ops import grep as tg
 from fluentbit_tpu_torch.plugins.filter_rewrite_tag import RewriteTagFilter
+from test_torch_pipeline import push_ordered
 
 CONFIG3_RULES = [
     r"$log sshd sec.ssh false",
@@ -120,11 +121,25 @@ def run_pipeline(create, rules, records, tag="orig", extra=None,
     return got, ctx
 
 
+def in_push_order(got):
+    """Every tag's (time, body) events in the order of the pushes (the
+    record pushed k-th has the k-th time): the reference's run, with its
+    records pushed one at a time, is held to this after
+    ``push_ordered``, and the port's as it came."""
+    return {t: push_ordered(evs, lambda e: e[0]) for t, evs in got.items()}
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_port_equals_reference(name, monkeypatch):
+    """Every case on the port's raw path, decoded device path and decoded
+    host path, pushed one record at a time and in bulk: each tag's
+    events equal the reference's and come in the order of the pushes
+    (the reference's order across its flush cycles is not fixed, see
+    ``push_ordered``)."""
     rules, records, kw = CASES[name]
     ref, _ = run_pipeline(fluentbit_tpu.create, rules, records, **kw)
     assert ref
+    ref = in_push_order(ref)
     for bulk in (False, True):
         raw, ctx = run_pipeline(fluentbit_tpu_torch.create, rules, records,
                                 bulk=bulk, device="cpu", **kw)
@@ -271,5 +286,5 @@ def test_config3_through_assoc_plain(monkeypatch):
     finally:
         tg._cached_program.cache_clear()
     ref, _ = run_pipeline(fluentbit_tpu.create, CONFIG3_RULES, records)
-    assert got == ref
+    assert got == in_push_order(ref)
     assert np.sum([len(v) for v in got.values()]) == len(records)

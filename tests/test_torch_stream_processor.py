@@ -28,6 +28,7 @@ from fluentbit_tpu.codec.events import decode_events as jdecode
 import fluentbit_tpu_torch as flb
 from fluentbit_tpu_torch import stream_processor as tsp
 from fluentbit_tpu_torch.codec.events import decode_events as tdecode
+from fluentbit_tpu_torch.ops.device import DeviceError
 
 
 def bodies(seed, n):
@@ -320,8 +321,9 @@ def test_sp_error_fails_the_append(caplog):
 
 def test_sp_rows_reentry_error_still_raises():
     """The rows a task emits re-enter the filter chain outside the
-    handler of task errors: a filter that raises on them (as a failed
-    kernel launch would) still fails the append."""
+    handler of task errors: a filter that raises a device error on them
+    (as a failed kernel launch does) still fails the append; a host
+    error there is logged by the filter chain's policy."""
     ctx = flb.create(device="cpu", flush="50ms", grace="1")
     ctx.input("lib", tag="t")
     ctx.filter("grep", match="sp.out", regex="a x")
@@ -330,14 +332,15 @@ def test_sp_rows_reentry_error_still_raises():
     grep = ctx.engine.filters[0]
 
     def boom(events, tag, engine):
-        raise RuntimeError("launch failed")
+        raise DeviceError("launch failed")
 
     ctx.start()
     grep.plugin.filter = boom
     try:
-        with pytest.raises(RuntimeError, match="launch failed"):
+        with pytest.raises(DeviceError, match="launch failed"):
             ctx.push(0, json.dumps({"a": 1}))
         assert ctx.engine.sp._held is None
+        assert ctx.engine.m_device_failures.get(("grep",)) == 1
     finally:
         ctx.stop()
 
