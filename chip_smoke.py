@@ -131,8 +131,12 @@ Phases (any failure exits non-zero):
    and then ``"cpu"``, as written: rewrite_tag's batch hook (the host
    DFA twin) takes every tail append with no decline and no kernel;
    every tag's bodies must be equal between the devices and to a Python
-   ``re`` first-match routing of the file's lines, the emit counter must
-   count the rerouted lines; then on cuda over 16,384 lines with an
+   ``re`` first-match routing of the file's lines (with the hidden
+   emitter's 10 MiB buffer limit: the tail reads the file in one collect,
+   and once the emitter holds 10 MiB each later group is refused and
+   keeps its lines under ``syslog``, as in the reference),
+   the emit counter must count the rerouted lines; then on cuda over
+   16,384 lines with an
    exact stream-processor task on the tag (``SELECT COUNT(*)``), which
    sends the appends down the decoded path: the tags equal to the
    Python routing, the task's counts to the kept lines, and K4 launched
@@ -268,7 +272,33 @@ Phases (any failure exits non-zero):
    cpu; (e) ``codec.fallback=1*return`` on config 2j's json hook over
    8192 lines: one decline, records equal to the unarmed run's and to
    ``json.loads``. ``Guard.health()`` is printed after each step, and
-   config 1's lines/s with the guard on and with ``guard.enable off``.
+   config 1's lines/s with the guard on and with ``guard.enable off``;
+20. filesystem storage and input backpressure, on cuda: (a) config 1's
+   first 32 appends through ``ctx.push`` in four turns, memory only,
+   ``storage.type filesystem``, filesystem, memory: lines/s of each,
+   the bytes equal, K3's launches equal, no chunk file and no DLQ file
+   left after delivery; (b) the crash-recovery soak
+   (``fluentbit_tpu_torch.failpoints.soak``): a child process on cuda
+   runs config 1's grep over lib appends of 4096 records with
+   filesystem storage and is killed by ``storage.append`` on its ninth
+   write-through, a second child recovers the root: acked ⊆ delivered
+   within the contract's duplicate bound, every delivered record one
+   Python ``re`` keeps, the backlog's replay seconds and sidecar hits;
+   (c) two finalized chunks left on disk by a run whose output never
+   delivers, one byte of one flipped: the restart moves it to
+   ``dlq/<name>.corrupt`` and delivers only the other, equal to Python
+   ``re``; (d) config 1's first 32 appends through ``ctx.push`` under
+   ``mem_buf_limit 512K`` (the flush every 250 ms): the refused pushes
+   (pushed again until taken), the pause and resume counts, every kept
+   record once and equal to Python ``re``, K3 once per append; (e)
+   phase 17's first connection cut to 32,768 records, to an aggregator
+   (forward with ``mem_buf_limit 1M`` and ``defer_ack_window 5`` →
+   kubernetes → grep Exclude → lib) whose dedup ledger is on
+   ``storage.path``, stopped and started again over the same root
+   after half the messages, then the rest and 8 chunks acked before the
+   restart: every record once, equal on cuda and cpu and to phase 17's
+   check, the deferred acks, the resent chunks absorbed zero times, K4
+   once per absorbed append of >= 32 records.
 
 Phase 4d (a) runs with ``guard.enable off``: it measures the delivery
 core alone, and its ``retry`` output, which answers RETRY on every
@@ -2792,15 +2822,49 @@ def tail_append_sizes(data: bytes) -> list:
     return sizes
 
 
-def config3_routing(texts: list) -> dict:
-    """tag -> bodies: each line under the tag of the first rule whose
-    Python regex finds it, else under ``syslog``, in file order."""
+# rewrite_tag's default emitter_mem_buf_limit (10M)
+EMITTER_LIMIT = 10 * 1024 * 1024
+
+
+def record_size(text: str) -> int:
+    """The msgpack bytes of in_tail's record ``[[EventTime, {}], {"log":
+    text}]``: 18 bytes of frame, the key and the time, and the string."""
+    n = len(text.encode("utf-8"))
+    return 18 + (1 if n < 32 else 2 if n < 256 else 3 if n < 65536 else 5) + n
+
+
+def config3_routing(data: bytes) -> tuple:
+    """(tag -> bodies, records rerouted) as config 3 routes the file:
+    each line under the tag of the first rule whose Python regex finds
+    it, else under ``syslog``. Each tail append (one 64 KiB read) hands
+    its groups to the hidden emitter one new tag at a time, in the order
+    of their first line; the tail reads the whole file in one collect,
+    so no flush drains the emitter between, and once its buffer holds
+    ``EMITTER_LIMIT`` bytes every later group is refused and its lines
+    stay under ``syslog`` (the reference's ``input_log_append`` -1 and
+    rewrite_tag's kept originals)."""
     out: dict = {}
-    for text in texts:
-        tag = next((t for (_, t), rx in zip(CONFIG3_RULES, CONFIG3_PY)
-                    if rx.search(text)), "syslog")
-        out.setdefault(tag, []).append({"log": text})
-    return out
+    held = rerouted = 0
+    pending = b""
+    for off in range(0, len(data), 65536):
+        lines = (pending + data[off:off + 65536]).split(b"\n")
+        pending = lines.pop()
+        texts = tail_texts(b"\n".join(lines))
+        tags = [next((t for (_, t), rx in zip(CONFIG3_RULES, CONFIG3_PY)
+                      if rx.search(text)), "syslog") for text in texts]
+        refused = set()
+        for tag in dict.fromkeys(t for t in tags if t != "syslog"):
+            members = [x for x, t in zip(texts, tags) if t == tag]
+            if held >= EMITTER_LIMIT:
+                refused.add(tag)
+                continue
+            held += sum(record_size(x) for x in members)
+            rerouted += len(members)
+            out.setdefault(tag, []).extend({"log": x} for x in members)
+        out.setdefault("syslog", []).extend(
+            {"log": x} for x, t in zip(texts, tags)
+            if t == "syslog" or t in refused)
+    return out, rerouted
 
 
 def syslog_rows(np, seed: int, R: int, B: int, width: int = L):
@@ -3043,11 +3107,11 @@ def phase_config3(tg, flb, decode_events, seed: int, card: str,
 
     data = syslog_corpus(seed, SYSLOG_LINES)
     texts = tail_texts(data)
-    want = config3_routing(texts)
+    want, rerouted = config3_routing(data)
     sizes = tail_append_sizes(data)
     small = syslog_corpus(seed + 1, DECODED_LINES)
     small_texts = tail_texts(small)
-    small_want = config3_routing(small_texts)
+    small_want, _ = config3_routing(small)
     device_appends = sum(n >= 64 for n in tail_append_sizes(small))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "syslog_corpus.log")
@@ -3095,7 +3159,10 @@ def phase_config3(tg, flb, decode_events, seed: int, card: str,
            "raw_launches": raw_launches,
            "raw_device_appends": len(gpu["steps"]) + len(cpu["steps"]),
            "emit_counter": emit_count(gpu["emitted"]),
-           "rerouted": sum(len(v) for t, v in want.items() if t != "syslog"),
+           "rerouted": rerouted,
+           "kept_by_emitter_limit": len(want["syslog"]) - sum(
+               1 for x in texts if not any(rx.search(x)
+                                           for rx in CONFIG3_PY)),
            "lines_per_s": len(texts) / gpu["wall"],
            "cpu_lines_per_s": len(texts) / cpu["wall"],
            "decoded": {
@@ -5247,6 +5314,417 @@ def guard_device_fault(tg, flb, decode_events, encode_event, DeviceError,
     return out
 
 
+# phase 20: filesystem storage and input backpressure
+STORAGE_SOAK_APPENDS = 16       # (b): the soak child's appends of 4096
+STORAGE_SOAK_CRASH_AT = 9       # ... killed on its 9th write-through
+STORAGE_A_APPENDS = 32          # (a): each of its four turns
+STORAGE_BP_APPENDS = 32         # (d): config 1's appends under the limit
+STORAGE_BP_LIMIT = "512K"       # (d): about one append's kept bytes
+STORAGE_FWD_RECORDS = 32_768    # (e): phase 17's first connection, cut
+STORAGE_FWD_RESENDS = 8         # (e): acked chunks resent after restart
+STORAGE_FWD_ACK_WAIT = 30.0     # (e): the client's wait before a resend
+
+
+def storage_ctx(flb, device: str, root, sink: list, out="lib",
+                service=None, **in_props):
+    """Config 1 for the storage phase: lib input → grep apache2 → a lib
+    output into ``sink`` (or ``out``), over ``root`` (None: no
+    storage), the flush every 50 ms unless ``service`` says."""
+    kw = {"flush": "50ms", "grace": "2", **(service or {})}
+    if root is not None:
+        kw.update({"storage.path": root, "storage.checksum": "on"})
+    ctx = flb.create(device=device, **kw)
+    in_ffd = ctx.input("lib", tag="bench.apache", **in_props)
+    ctx.filter("grep", match="bench.*", regex="log " + APACHE2)
+    if out == "lib":
+        ctx.output("lib", match="*",
+                   callback=lambda data, tag: sink.append(bytes(data)))
+    else:
+        ctx.output(out, match="*", retry_limit="no_limits")
+    return ctx, in_ffd
+
+
+def stream_files(root: str) -> list:
+    """The chunk files left under a storage root's streams."""
+    return sorted(os.path.join(d, n) for d, _s, names in
+                  os.walk(os.path.join(root, "streams"))
+                  for n in names if n.endswith(".flb"))
+
+
+def storage_a(tg, flb, appends: list, work: str) -> dict:
+    """(a) config 1 through ``ctx.push``, memory only and with
+    ``storage.type filesystem`` (each append written through, each
+    chunk finalized and deleted once delivered), in turns: memory,
+    filesystem, filesystem, memory."""
+    runs = {}
+    for turn, mode in enumerate(("memory", "filesystem", "filesystem",
+                                 "memory")):
+        root = os.path.join(work, f"a_{turn}")
+        sink: list = []
+        ctx, in_ffd = storage_ctx(
+            flb, "cuda", root, sink,
+            **({"storage.type": "filesystem"} if mode == "filesystem"
+               else {}))
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        ctx.start()
+        t0 = time.perf_counter()
+        try:
+            for _recs, text in appends:
+                ctx.push(in_ffd, text)
+            ctx.flush_now()
+            wall = time.perf_counter() - t0
+        finally:
+            ctx.stop()
+        runs[turn] = {"mode": mode, "wall": wall, "bytes": b"".join(sink),
+                      "launches": tg.grep_dfa.launches,
+                      "left": stream_files(root),
+                      "dlq": os.listdir(os.path.join(root, "dlq"))}
+    n = len(appends) * RECORDS
+    walls = {m: [r["wall"] for r in runs.values() if r["mode"] == m]
+             for m in ("memory", "filesystem")}
+    res = {"records_a_turn": n,
+           "lines_per_s": {m: [n / w for w in ws] for m, ws in walls.items()},
+           "filesystem_over_memory": sum(walls["memory"])
+           / sum(walls["filesystem"]),
+           "written_mb": sum(len(r["bytes"]) for r in runs.values()
+                             if r["mode"] == "filesystem") / 1e6,
+           "bytes_equal": len({r["bytes"] for r in runs.values()}) == 1,
+           "launches_k3": [r["launches"] for r in runs.values()],
+           "files_left": sum(len(r["left"]) for r in runs.values()),
+           "dlq_files": sum(len(r["dlq"]) for r in runs.values())}
+    log("storage (a): " + json.dumps(res))
+    if not res["bytes_equal"] or res["files_left"] or res["dlq_files"] \
+            or len(set(res["launches_k3"])) != 1 \
+            or not res["launches_k3"][0]:
+        raise SystemExit(f"storage (a) failed: {res}")
+    res["launches"] = sum(res["launches_k3"])
+    return res
+
+
+def storage_b(work: str) -> dict:
+    """(b) the soak on cuda: a child process runs config 1's grep over
+    lib appends of 4096 records with filesystem storage and is killed
+    by ``storage.append`` mid-ingest; a second child recovers the root.
+    Acked ⊆ delivered, within the contract's duplicate bound; every
+    delivered record is one Python ``re`` keeps."""
+    from fluentbit_tpu_torch.failpoints import soak
+
+    d = os.path.join(work, "soak")
+    t0 = time.perf_counter()
+    rc1 = soak.run_child(
+        d, "ingest", device="cuda", records=STORAGE_SOAK_APPENDS * RECORDS,
+        batch=RECORDS, grep=True, run_id="1", timeout=300,
+        failpoints=f"storage.append={STORAGE_SOAK_CRASH_AT - 1}*off"
+                   "->1*crash")
+    t1 = time.perf_counter()
+    rc2 = soak.run_child(d, "recover", device="cuda", run_id="2",
+                         settle=60.0, timeout=300)
+    t2 = time.perf_counter()
+    outcome = soak.SoakOutcome(d)
+    with open(os.path.join(d, "recover.json")) as f:
+        recover = json.loads(f.read().splitlines()[-1])
+    delivered = outcome.delivered_all()
+    res = {"ingest_exit": rc1, "recover_exit": rc2,
+           "acked": len(outcome.acked), "delivered": len(delivered),
+           "distinct_delivered": len(set(delivered)),
+           "replay_seconds": recover["replay_seconds"],
+           "sidecar_hits": recover["sidecar_hits"],
+           "sidecar_trusted": recover["sidecar_trusted"],
+           "decode_walks": recover["decode_walks"],
+           "ingest_child_s": t1 - t0, "recover_child_s": t2 - t1,
+           "files_left": len([p for p in outcome.stream_files()
+                              if p.endswith(".flb")])}
+    try:
+        soak.verify_contract(outcome, restarts=1)
+        res["contract"] = "held"
+    except AssertionError as exc:
+        res["contract"] = str(exc)
+    res["python_re_keeps_all"] = all(
+        APACHE2_PY.search(soak.soak_record(s)["log"]) for s in set(delivered))
+    log("storage (b): " + json.dumps(res))
+    if rc1 not in (-9, 137) or rc2 != 0 or res["contract"] != "held" \
+            or res["acked"] != (STORAGE_SOAK_CRASH_AT - 1) * RECORDS \
+            or not res["python_re_keeps_all"] or res["files_left"] \
+            or not res["sidecar_hits"]:
+        raise SystemExit(f"storage (b) failed: {res}")
+    return res
+
+
+def storage_c(tg, flb, decode_events, chunks: list, appends: list,
+              work: str) -> dict:
+    """(c) two finalized chunks left on disk by a run whose output never
+    delivers; one byte of one is flipped; the restart quarantines it to
+    ``dlq/<name>.corrupt`` and delivers only the other."""
+    from fluentbit_tpu_torch.core.storage import Storage
+
+    root = os.path.join(work, "c")
+    ctx, _ffd = storage_ctx(flb, "cuda", root, [], out="retry",
+                            service={"scheduler.base": "60",
+                                     "scheduler.cap": "120",
+                                     "guard.enable": "off"},
+                            **{"storage.type": "filesystem"})
+    tags = ("bench.a", "bench.b")
+    ctx.start()
+    try:
+        e = ctx.engine
+        with e._ingest_lock:  # one chunk a tag
+            for i, (data, n) in enumerate(chunks[:4]):
+                e.input_log_append(e.inputs[0], tags[i % 2], data, n)
+        deadline = time.perf_counter() + 30
+        while len(e._pending_retries) < 2:
+            if time.perf_counter() > deadline:
+                raise SystemExit("storage (c): the chunks never reached "
+                                 "their retry")
+            time.sleep(0.01)
+    finally:
+        ctx.stop()
+    files = stream_files(root)
+    bad = Storage(root, checksum=True)._read_chunk_file(files[0]).tag
+    with open(files[0], "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        last = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([last[0] ^ 0xFF]))
+    sink: list = []
+    ctx, _ffd = storage_ctx(flb, "cuda", root, sink,
+                            **{"storage.type": "filesystem"})
+    ctx.start()
+    try:
+        ctx.flush_now()
+    finally:
+        ctx.stop()
+    good = [i for i in range(4) if tags[i % 2] != bad]
+    want = expected_bodies([appends[i] for i in good], False)
+    got = [ev.body for ev in decode_events(b"".join(sink))]
+    dlq = os.listdir(os.path.join(root, "dlq"))
+    res = {"files_at_stop": len(files), "corrupted_tag": bad,
+           "dlq": sorted(n.split("-", 1)[1] if "-" in n else n
+                         for n in dlq),
+           "delivered": len(got), "delivered_equals_other_chunk":
+               got == want, "files_left": len(stream_files(root))}
+    log("storage (c): " + json.dumps(res))
+    if len(files) != 2 or got != want or len(dlq) != 1 \
+            or not dlq[0].endswith(".corrupt") or res["files_left"]:
+        raise SystemExit(f"storage (c) failed: {res}")
+    return res
+
+
+def storage_d(tg, flb, decode_events, appends: list) -> dict:
+    """(d) config 1 through ``ctx.push`` under ``mem_buf_limit``: a
+    refused push (0: the append returned -1) is pushed again until it
+    is taken, as a lib user does; every record kept once, K3 once per
+    accepted append."""
+    sink: list = []
+    ctx, in_ffd = storage_ctx(flb, "cuda", None, sink,
+                              service={"flush": "250ms"},
+                              mem_buf_limit=STORAGE_BP_LIMIT)
+    ins = ctx.engine.inputs[0]
+    calls = collections.Counter()
+    ins.plugin.pause = lambda: calls.update(["pause"])
+    ins.plugin.resume = lambda: calls.update(["resume"])
+    tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+    refused = 0
+    ctx.start()
+    t0 = time.perf_counter()
+    try:
+        for _recs, text in appends:
+            while not ctx.push(in_ffd, text):
+                refused += 1
+                time.sleep(0.002)
+        ctx.flush_now()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.stop()
+    counts = record_counter(decode_events, sink)
+    got = [ev.body for ev in decode_events(b"".join(sink))]
+    res = {"appends": len(appends), "refused_pushes": refused,
+           "pauses": calls["pause"], "resumes": calls["resume"],
+           "kept": len(got), "each_once": set(counts.values()) == {1},
+           "kept_equals_python_re": got == expected_bodies(appends, False),
+           "launches_k3": tg.grep_dfa.launches,
+           "lines_per_s": len(appends) * RECORDS / wall}
+    log("storage (d): " + json.dumps(res))
+    if not (refused and calls["pause"] and calls["resume"]
+            and res["each_once"] and res["kept_equals_python_re"]
+            and tg.grep_dfa.launches == len(appends)):
+        raise SystemExit(f"storage (d) failed: {res}")
+    return res
+
+
+def forward_frames(traffic: dict, limit: int) -> list:
+    """Phase 17's first connection, framed (message, ack, tag, records),
+    up to ``limit`` records."""
+    from fluentbit_tpu_torch.codec.msgpack import Unpacker, unpackb
+
+    data, pos, out, n = traffic["conns"][0], 0, [], 0
+    while pos < len(data) and n < limit:
+        (k,) = struct.unpack_from(">I", data, pos)
+        msg = data[pos + 4:pos + 4 + k]
+        pos += 4 + k
+        (k,) = struct.unpack_from(">I", data, pos)
+        ack = unpackb(data[pos + 4:pos + 4 + k])
+        pos += 4 + k
+        obj = next(iter(Unpacker(msg)))
+        body = obj[1]
+        if isinstance(body, (bytes, memoryview)):
+            blob = bytes(body)
+            if len(obj) > 2 and obj[2].get("compressed") == "gzip":
+                blob = gzip.decompress(blob)
+            count = len(list(Unpacker(blob)))
+        elif isinstance(body, (list, tuple)):
+            count = len(body)
+        else:
+            count = 1
+        out.append((msg, ack, obj[0], count))
+        n += count
+    return out
+
+
+def forward_client(port: int, frames: list) -> int:
+    """Send each message and wait for its ack; a withheld ack (none
+    within ``STORAGE_FWD_ACK_WAIT``) sends it again, as an edge agent
+    does. An ack for an earlier send of a message is skipped. Returns
+    the resends."""
+    import socket
+
+    from fluentbit_tpu_torch.codec.msgpack import Unpacker
+
+    resends = 0
+    s = socket.create_connection(("127.0.0.1", port))
+    s.settimeout(STORAGE_FWD_ACK_WAIT)
+    u = Unpacker()
+    try:
+        for msg, ack, _tag, _n in frames:
+            s.sendall(msg)
+            while True:
+                got = next(iter(u), None)
+                if got == ack:
+                    break
+                if got is not None:
+                    continue  # a late ack of an earlier send
+                try:
+                    part = s.recv(65536)
+                except socket.timeout:
+                    resends += 1
+                    s.sendall(msg)
+                    continue
+                if not part:
+                    raise SystemExit("storage (e): the aggregator closed "
+                                     "the connection")
+                u.feed(part)
+    finally:
+        s.close()
+    return resends
+
+
+def storage_e(tg, flb, decode_events, config5: dict, work: str) -> dict:
+    """(e) config 5's forward messages (phase 17's first connection, cut)
+    to an aggregator (forward → kubernetes → grep Exclude → lib) whose
+    input has ``mem_buf_limit`` and ``defer_ack_window`` and whose dedup
+    ledger is on ``storage.path``; stopped and started again over the
+    same root after half the messages, then the rest plus chunks acked
+    before the restart: every record once, equal on cuda and cpu and to
+    phase 17's check."""
+    frames = forward_frames(config5["traffic"], STORAGE_FWD_RECORDS)
+    half = len(frames) // 2
+    parts = (frames[:half],
+             frames[half:] + frames[half - STORAGE_FWD_RESENDS:half])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        root = os.path.join(work, "e_" + device)
+        got: list = []
+        health, resends = [], 0
+        tg.grep_dfa.launches = tg.grep_assoc.launches = 0
+        t0 = time.perf_counter()
+        for part in parts:
+            ctx = flb.create(device=device, flush="100ms", grace="2",
+                             **{"storage.path": root})
+            ctx.input("forward", port="0", listen="127.0.0.1",
+                      mem_buf_limit="1M", defer_ack_window="5")
+            ctx.filter("kubernetes", match="kube.*", merge_log="on",
+                       buffer_size="0",
+                       kube_meta_preload_cache_dir=config5["cache_dir"])
+            ctx.filter("grep", match="kube.*",
+                       exclude=f"log {K8S_EXCLUDE}")
+            ctx.output("lib", match="*", callback=lambda data, tag:
+                       got.append((tag, bytes(data))))
+            ctx.start()
+            try:
+                plugin = ctx.engine.inputs[0].plugin
+                resends += forward_client(plugin.bound_port, part)
+                ctx.flush_now()
+            finally:
+                ctx.stop()
+            health.append(plugin.health_block())
+        runs[device] = {"chunks": got, "health": health,
+                        "resends": resends,
+                        "wall": time.perf_counter() - t0,
+                        "launches": {"grep_assoc": tg.grep_assoc.launches,
+                                     "grep_dfa": tg.grep_dfa.launches}}
+    by_tag = {d: {} for d in runs}
+    for d, r in runs.items():
+        for tag, data in r["chunks"]:
+            by_tag[d][tag] = by_tag[d].get(tag, b"") + data
+    # phase 17's check over the messages sent: each tag's first k
+    # messages, k the distinct chunk ids of that tag among the frames
+    ids: dict = {}
+    for _m, ack, tag, _n in frames:
+        ids.setdefault(tag, set()).add(ack["ack"])
+    traffic = config5["traffic"]
+    want = config5_expected({
+        "per_tag": {t: traffic["per_tag"][t][:len(v)]
+                    for t, v in ids.items()},
+        "metas": traffic["metas"]})
+    decoded = {t: [(ev.timestamp, ev.body) for ev in decode_events(v)]
+               for t, v in by_tag["cuda"].items()}
+    sizes = {}
+    for _m, ack, tag, n in frames:
+        sizes[ack["ack"]] = n
+    gpu = runs["cuda"]
+    res = {"records_sent": sum(n for *_x, n in frames),
+           "messages": len(frames), "chunks": len(sizes),
+           "restart_after": half,
+           "resent_after_restart": STORAGE_FWD_RESENDS,
+           "absorbed": [h["absorbed"] for h in gpu["health"]],
+           "dedup_hits": [h["dedup_hits"] for h in gpu["health"]],
+           "deferred_acks": [h["deferred_acks"] for h in gpu["health"]],
+           "withheld_acks": [h["withheld_acks"] for h in gpu["health"]],
+           "client_resends": gpu["resends"],
+           "records_out": sum(len(v) for v in decoded.values()),
+           "equal_cpu": by_tag["cuda"] == by_tag["cpu"],
+           "equal_python_check": decoded == want,
+           "launches": gpu["launches"],
+           "expected_k4": sum(1 for n in sizes.values() if n >= 32),
+           "lines_per_s": sum(sizes.values()) / gpu["wall"],
+           "cpu_lines_per_s": sum(sizes.values()) / runs["cpu"]["wall"]}
+    log("storage (e): " + json.dumps(res))
+    if not (res["equal_cpu"] and res["equal_python_check"]
+            and sum(res["absorbed"]) == len(sizes)
+            and res["dedup_hits"][1] >= STORAGE_FWD_RESENDS
+            and sum(res["deferred_acks"])
+            and gpu["launches"] == {"grep_assoc": res["expected_k4"],
+                                    "grep_dfa": 0}):
+        raise SystemExit(f"storage (e) failed: {res}")
+    return res
+
+
+def phase_storage(tg, flb, decode_events, appends: list, chunks: list,
+                  config5: dict, card: str) -> dict:
+    """Phase 20: filesystem storage and input backpressure on cuda,
+    (a)-(e) (see the module's notes)."""
+    with tempfile.TemporaryDirectory() as work:
+        a = storage_a(tg, flb, appends[:STORAGE_A_APPENDS], work)
+        b = storage_b(work)
+        c = storage_c(tg, flb, decode_events, chunks, appends, work)
+        d = storage_d(tg, flb, decode_events,
+                      appends[:STORAGE_BP_APPENDS])
+        e = storage_e(tg, flb, decode_events, config5, work)
+    log("storage: " + json.dumps({"card": card}))
+    return {"a": a, "b": b, "c": c, "d": d, "e": e,
+            "launches": {"grep_dfa": a["launches"] + d["launches_k3"],
+                         "grep_assoc": e["launches"]["grep_assoc"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5368,6 +5846,8 @@ def main() -> int:
                       config5, env["card"])
         guard = timed("guard", phase_guard, tg, flb, decode_events, appends,
                       config5, ndjson, env["card"])
+        storage = timed("storage", phase_storage, tg, flb, decode_events,
+                        appends, chunks, config5, env["card"])
     log("phase_seconds (each with the data made before it): "
         + json.dumps(seconds))
 
@@ -5388,6 +5868,9 @@ def main() -> int:
         "launches_config2r_raw": config2r["raw_launches"]["grep_dfa"],
         # phase 19: config 1 under injected faults, (a)-(d)
         "launches_guard": guard["launches"]["grep_dfa"],
+        # phase 20: config 1 with and without filesystem storage (a) and
+        # under mem_buf_limit (d)
+        "launches_storage": storage["launches"]["grep_dfa"],
         "config2r_k3": config2r["k3"],
         "config1_rows": mesh["main_rows"][0],
         "global_ms": main_shape["global_ms"],
@@ -5484,6 +5967,9 @@ def main() -> int:
         "launches_relay_aggregator": relay["launches"]["grep_assoc"],
         # phase 19 (d): config 5's decoded path under device.dispatch
         "launches_guard": guard["launches"]["grep_assoc"],
+        # phase 20 (e): config 5's decoded path under forward
+        # backpressure, with a restart over the durable ledger
+        "launches_storage": storage["launches"]["grep_assoc"],
         "config5_rows": config5["k4_rows"],
         "max_abs_err": max([r["max_abs_err"] for r in assoc]
                            + [mesh["main_rows"][1]["max_abs_err"]]

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 _SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgG]?)b?\s*$")
 _TIME_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*(ms|s|m|h|d)?\s*$")
@@ -184,10 +184,12 @@ def _attr_name(name: str) -> str:
 
 # Instance-level keys consumed by the engine, valid for every plugin
 # (reference: flb_input.c/flb_output.c/flb_filter.c common properties).
-# ``flush_timeout``, the guard's flush deadline, is read by outputs and
-# taken on every instance, as in the reference.
+# ``flush_timeout``, the guard's flush deadline, is read by outputs, and
+# the buffer and storage keys by inputs; every instance takes them, as in
+# the reference.
 CORE_INSTANCE_KEYS = {"tag", "match", "match_regex", "alias", "log_level",
-                      "flush_timeout"}
+                      "flush_timeout", "mem_buf_limit", "storage.type",
+                      "storage.pause_on_chunks_overlimit", "threaded"}
 
 #: the engine's keys of an output instance (``OutputInstance.configure``):
 #: retries, worker threads, one flush at a time, conditional routing
@@ -213,10 +215,6 @@ _NO_TLS = "TLS on this plugin (forward and http take it)"
 #: ``host`` and ``port`` are accepted only by the plugins that declare
 #: them; ``tenant.*`` keys raise with ``tenant``.
 UNPORTED_INSTANCE_KEYS = {
-    "mem_buf_limit": "input buffer limit or backpressure",
-    "storage.type": "filesystem storage",
-    "storage.pause_on_chunks_overlimit": "filesystem storage",
-    "threaded": "threaded inputs",
     "tls": _NO_TLS,
     "tls.verify": _NO_TLS,
     "tls.ca_file": _NO_TLS,
@@ -243,6 +241,16 @@ class ServiceConfig:
     scheduler_cap: float = 2000.0    # retry backoff cap  (flb_scheduler.h:30)
     retry_limit: int = 1             # default per-output retries
     task_map_size: int = 2048        # FLB_CONFIG_DEFAULT_TASK_MAP_SIZE
+    # filesystem storage (core/storage.py): chunks of ``storage.type
+    # filesystem`` inputs, the backlog, the DLQ and the forward input's
+    # durable dedup ledger live under ``storage_path``. ``storage.sync``
+    # and ``storage.backlog.mem_limit`` are parsed and not read, as in
+    # the reference
+    storage_path: Optional[str] = None
+    storage_sync: str = "normal"
+    storage_checksum: bool = False
+    storage_backlog_mem_limit: int = 5 * 1024 * 1024
+    storage_max_chunks_up: int = 128  # the pause_on_chunks_overlimit bound
     # SIGHUP in the CLI: a validated full-restart reload
     hot_reload: bool = False
     # core/guard.py: flush deadlines, a breaker on every output (and the
@@ -266,6 +274,12 @@ class ServiceConfig:
         "scheduler.cap": ("scheduler_cap", parse_time),
         "retry_limit": ("retry_limit", int),
         "task_map_size": ("task_map_size", int),
+        "storage.path": ("storage_path", str),
+        "storage.sync": ("storage_sync", str),
+        "storage.checksum": ("storage_checksum", parse_bool),
+        "storage.backlog.mem_limit": ("storage_backlog_mem_limit",
+                                      parse_size),
+        "storage.max_chunks_up": ("storage_max_chunks_up", int),
         "hot_reload": ("hot_reload", parse_bool),
         "guard.enable": ("guard_enable", parse_bool),
         "guard.flush_timeout": ("guard_flush_timeout", parse_time),
@@ -286,7 +300,7 @@ class ServiceConfig:
         mapped = self._KEYMAP.get(lk)
         if mapped is None:
             if lk in UNPORTED_SERVICE_KEYS or lk.split(".")[0] in (
-                    "storage", "qos", "tpu"):
+                    "qos", "tpu"):
                 raise ValueError(f"service property {key!r} is not "
                                  "ported")
             raise ValueError(f"unknown service property {key!r}")
@@ -295,7 +309,7 @@ class ServiceConfig:
 
 
 #: the reference's other [SERVICE] keys (its ServiceConfig._KEYMAP,
-#: beside the ``storage.*``, ``qos.*`` and ``tpu.*`` families): each
+#: beside the ``qos.*`` and ``tpu.*`` families): each
 #: raises when set
 UNPORTED_SERVICE_KEYS = {
     "daemon", "log_level", "http_server", "http_listen", "http_port",

@@ -45,8 +45,24 @@ are, and a stream-processor task or flux attach that fails is logged. A
 device error (``ops.device.DEVICE_ERRORS``: a failed build or launch) is
 none of these: the engine counts it in
 ``fluentbit_device_launch_failures_total{lane}`` and it reaches the
-caller of the append. Storage, qos, processors, chunk trace, reload by
-diff, the admin HTTP server and multiline wait for later slices.
+caller of the append. Qos, processors, chunk trace, reload by diff, the
+admin HTTP server and multiline wait for later slices.
+
+Storage and input backpressure: with the service's ``storage.path`` the
+engine keeps a ``core.storage.Storage`` and loads its backlog at
+``start()``, before the first flush. A ``storage.type filesystem``
+input's appends are written through on every append path
+(``_persist``), each drained chunk is finalized with its CRC, its file
+is deleted when the last route delivers it, and a chunk that drops (an
+error, retries exhausted, a stop with its flush undelivered) is
+quarantined into the DLQ. ``input_log_append`` puts backpressure first:
+over the input's ``mem_buf_limit``, or over the service's
+``storage.max_chunks_up`` chunks with ``storage.pause_on_chunks_overlimit``,
+it pauses the input and returns -1; a ``memrb`` input evicts its oldest
+chunks instead (``fluentbit_input_memrb_dropped_*``). The flush resumes a
+paused input once its pool is under the limits; a paused input's
+collector skips its collect, and ``threaded on`` runs the collector on a
+thread of its own.
 
 Reference: src/flb_engine.c (flb_engine_start event loop),
 src/flb_engine_dispatch.c (chunk → task → per-route flush),
@@ -150,6 +166,9 @@ class Engine:
         self.inputs: List[InputInstance] = []
         self.filters: List[FilterInstance] = []
         self.outputs: List[OutputInstance] = []
+        # filesystem storage (core/storage.py), made by start() when the
+        # service has a storage.path
+        self.storage = None
         self.metrics = MetricsRegistry()
         self._init_metrics()
         self.parsers: Dict[str, Any] = {}  # named parsers (flb_parser registry)
@@ -158,6 +177,7 @@ class Engine:
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
         self._stopping = False
+        self._stop_event = threading.Event()  # wakes threaded collectors
         # serializes ingest (filters + pool appends) against pool drains;
         # reentrant because a filter may append from inside the chain
         # (log_to_metrics emits its snapshot through input_event_append)
@@ -230,6 +250,13 @@ class Engine:
             "fluentbit", "output", "dropped_records_total",
             "Records dropped at output", ("name",))
         self.m_uptime = m.gauge("fluentbit", "", "uptime", "Uptime seconds")
+        # memrb eviction (src/flb_input_chunk.c:2936-2966; reference :221)
+        self.m_memrb_dropped_chunks = m.counter(
+            "fluentbit", "input", "memrb_dropped_chunks_total",
+            "Chunks evicted by memrb ring buffer", ("name",))
+        self.m_memrb_dropped_bytes = m.counter(
+            "fluentbit", "input", "memrb_dropped_bytes_total",
+            "Bytes evicted by memrb ring buffer", ("name",))
         # chunk creation → delivery (reference src/flb_engine.c:400-405)
         self.m_latency = m.histogram(
             "fluentbit", "output", "latency_seconds",
@@ -254,6 +281,9 @@ class Engine:
         ins = create(name)
         n = sum(1 for p in peers if p.plugin.name == ins.plugin.name)
         ins.name = f"{ins.plugin.name}.{n}"
+        pool = getattr(ins, "pool", None)
+        if pool is not None:
+            pool.in_name = ins.name  # the storage stream's directory
         for k, v in props.items():
             ins.set(k, v)
         return ins
@@ -397,12 +427,22 @@ class Engine:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """Init every instance and the outputs' worker pools, then spawn
-        the engine thread (flb_start). A worker pool that does not start
+        """Make the storage and load its backlog, init every instance and
+        the outputs' worker pools, then spawn the engine thread
+        (flb_start; flb_storage_create at src/flb_engine.c:979,
+        sb_segregate_chunks at :1129). A worker pool that does not start
         within ``guard.worker_start_timeout`` fails its output over to
         flushes on the engine's loop."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
+        if self.service.storage_path and self.storage is None:
+            from .storage import Storage
+
+            self.storage = Storage(self.service.storage_path,
+                                   checksum=self.service.storage_checksum)
+        if self.storage is not None:
+            with self._ingest_lock:
+                self._backlog = self.storage.scan_backlog()
         for ins in self.inputs + self.filters + self.outputs:
             if getattr(ins, "_initialized", False):
                 continue  # hidden instances are initialized at creation
@@ -416,6 +456,7 @@ class Engine:
         # fault fires)
         _fp.add_listener(self._on_failpoint_trigger)
         self._stopping = False
+        self._stop_event.clear()
         self._start_error = None
         self._thread = threading.Thread(target=self._run, name="flb-engine",
                                         daemon=True)
@@ -468,8 +509,16 @@ class Engine:
         try:
             for ins in self.inputs:
                 if ins.plugin.collect_interval is not None:
-                    ins.collector_task = asyncio.ensure_future(
-                        self._collector(ins))
+                    if ins.threaded:
+                        # FLB_INPUT_THREADED (src/flb_input_thread.c:225):
+                        # the collect runs on a thread of its own
+                        ins.collector_thread = threading.Thread(
+                            target=self._collector_thread, args=(ins,),
+                            daemon=True, name=f"flb-in-{ins.display_name}")
+                        ins.collector_thread.start()
+                    else:
+                        ins.collector_task = asyncio.ensure_future(
+                            self._collector(ins))
                 elif getattr(ins.plugin, "server_task_needed", False):
                     # bind before start() returns, so a caller can read
                     # bound_port; the task serves until stop() cancels it
@@ -484,6 +533,14 @@ class Engine:
             while not self._stopping:
                 await asyncio.sleep(flush_interval)
                 self.flush_all()
+            # threaded collectors stop first: what they append must land
+            # before the drain below
+            self._stop_event.set()
+            for ins in self.inputs:
+                t = ins.collector_thread
+                if t is not None and t.is_alive():
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, t.join, self.service.grace + 2.0)
             # the server inputs stop first, listeners and connections:
             # what one acked after the drain below would never be flushed
             # (the reference drains first and keeps acking)
@@ -515,6 +572,11 @@ class Engine:
             self._pending_retries.clear()
         finally:
             self._stopping = True
+            self._stop_event.set()
+            for ins in self.inputs:
+                t = ins.collector_thread
+                if t is not None and t.is_alive():
+                    t.join(timeout=2.0)
             pending = [ins.collector_task for ins in self.inputs
                        if ins.collector_task is not None]
             for task in pending:
@@ -524,12 +586,13 @@ class Engine:
             self._started.clear()
 
     async def _collector(self, ins: InputInstance) -> None:
-        """Interval collector (flb_input_set_collector_time). A collect
-        that raises is logged and the next one runs; a device error ends
-        the collector with it."""
+        """Interval collector (flb_input_set_collector_time). A paused
+        input's collect is skipped. A collect that raises is logged and
+        the next one runs; a device error ends the collector with it."""
         while True:
             try:
-                ins.plugin.collect(self)
+                if not ins.paused:
+                    ins.plugin.collect(self)
             except DEVICE_ERRORS:
                 log.exception("input %s collect hit a device error; its "
                               "collector stops", ins.display_name)
@@ -537,6 +600,24 @@ class Engine:
             except Exception:
                 log.exception("input %s collect failed", ins.display_name)
             await asyncio.sleep(ins.plugin.collect_interval)
+
+    def _collector_thread(self, ins: InputInstance) -> None:
+        """A threaded input's collector (reference :838-860,
+        input_thread_instance_create, src/flb_input_thread.c:225): the
+        same loop off the engine's loop, woken by the stop."""
+        interval = ins.plugin.collect_interval or 1.0
+        while not self._stopping:
+            try:
+                if not ins.paused:
+                    ins.plugin.collect(self)
+            except DEVICE_ERRORS:
+                log.exception("input %s collect hit a device error; its "
+                              "collector stops", ins.display_name)
+                raise
+            except Exception:
+                log.exception("input %s collect failed", ins.display_name)
+            if self._stop_event.wait(interval):
+                break
 
     def request_stop(self) -> None:
         """Ask the engine loop to stop gracefully (out_exit's stop): the
@@ -572,7 +653,11 @@ class Engine:
                     device_error = device_error or exc
                 except Exception:
                     log.exception("%s exit failed", ins.display_name)
-            _fp.remove_listener(self._on_failpoint_trigger)
+            try:
+                if self.storage is not None:
+                    self.storage.close()
+            finally:
+                _fp.remove_listener(self._on_failpoint_trigger)
             if device_error is not None:
                 raise device_error
 
@@ -619,7 +704,14 @@ class Engine:
                          data: bytes, n_records: Optional[int] = None) -> int:
         """Append encoded log events: run the filter chain synchronously
         (src/flb_input_chunk.c:3078) and write the survivors into the
-        input's chunk pool. Returns the records written.
+        input's chunk pool. Returns the records written, or -1 when
+        backpressure refused the append (reference :979-1055): the pool
+        holds ``mem_buf_limit`` bytes or more, or, with
+        ``storage.pause_on_chunks_overlimit``, the service's
+        ``storage.max_chunks_up`` chunks or more; the input is paused
+        then, and the flush resumes it. A ``memrb`` input never pauses:
+        its oldest chunks are evicted to make room for the append's
+        bytes, and counted.
 
         When every filter whose route matches the tag has a raw hook
         (``can_filter_raw()`` or ``can_process_batch()``), no exact
@@ -644,6 +736,30 @@ class Engine:
         in ``fluentbit_device_launch_failures_total`` and raises to the
         caller."""
         tag = tag or ins.tag or ins.plugin.name
+        # backpressure first (mem_buf_limit, src/flb_input.c:157,740-746;
+        # storage.pause_on_chunks_overlimit, :169), the pool's counts
+        # read under the input's lock
+        with ins.ingest_lock:
+            over = ins.storage_type != "memrb" and ((
+                ins.mem_buf_limit
+                and ins.pool.pending_bytes >= ins.mem_buf_limit
+            ) or (
+                ins.pause_on_chunks_overlimit
+                and ins.pool.pending_chunks
+                >= self.service.storage_max_chunks_up))
+        if over:
+            ins.set_paused(True)
+            return -1
+        if ins.storage_type == "memrb":
+            # a ring buffer: the oldest chunks make room, sized on the
+            # append's incoming bytes as the reference's pre-filter check
+            limit = ins.mem_buf_limit or 10 * 1024 * 1024
+            with ins.ingest_lock:
+                need = ins.pool.pending_bytes + len(data) - limit
+                evicted = ins.pool.evict_oldest(need) if need > 0 else []
+            for c in evicted:
+                self.m_memrb_dropped_chunks.inc(1, (ins.display_name,))
+                self.m_memrb_dropped_bytes.inc(c.size, (ins.display_name,))
         matching = [f for f in self.filters if f.route.matches(tag)]
         sp = self.sp
         sp_active = (sp is not None and ins is not sp.emitter_instance
@@ -726,12 +842,25 @@ class Engine:
         if cond_routing:
             self._append_split(ins, tag, events)
             return len(events)
-        payload = b"".join(
-            ev.raw if ev.raw is not None else reencode_event(ev)
-            for ev in events)
+        parts = [ev.raw if ev.raw is not None else reencode_event(ev)
+                 for ev in events]
+        payload = b"".join(parts)
         with ins.ingest_lock:
-            ins.pool.append(tag, payload, len(events))
+            chunk = ins.pool.append(tag, payload, len(events))
+            if self.storage is not None:
+                # the record ends come free from the parts
+                self._persist(ins, chunk, payload, list(
+                    itertools.accumulate(len(p) for p in parts)))
         return len(events)
+
+    def _persist(self, ins: InputInstance, chunk: Chunk, data,
+                 offsets=None) -> None:
+        """Write an append through to its chunk's file when the input
+        keeps filesystem storage (reference :1415-1427; with no qos
+        plane, storage admits every append). ``offsets``: the append's
+        record END offsets, when the caller has them."""
+        if self.storage is not None and ins.storage_type == "filesystem":
+            self.storage.write_through(chunk, data, offsets=offsets)
 
     def _append_split(self, ins: InputInstance, tag: str,
                       events: List[LogEvent]) -> None:
@@ -755,12 +884,17 @@ class Engine:
                     ev.raw if ev.raw is not None else reencode_event(ev))
         with ins.ingest_lock:
             for mask, parts in groups.items():
-                chunk = ins.pool.append(tag, b"".join(parts), len(parts),
+                payload = b"".join(parts)
+                chunk = ins.pool.append(tag, payload, len(parts),
                                         routes_mask=mask)
                 if chunk.route_names is None:
                     chunk.route_names = tuple(
                         o.display_name for i, o in enumerate(outputs)
                         if (mask >> i) & 1)
+                if self.storage is not None:
+                    # persisted with its route names, not its mask bits
+                    self._persist(ins, chunk, payload, list(
+                        itertools.accumulate(len(p) for p in parts)))
 
     def _ingest_raw(self, ins: InputInstance, tag: str, data: bytes,
                     matching: List[FilterInstance],
@@ -860,7 +994,9 @@ class Engine:
         if not isinstance(data, bytes):
             data = bytes(data)
         with ins.ingest_lock:  # re-entered on the parallel path
-            ins.pool.append(tag, data, n)
+            chunk = ins.pool.append(tag, data, n)
+            # the record ends from the host codec's offset scan
+            self._persist(ins, chunk, data)
         return n
 
     def _finish_raw_tail(self, ins: InputInstance, cont: _RawTail):
@@ -925,7 +1061,8 @@ class Engine:
             with ins.ingest_lock:
                 self.m_in_records.inc(n_records, (ins.display_name,))
                 self.m_in_bytes.inc(len(data), (ins.display_name,))
-                ins.pool.append(tag, data, n_records, event_type)
+                chunk = ins.pool.append(tag, data, n_records, event_type)
+                self._persist(ins, chunk, data)
         return n_records
 
     def _run_filters(self, events: List[LogEvent], tag: str,
@@ -975,7 +1112,9 @@ class Engine:
         The guard's watchdog rides it (``housekeeping``); the failpoint
         site ``engine.flush_dispatch`` fires between the drain and the
         tasks, and an injected failure parks the cycle's chunks on the
-        backlog (a panic raises)."""
+        backlog (a panic raises). A filesystem input's drained chunks are
+        finalized (their CRC stamped), and a paused input resumes once
+        its pool is under its limits (reference :1638-1670)."""
         if self.started_at:
             self.m_uptime.set(time.time() - self.started_at)
         self.guard.housekeeping()
@@ -983,7 +1122,23 @@ class Engine:
             chunks, self._backlog = self._backlog, []
             for ins in self.inputs:
                 with ins.ingest_lock:  # parallel raw appends
-                    chunks.extend(ins.pool.drain())
+                    drained = ins.pool.drain()
+                if self.storage is not None \
+                        and ins.storage_type == "filesystem":
+                    for chunk in drained:
+                        self.storage.finalize(chunk)
+                chunks.extend(drained)
+                if ins.paused:
+                    with ins.ingest_lock:
+                        drained_ok = (
+                            not ins.mem_buf_limit
+                            or ins.pool.pending_bytes < ins.mem_buf_limit
+                        ) and (
+                            not ins.pause_on_chunks_overlimit
+                            or ins.pool.pending_chunks
+                            < self.service.storage_max_chunks_up)
+                    if drained_ok:
+                        ins.set_paused(False)
         if _fp.ACTIVE and chunks:
             try:
                 _fp.fire("engine.flush_dispatch")
@@ -1020,6 +1175,8 @@ class Engine:
                       if o.route.matches(chunk.tag)
                       and chunk.event_type in o.plugin.event_types]
         if not routes:
+            if self.storage is not None:
+                self.storage.delete(chunk)
             return True
         if self.guard.maybe_shed(chunk, routes):
             return True
@@ -1040,12 +1197,15 @@ class Engine:
             self._spawn_flush(task, out)
         return True
 
-    def _task_unref(self, task: Task) -> None:
-        """flb_task_users_dec: the last route to finish frees the slot."""
+    def _task_unref(self, task: Task) -> bool:
+        """flb_task_users_dec: the last route to finish frees the slot.
+        Returns True for the last route (the chunk's file may go)."""
         with self._task_lock:
             task.users -= 1
-            if task.users == 0:
+            done = task.users == 0
+            if done:
                 self._task_map.pop(task.id, None)
+        return done
 
     def _enqueue_event(self, priority: int, fn) -> None:
         """Queue a ready callback in the bucket queue and wake the loop
@@ -1110,6 +1270,10 @@ class Engine:
             delay = await self._flush_body(task, out)
         except asyncio.CancelledError:
             if not self.guard.consume_timeout(task, out):
+                # the stop, with this route undelivered: a memory chunk
+                # goes to the DLQ; a filesystem one is on disk already
+                # and is the next start's backlog (reference :1933-1944)
+                self._quarantine_at_stop(task.chunk, "shutdown quarantine")
                 raise
             delay = self._handle_flush_result(task, out, FlushResult.RETRY)
         if delay is None:
@@ -1227,10 +1391,26 @@ class Engine:
             self._drop_retry(task, out)
 
     def _drop_retry(self, task: Task, out: OutputInstance) -> None:
-        """Count a retry dropped at stop like every other drop."""
+        """Count a retry dropped at stop like every other drop, and
+        quarantine its chunk unless its bytes are on disk already
+        (reference :2135-2147)."""
         self.m_out_errors.inc(1, (out.display_name,))
         self.m_out_dropped.inc(task.chunk.records, (out.display_name,))
+        self._quarantine_at_stop(task.chunk, "retry quarantine")
         self._task_unref(task)
+
+    def _quarantine_at_stop(self, chunk: Chunk, what: str) -> None:
+        """The DLQ for an undelivered memory chunk at stop; the failpoint
+        site ``engine.shutdown_quarantine`` fires first. A failure is
+        logged."""
+        if self.storage is None or self.storage.is_tracked(chunk):
+            return
+        try:
+            if _fp.ACTIVE:
+                _fp.fire("engine.shutdown_quarantine")
+            self.storage.quarantine(chunk)
+        except Exception:
+            log.exception("%s failed", what)
 
     def _handle_flush_result(self, task: Task, out: OutputInstance,
                              result) -> Optional[float]:
@@ -1239,7 +1419,9 @@ class Engine:
         while the attempts stay within the output's ``retry_limit`` (the
         service's when unset; -1 has no limit); ERROR, or a RETRY past
         the limit, drops the chunk for this output and counts it. Every
-        outcome feeds the output's breaker (reference :2157-2177)."""
+        outcome feeds the output's breaker (reference :2157-2177). With
+        storage, a dropped chunk is quarantined into the DLQ, and the
+        chunk's file is deleted when its last route is done."""
         name = out.display_name
         chunk = task.chunk
         if result == FlushResult.OK:
@@ -1247,7 +1429,8 @@ class Engine:
             self.m_out_proc_records.inc(chunk.records, (name,))
             self.m_out_proc_bytes.inc(chunk.size, (name,))
             self.m_latency.observe(time.time() - chunk.created, (name,))
-            self._task_unref(task)
+            if self._task_unref(task) and self.storage is not None:
+                self.storage.delete(chunk)  # every route delivered
             return None
         if result == FlushResult.RETRY:
             attempts = task.retries.get(out.name, 0) + 1
@@ -1266,7 +1449,13 @@ class Engine:
                     name, getattr(result, "name", result), chunk.records)
         self.m_out_errors.inc(1, (name,))
         self.m_out_dropped.inc(chunk.records, (name,))
-        self._task_unref(task)
+        if self.storage is not None:
+            try:
+                self.storage.quarantine(chunk)
+            except Exception:
+                log.exception("DLQ quarantine failed")
+        if self._task_unref(task) and self.storage is not None:
+            self.storage.delete(chunk)  # the DLQ copy is its own file
         return None
 
     def flush_now(self) -> None:

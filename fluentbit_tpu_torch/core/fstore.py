@@ -3,8 +3,8 @@
 The port's own copy of ``fluentbit_tpu/core/fstore.py`` (reference
 src/flb_fstore.c). Streams are directories; files are named objects with
 byte content and a small JSON metadata sidecar. The port uses it for the
-forward output's partition spool only: filesystem chunk storage
-(``storage.*``) is not ported.
+forward output's partition spool and the forward input's durable dedup
+ledger (filesystem chunk storage is ``core.storage``).
 """
 
 from __future__ import annotations

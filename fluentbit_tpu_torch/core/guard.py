@@ -28,13 +28,16 @@ path has no guard code, and the periodic checks ride the flush timer.
   route is behind an open breaker (and reclaims the task slots their
   retry timers hold). A parked chunk goes back to the backlog, for only
   the routes it was shed from, once one of them can take a probe, and
-  at stop. Delivery stays at least once.
+  at stop. Delivery stays at least once. With filesystem storage, a
+  shed memory chunk is written through and finalized, so a crash does
+  not lose it (a write that fails is logged and the chunk stays in
+  memory).
 - :meth:`Guard.health` gives the verdict ``ok``, ``degraded`` or
   ``stalled``.
 
-Not in the port: shedding graded by priority class (it needs qos), a
-shed chunk's storage write-through (it needs storage) and the device
-lanes' block of the health verdict (the port has no CPU fallback to fail
+Not in the port: shedding graded by priority class and the storage
+quota on a shed chunk's write-through (both need qos; with one tenant
+the reference always admits), and the device lanes' block of the health verdict (the port has no CPU fallback to fail
 over to; a device error raises).
 """
 
@@ -569,6 +572,14 @@ class Guard:
         # resolves names first, and the mask is cleared
         chunk.route_names = tuple(route_names)
         chunk.routes_mask = 0
+        storage = self.engine.storage
+        if storage is not None and not storage.is_tracked(chunk):
+            try:  # durability: the memory chunk spills to disk
+                storage.write_through(chunk, chunk.get_bytes())
+                storage.finalize(chunk)
+            except Exception:
+                log.exception("guard: shed write-through failed; chunk "
+                              "parked in memory only")
         with self._lock:
             self._shed.append(chunk)
         for name in route_names:

@@ -16,13 +16,16 @@ from __future__ import annotations
 import asyncio
 import collections
 import enum
+import logging
 import threading
 from typing import Any, Callable, Dict, List, Optional, Type
 
 from .config import (OUTPUT_INSTANCE_KEYS, ConfigMapEntry, Properties,
-                     apply_config_map, parse_bool, parse_time)
+                     apply_config_map, parse_bool, parse_size, parse_time)
 from .router import Route
 from ..codec.chunk import ChunkPool, EVENT_TYPE_LOGS
+
+log = logging.getLogger("flb.plugin")
 
 
 class FlushResult(enum.Enum):
@@ -62,12 +65,21 @@ class Plugin:
 class InputPlugin(Plugin):
     """Input vtable. Interval collectors declare ``collect_interval``
     (seconds) and implement ``collect(engine)``
-    (flb_input_set_collector_time); library inputs expose ``push``."""
+    (flb_input_set_collector_time); library inputs expose ``push``.
+    ``pause`` / ``resume`` are the backpressure callbacks (cb_pause,
+    cb_resume): the engine calls them when the input's buffer crosses
+    its limit and when it drains."""
 
     default_tag: Optional[str] = None
     collect_interval: Optional[float] = None
 
     def collect(self, engine) -> None:
+        pass
+
+    def pause(self) -> None:
+        pass
+
+    def resume(self) -> None:
         pass
 
 
@@ -164,11 +176,25 @@ class Instance:
 
 
 class InputInstance(Instance):
+    """An input, with its chunk pool and what backpressure and storage
+    read of it (reference ``InputInstance``,
+    fluentbit_tpu/core/plugin.py:203-269): ``mem_buf_limit`` (0: none),
+    ``storage_type`` (memory, filesystem or memrb),
+    ``pause_on_chunks_overlimit`` (pause at the service's
+    ``storage.max_chunks_up`` chunks), ``threaded`` (the collector on a
+    thread of its own) and the ``paused`` flag."""
+
     def __init__(self, plugin: InputPlugin):
         super().__init__(plugin)
         self.pool = ChunkPool()
         self.tag: Optional[str] = None
+        self.mem_buf_limit = 0
+        self.paused = False
+        self.storage_type = "memory"
+        self.pause_on_chunks_overlimit = False
+        self.threaded = False
         self.collector_task = None
+        self.collector_thread = None
         # serialises this input's pool: every append and drain of its
         # chunks holds it, so a raw chain of thread_safe_raw filters runs
         # without the engine's lock (reference: per-input chunk maps,
@@ -177,10 +203,34 @@ class InputInstance(Instance):
         # this one.
         self.ingest_lock = threading.RLock()
 
+    def set_paused(self, paused: bool) -> bool:
+        """Flip the backpressure flag and call the plugin's ``pause`` or
+        ``resume`` (src/flb_input.c:740-788), under the input's lock so
+        two appends that cross the limit together call ``pause`` once.
+        Returns whether the flag changed. A callback that raises is
+        logged."""
+        with self.ingest_lock:
+            if self.paused == paused:
+                return False
+            self.paused = paused
+            cb = self.plugin.pause if paused else self.plugin.resume
+            try:
+                cb()
+            except Exception:
+                log.exception("%s %s callback failed", self.display_name,
+                              "pause" if paused else "resume")
+        return True
+
     def configure(self) -> None:
         super().configure()
         # default tag = per-instance name (dummy.0, dummy.1, ...)
         self.tag = self.properties.get("tag") or self.plugin.default_tag or self.name
+        mbl = self.properties.get("mem_buf_limit")
+        self.mem_buf_limit = parse_size(mbl) if mbl else 0
+        self.storage_type = self.properties.get("storage.type", "memory")
+        self.pause_on_chunks_overlimit = parse_bool(self.properties.get(
+            "storage.pause_on_chunks_overlimit", False))
+        self.threaded = parse_bool(self.properties.get("threaded", False))
 
 
 class FilterInstance(Instance):

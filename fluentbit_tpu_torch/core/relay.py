@@ -6,12 +6,15 @@ The port's own copy of ``fluentbit_tpu/core/relay.py``:
 - :func:`stable_chunk_id`, the forward hop's chunk id: a digest of the
   tag and the uncompressed entry stream, so a resend of the same chunk
   (a reconnect, a backoff, a spool replay) carries the same id;
-- :class:`DedupLedger` in its in-memory form (``root=None``): chunk id →
-  [absorbed-at, absorb-count] with a retry-window TTL. The forward input
-  records each chunk id the first time its records are absorbed and acks
-  a redelivery of the same id inside the window without absorbing it
-  again. The durable form (an fstore sidecar under ``storage.path``)
-  waits for the port's storage; asking for it raises;
+- :class:`DedupLedger`: chunk id → [absorbed-at, absorb-count] with a
+  retry-window TTL. The forward input records each chunk id the first
+  time its records are absorbed, before it acks, and acks a redelivery
+  of the same id inside the window without absorbing it again. Under
+  the service's ``storage.path`` the ledger is durable: an fstore JSON
+  sidecar (stream ``forward-dedup``, file ``ledger``), written whole and
+  renamed into place at each record, in the reference's layout, so a
+  ledger either package wrote reads in the other and a restart still
+  dedups; without it the ledger is in memory;
 - :class:`ForwardSpool`, where the forward output parks a packed chunk
   when every upstream refuses (a partition), with a record-offset
   sidecar (``core.sidecar``) and a JSON envelope (tag, chunk id, record
@@ -51,22 +54,37 @@ def stable_chunk_id(tag: str, blob: bytes) -> str:
 
 
 class DedupLedger:
-    """Chunk-id ledger with a retry-window TTL, kept in memory:
-    in-process redelivery dedups, a restart forgets (the durability the
-    chunks themselves have without filesystem storage). A count above 1
-    in ``snapshot`` is a double absorb."""
+    """Chunk-id ledger with a retry-window TTL (reference
+    fluentbit_tpu/core/relay.py:62-151). ``root`` (the storage path)
+    makes it durable; ``root=None`` keeps it in memory, where a restart
+    forgets, the durability the chunks themselves have without
+    filesystem storage. The meta layout::
+
+        {"absorbed": {"<chunk-id>": [<absorbed-at>, <absorb-count>]}}
+
+    A count above 1 in ``snapshot`` is a double absorb."""
+
+    STREAM = "forward-dedup"
 
     def __init__(self, root: Optional[str] = None, ttl: float = 300.0,
                  clock=time.time):
-        if root:
-            raise ValueError(
-                "forward: a durable dedup ledger (storage.path) is not "
-                "ported; unset the service's storage.path or dedup")
         self.ttl = float(ttl)
         self.clock = clock
         self._lock = threading.Lock()
+        self._file: Optional[FStoreFile] = None
         self._seen: Dict[str, List[float]] = {}  # id -> [ts, count]
         self.dedup_hits = 0
+        if root:
+            self._file = FStore(root).stream(self.STREAM).create("ledger")
+            now = self.clock()
+            absorbed = self._file.meta().get("absorbed") or {}
+            for cid, rec in absorbed.items():
+                try:
+                    ts, count = float(rec[0]), int(rec[1])
+                except (TypeError, ValueError, IndexError):
+                    continue
+                if now - ts <= self.ttl:
+                    self._seen[str(cid)] = [ts, count]
 
     @staticmethod
     def _gc(seen: Dict[str, List[float]], now: float, ttl: float) -> None:
@@ -86,7 +104,9 @@ class DedupLedger:
         return hit
 
     def record(self, chunk_id: str) -> None:
-        """Record one absorb of ``chunk_id`` (before the caller acks)."""
+        """Record one absorb of ``chunk_id``, durably when the ledger has
+        a root, before the caller acks: an ack whose record died with
+        the process would make the next resend a double absorb."""
         now = self.clock()
         with self._lock:
             self._gc(self._seen, now, self.ttl)
@@ -95,6 +115,9 @@ class DedupLedger:
                 self._seen[chunk_id] = [now, 1]
             else:
                 rec[1] += 1  # a double absorb: kept visible, never hidden
+            snap = {cid: [r[0], r[1]] for cid, r in self._seen.items()}
+        if self._file is not None:
+            self._file.set_meta({"absorbed": snap}, durable=True)
 
     def size(self) -> int:
         with self._lock:

@@ -1,11 +1,10 @@
 """Record-offset sidecar: the END offsets of a payload's records.
 
-The port's own copy of ``fluentbit_tpu/core/sidecar.py``. A spooled
-forward chunk (``core.relay.ForwardSpool``) carries its record boundary
-table beside it, written at spool time, so a replay takes the record
-count from the table without walking the msgpack payload. (The reference
-also writes it beside filesystem chunk files; the port has no filesystem
-storage.)
+The port's own copy of ``fluentbit_tpu/core/sidecar.py``. A filesystem
+chunk file (``core.storage``) and a spooled forward chunk
+(``core.relay.ForwardSpool``) carry their record boundary table beside
+them, written as the payload is written, so a replay takes the record
+count from the table without walking the msgpack payload.
 
 Layout (``<file>.offs``)::
 
@@ -30,8 +29,8 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SIDECAR_SUFFIX", "SidecarWriter", "read_sidecar",
-           "STATE_OPEN", "STATE_FINAL"]
+__all__ = ["SIDECAR_SUFFIX", "SidecarWriter", "sidecar_path",
+           "read_sidecar", "STATE_OPEN", "STATE_FINAL"]
 
 MAGIC = b"FBTO"
 VERSION = 1
@@ -41,6 +40,11 @@ STATE_FINAL = 1
 _HEAD = struct.Struct("<4sBBI")  # magic, ver, state, crc32(entries)
 
 SIDECAR_SUFFIX = ".offs"
+
+
+def sidecar_path(chunk_path: str) -> str:
+    """The offset table beside a chunk file."""
+    return chunk_path + SIDECAR_SUFFIX
 
 
 class SidecarWriter:
@@ -63,6 +67,10 @@ class SidecarWriter:
         self._base = 0
         self._crc = 0
         self._dead = False
+
+    @property
+    def dead(self) -> bool:
+        return self._dead
 
     def append_ends(self, span_len: int,
                     ends: Optional[Iterable[int]]) -> None:

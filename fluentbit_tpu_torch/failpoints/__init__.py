@@ -1,9 +1,11 @@
 """The failpoint plane: deterministic fault injection at named sites.
 
 The port's own copy of ``fluentbit_tpu/failpoints/__init__.py``. The
-data plane carries named *failpoints* (flush dispatch, retry scheduling,
-output flushes and worker starts, upstream dials, the forward hop, the
-parser's batch decline, the kernels' dispatch boundary), and each can be
+data plane carries named *failpoints* (storage writes, finalizes, CRC
+checks and backlog loads, flush dispatch, retry scheduling, the stop's
+quarantine, output flushes and worker starts, upstream dials, the
+forward hop, the parser's batch decline, the kernels' dispatch
+boundary), and each can be
 armed at run time with a small action DSL. Unarmed, a site costs one
 module attribute read (``ACTIVE``).
 
@@ -23,7 +25,8 @@ DSL (one spec per failpoint)::
 - ``partial(n)``   hand the site a ``("partial", n)`` directive (a write
   site truncates its payload to ``n`` bytes)
 - ``panic``        raise ``RuntimeError`` (a plugin bug, not an I/O error)
-- ``crash``        kill the process at once (SIGKILL semantics)
+- ``crash``        kill the process at once (SIGKILL semantics; the
+  crash-recovery soak, ``failpoints.soak``, arms it in a child process)
 
 A term with ``cnt*`` fires at most ``cnt`` times, then control moves to
 the next term: ``2*off->1*crash`` crashes on the third hit. A term with
@@ -59,14 +62,23 @@ ENV_VAR = "FBTPU_FAILPOINTS"
 SEED_VAR = "FBTPU_FAILPOINTS_SEED"
 
 #: The sites threaded through the port. :func:`fire` takes any name
-#: (tests may add their own); the reference's sites of modules the port
-#: lacks (storage, qos, reload, s3, the upstream pool's send and recv,
-#: the flux snapshot, the shutdown quarantine, the device lanes) arrive
-#: with those modules.
+#: (tests and the soak's sink add their own); the reference's sites of
+#: modules the port lacks (qos, reload, s3, the upstream pool's send and
+#: recv, the device lanes) arrive with those modules.
 SITES: Tuple[str, ...] = (
-    "engine.flush_dispatch",     # Engine.flush_all, chunks drained, tasks
-                                 # not yet made
+    "storage.append",            # Storage.write_through, before the write
+                                 # (partial(n) tears it after n bytes)
+    "storage.flush",             # Storage.write_through, written, not yet
+                                 # flushed
+    "storage.finalize",          # Storage.finalize, before the CRC stamp
+    "storage.crc_verify",        # Storage._read_chunk_file, before the CRC
+                                 # check
+    "storage.backlog_load",      # Storage.scan_backlog, before the walk
+    "engine.flush_dispatch",     # Engine.flush_all, chunks drained and
+                                 # finalized, tasks not yet made
     "engine.retry_schedule",     # Engine._schedule_retry, before the timer
+    "engine.shutdown_quarantine",  # Engine._flush_one / _drop_retry,
+                                   # before the stop's quarantine
     "upstream.connect",          # core.tls.open_connection, before the dial
     "output.flush",              # Engine._flush_body, before the plugin's
                                  # flush (async site; the instance-scoped
@@ -76,6 +88,8 @@ SITES: Tuple[str, ...] = (
                                  # ready barrier
     "codec.fallback",            # filter_parser's json batch hook: a
                                  # forced decline
+    "flux.snapshot",             # FluxState.write_snapshot, written and
+                                 # synced, before the rename
     "device.dispatch",           # ops.device.dispatch_point, after a grep
                                  # or sketch launch: return() raises
                                  # DeviceError, as a failed launch does

@@ -75,8 +75,8 @@ class FluxFilter(FilterPlugin):
                        desc="emit closed-window rows under this tag"),
         ConfigMapEntry("emitter_name", "str"),
         ConfigMapEntry("emitter_mem_buf_limit", "str", default="10M",
-                       desc="accepted for parity; the port's chunk pools "
-                            "have no limit"),
+                       desc="the hidden emitter's mem_buf_limit: over it "
+                            "a window's rows are refused"),
         ConfigMapEntry("sketch_precision", "int", default=12),
         ConfigMapEntry("sketch_depth", "int", default=4),
         ConfigMapEntry("sketch_width", "int", default=16384),
@@ -136,7 +136,9 @@ class FluxFilter(FilterPlugin):
             # interval snapshots
             ename = self.emitter_name or \
                 f"emitter_for_{instance.display_name}"
-            ins = engine.hidden_input("emitter", alias=ename)
+            ins = engine.hidden_input(
+                "emitter", alias=ename,
+                mem_buf_limit=self.emitter_mem_buf_limit)
             self._emitter = ins.plugin
             self._emitter_ins = ins
             ins.plugin.collect_interval = float(

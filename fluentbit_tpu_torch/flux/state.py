@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import failpoints as _fp
 from ..ops.batch import assemble
 from ..ops.device import DeviceLike, resolve, to_device
 from ..ops import sketch
@@ -955,6 +956,10 @@ class FluxState:
                 f.write(payload)
                 f.flush()
                 os.fsync(f.fileno())
+            if _fp.ACTIVE:
+                # written and synced, not yet renamed: a crash leaves the
+                # old snapshot whole
+                _fp.fire("flux.snapshot")
             os.replace(tmp, path)
         finally:
             try:

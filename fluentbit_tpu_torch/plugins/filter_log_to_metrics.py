@@ -89,6 +89,7 @@ class LogToMetricsFilter(FilterPlugin):
         ConfigMapEntry("bucket", "str", multiple=True),
         ConfigMapEntry("tag", "str"),
         ConfigMapEntry("emitter_name", "str"),
+        ConfigMapEntry("emitter_mem_buf_limit", "str", default="10M"),
         ConfigMapEntry("discard_logs", "bool", default=False),
         ConfigMapEntry("flush_interval_sec", "int", default=0),
         ConfigMapEntry("flush_interval_nsec", "int", default=0),
@@ -181,7 +182,9 @@ class LogToMetricsFilter(FilterPlugin):
             self._batch_tables = native.GrepTables(
                 [(r.ra.head.encode("utf-8"), r.dfa) for r in self.rules])
         name = self.emitter_name or f"emitter_for_{instance.display_name}"
-        self.emitter = engine.hidden_input("emitter", alias=name).plugin
+        self.emitter = engine.hidden_input(
+            "emitter", alias=name,
+            mem_buf_limit=self.emitter_mem_buf_limit).plugin
         self._dirty = False
         self._interval = (self.flush_interval_sec
                           + self.flush_interval_nsec / 1e9)

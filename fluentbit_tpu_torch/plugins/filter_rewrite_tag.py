@@ -92,25 +92,16 @@ class RewriteTagFilter(FilterPlugin):
                        desc="<$key> <regex> <new_tag> <keep>"),
         ConfigMapEntry("emitter_name", "str"),
         ConfigMapEntry("emitter_storage.type", "str", default="memory",
-                       desc="only memory is ported: another value raises"),
+                       desc="the hidden emitter's storage.type"),
         ConfigMapEntry("emitter_mem_buf_limit", "str", default="10M",
-                       desc="not enforced: another value raises"),
+                       desc="the hidden emitter's mem_buf_limit: over it "
+                            "a group is refused and its originals kept"),
         ConfigMapEntry("tpu.enable", "bool", default=True),
         ConfigMapEntry("tpu_batch_records", "int", default=64),
         ConfigMapEntry("tpu_max_record_len", "int", default=512),
     ]
 
     def init(self, instance, engine) -> None:
-        # the port's emitter has no buffer limit and no filesystem
-        # storage, so it never refuses an append: a setting that would
-        # ask for either raises instead of being ignored
-        if str(self.emitter_storage_type).lower() != "memory":
-            raise ValueError("rewrite_tag: emitter_storage.type "
-                             f"{self.emitter_storage_type!r} is not "
-                             "supported by this port yet")
-        if self.emitter_mem_buf_limit != "10M":
-            raise ValueError("rewrite_tag: emitter_mem_buf_limit is not "
-                             "supported by this port yet")
         if not self.rule:
             raise ValueError("rewrite_tag requires at least one Rule")
         self.rules: List[RewriteRule] = []
@@ -119,7 +110,11 @@ class RewriteTagFilter(FilterPlugin):
                 raise ValueError(f"rewrite_tag: invalid rule {parts!r}")
             self.rules.append(RewriteRule(*parts))
         name = self.emitter_name or f"emitter_for_{instance.display_name}"
-        self.emitter = engine.hidden_input("emitter", alias=name).plugin
+        # the emitter's buffer limit and storage (reference :93-100): over
+        # the limit its append returns -1 and the group's originals stay
+        self.emitter = engine.hidden_input(
+            "emitter", alias=name, mem_buf_limit=self.emitter_mem_buf_limit,
+            **{"storage.type": self.emitter_storage_type}).plugin
         self._m_emit = engine.m_filter_emit
         self.device = engine.device
         #: host seconds of each device-path append: (staging, launch +
@@ -314,20 +309,21 @@ class RewriteTagFilter(FilterPlugin):
         return (n_keep, native.compact(data, offsets, keep), n)
 
     def _emit_group(self, new_tag: str, payload: bytes, count: int) -> bool:
-        """One new tag's records into the emitter (the port's emitter
-        never refuses, see init); they re-enter the pipeline under the
-        new tag. False when that tag's chain raised: the groups before
-        it are out, so the originals of this one are kept, as the
-        reference degrades it (:355-361). A device error raises."""
+        """One new tag's records into the emitter; they re-enter the
+        pipeline under the new tag. False when the emitter refused them
+        (-1: its buffer is over ``emitter_mem_buf_limit``) or that tag's
+        chain raised: the originals of this group are kept, as the
+        reference keeps them (:353-368, :444-448). A device error
+        raises."""
         try:
-            self.emitter.add_record(new_tag, payload, count)
+            rc = self.emitter.add_record(new_tag, payload, count)
         except DEVICE_ERRORS:
             raise
         except Exception:
             log.exception("rewrite_tag emitter append failed for tag %r; "
                           "originals kept", new_tag)
             return False
-        return True
+        return rc >= 0
 
     def filter(self, events: list, tag: str, engine) -> tuple:
         # records re-entering from our OWN emitter are never re-matched

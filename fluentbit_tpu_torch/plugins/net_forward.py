@@ -15,21 +15,26 @@ accepts:
 When ``option.chunk`` is present the server answers ``{"ack": chunk}``,
 written only after the records were absorbed. ``shared_key`` runs the
 HELO/PING/PONG handshake first. ``tag_prefix`` prefixes every tag.
-``dedup`` (on by default) keeps an in-memory ledger of absorbed chunk
-ids (``core.relay.DedupLedger``): a chunk resent with the same id inside
-``dedup_ttl`` is acked without being absorbed again. ``tls on`` (with
+``dedup`` (on by default) keeps a ledger of absorbed chunk ids
+(``core.relay.DedupLedger``, durable under the service's
+``storage.path``): a chunk resent with the same id inside ``dedup_ttl``
+is acked without being absorbed again, after a restart too when the
+ledger is durable. ``tls on`` (with
 ``tls.crt_file``, ``tls.key_file``, and ``tls.ca_file`` to require client
 certificates) wraps the listener (``core.tls.server_context``).
 
 Each message's records go through ``engine.input_log_append``
 synchronously on the engine's loop: the filter chain, its kernel
-launches and readbacks run inside it, and the ack follows. The port has
-no qos plane and no input backpressure, so an append always absorbs: a
-wire-stamped tenant (``option.tenant`` / ``priority``) is validated as
-the reference validates it and admitted, as the reference admits a
-tenant without a bucket; the stamp is not carried onto the chunk (the
-port's chunks have no stamps). A ``defer_ack_window`` other than its
-default raises.
+launches and readbacks run inside it, and the ack follows, after the
+ledger recorded the chunk. An append that backpressure refuses (-1: the
+input over its ``mem_buf_limit``) delays the ack and is retried every
+50 ms for up to ``defer_ack_window`` seconds (``deferred_acks_total``);
+when the window runs out the ack is withheld (``withheld_acks_total``)
+and the peer resends. The port has no qos plane: a wire-stamped tenant
+(``option.tenant`` / ``priority``) is validated as the reference
+validates it and admitted, as the reference admits a tenant without a
+bucket; the stamp is not carried onto the chunk (the port's chunks have
+no stamps).
 
 The client sends each flushed chunk as one PackedForward frame
 (``option.size``, ``fluent_signal``; gzip'd with ``compress gzip``;
@@ -81,7 +86,6 @@ log = logging.getLogger("flb.forward")
 #: is bounded before anything keys on it
 _TENANT_MAX_LEN = 128
 _PRIORITY_MAX = 7
-_DEFER_ACK_WINDOW = "5"
 
 
 def _entries_to_events(entries) -> tuple:
@@ -130,21 +134,17 @@ class ForwardInput(InputPlugin):
         ConfigMapEntry("tag_prefix", "str"),
         ConfigMapEntry("dedup", "bool", default=True,
                        desc="ack a redelivered chunk id without absorbing "
-                            "it again (in-memory ledger)"),
+                            "it again (durable under storage.path)"),
         ConfigMapEntry("dedup_ttl", "time", default="300",
                        desc="how long an absorbed chunk id stays in the "
                             "ledger"),
-        ConfigMapEntry("defer_ack_window", "time",
-                       default=_DEFER_ACK_WINDOW,
-                       desc="not ported: only the default is accepted"),
+        ConfigMapEntry("defer_ack_window", "time", default="5",
+                       desc="how long an ack waits while backpressure "
+                            "refuses the append; then it is withheld and "
+                            "the peer resends"),
     ] + TLS_CONFIG
 
     def init(self, instance, engine) -> None:
-        from ..core.config import parse_time
-
-        if self.defer_ack_window != parse_time(_DEFER_ACK_WINDOW):
-            raise ValueError("forward: defer_ack_window is not ported (the "
-                             "port has no input backpressure)")
         self.bound_port: Optional[int] = None
         # built here, so a bad certificate or a missing tls.crt_file
         # raises from start()
@@ -155,7 +155,8 @@ class ForwardInput(InputPlugin):
         self._closed = False
         self._ledger: Optional[DedupLedger] = None
         if self.dedup:
-            self._ledger = DedupLedger(None, ttl=self.dedup_ttl)
+            self._ledger = DedupLedger(engine.service.storage_path,
+                                       ttl=self.dedup_ttl)
         self.n_absorbed = 0
         self.n_deferred_acks = 0
         self.n_withheld_acks = 0
@@ -291,10 +292,15 @@ class ForwardInput(InputPlugin):
                 # a redelivery inside the retry window: acked, absorbed
                 # zero times
                 self._m_dedup.inc(1, (self.instance.display_name,))
-            else:
-                # a wire-stamped tenant is admitted: with no qos plane
-                # it has no bucket (the stamp is not carried further)
-                self._absorb(engine, tag, buf, n, cid)
+            # a wire-stamped tenant is admitted: with no qos plane it has
+            # no bucket (the stamp is not carried further)
+            elif not await self._absorb(engine, tag, buf, n, cid):
+                # backpressure outlasted the window: no ack, the peer's
+                # ack timeout turns into its retry; the resend dedups if
+                # a later pass absorbed it
+                self.n_withheld_acks += 1
+                self._m_withheld.inc(1, (self.instance.display_name,))
+                return
         if ack_ref is not None:
             if _fp.ACTIVE:
                 try:
@@ -316,18 +322,39 @@ class ForwardInput(InputPlugin):
             return bytes(ack_ref).decode("latin-1")
         return str(ack_ref)
 
-    def _absorb(self, engine, tag: str, buf: bytes, n: int,
-                cid: Optional[str]) -> None:
-        """Absorb one decoded chunk into engine state, then record its
-        id before the ack leaves. ``input_log_append`` raises rather
-        than defer in the port, so the reference's defer loop is one
-        append, and a raise closes the connection without an ack."""
+    async def _absorb(self, engine, tag: str, buf: bytes, n: int,
+                      cid: Optional[str]) -> bool:
+        """Absorb one decoded chunk into engine state effectively once
+        (reference :306-373), and record its id before the ack leaves.
+        An append that backpressure refuses is retried every 50 ms for up
+        to ``defer_ack_window`` seconds. Returns False when the window
+        runs out: the caller withholds the ack. An append that raises
+        closes the connection without an ack."""
         ins = self.instance
-        engine.input_log_append(ins, tag, buf, n)
-        if cid is not None and self._ledger is not None:
-            self._ledger.record(cid)
-        self.n_absorbed += 1
-        self._m_absorbed.inc(1, (ins.display_name,))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self.defer_ack_window
+        led = self._ledger if cid is not None else None
+        deferred = False
+        while True:
+            if led is not None and led.seen(cid):
+                # another delivery of the chunk absorbed it while this
+                # one waited: just ack
+                self._m_dedup.inc(1, (ins.display_name,))
+                return True
+            if engine.input_log_append(ins, tag, buf, n) >= 0:
+                if led is not None:
+                    led.record(cid)
+                self.n_absorbed += 1
+                self._m_absorbed.inc(1, (ins.display_name,))
+                return True
+            if not deferred:
+                deferred = True
+                self.n_deferred_acks += 1
+                self._m_deferred.inc(1, (ins.display_name,))
+            remaining = deadline - loop.time()
+            if remaining <= 0:
+                return False
+            await asyncio.sleep(min(0.05, remaining))
 
     def health_block(self) -> dict:
         out = {

@@ -238,8 +238,7 @@ UNPORTED = [
     ("[SERVICE]\n    Plugins_File plugins.conf\n", "DSO"),
     ("[MULTILINE_PARSER]\n    Name ml\n    Type regex\n", "multiline"),
     ("[CUSTOM]\n    Name calyptia\n", "custom plugins are not ported"),
-    ("[SERVICE]\n    storage.path /var/lib/x\n",
-     "'storage.path' is not ported"),
+    ("[SERVICE]\n    tpu.enable off\n", "'tpu.enable' is not ported"),
     ("[SERVICE]\n    HTTP_Server On\n", "'http_server' is not ported"),
     ("[SERVICE]\n    Log_Level debug\n", "'log_level' is not ported"),
     ("[SERVICE]\n    qos.enable off\n", "'qos.enable' is not ported"),
@@ -258,9 +257,9 @@ def test_unported_sections_and_service_keys_raise_by_name(text, word):
 
 
 @pytest.mark.parametrize("key,value,word", [
-    ("mem_buf_limit", "5M", "input buffer limit"),
-    ("storage.type", "filesystem", "filesystem storage"),
-    ("threaded", "on", "threaded inputs"),
+    ("tenant", "a", "qos plane"),
+    ("net.max_worker_connections", "4", "connection pools"),
+    ("tls.ca_file", "/x", "TLS"),
     ("tls", "on", "TLS"),
     ("tls.verify", "off", "TLS"),
     ("tenant.weight", "2", "qos plane"),
@@ -274,6 +273,46 @@ def test_unported_instance_keys_raise_by_name(key, value, word):
     ctx.input("dummy", **{key: value})
     with pytest.raises(ValueError, match=word):
         ctx.start()
+
+
+STORAGE_INPUT_KEYS = [
+    ("Mem_Buf_Limit", "5M"), ("storage.type", "filesystem"),
+    ("storage.type", "memrb"), ("storage.pause_on_chunks_overlimit", "on"),
+    ("Threaded", "on")]
+
+
+@pytest.mark.parametrize("key,value", STORAGE_INPUT_KEYS)
+def test_storage_input_keys_load_as_in_the_reference(key, value, tmp_path):
+    """The buffer and storage keys of an input (refused before the port
+    had storage), and the service's five ``storage.*`` keys, from a
+    classic config, set what the reference's set."""
+    conf = tmp_path / "s.conf"
+    conf.write_text(f"""
+[SERVICE]
+    storage.path              {tmp_path / "st"}
+    storage.sync              full
+    storage.checksum          on
+    storage.backlog.mem_limit 2M
+    storage.max_chunks_up     16
+
+[INPUT]
+    Name  dummy
+    Tag   t
+    {key} {value}
+""")
+    got, want = flb.create(device="cpu"), ref.create()
+    tcf.apply_to_context(got, tcf.load_config_file(str(conf)), str(tmp_path))
+    jcf.apply_to_context(want, jcf.load_config_file(str(conf)),
+                         str(tmp_path))
+    for attr in ("storage_path", "storage_sync", "storage_checksum",
+                 "storage_backlog_mem_limit", "storage_max_chunks_up"):
+        assert getattr(got.service, attr) == getattr(want.service, attr)
+    a, b = got.engine.inputs[0], want.engine.inputs[0]
+    a.configure()
+    b.configure()
+    for attr in ("mem_buf_limit", "storage_type",
+                 "pause_on_chunks_overlimit", "threaded"):
+        assert getattr(a, attr) == getattr(b, attr), attr
 
 
 def test_delivery_keys_load_as_in_the_reference(tmp_path):

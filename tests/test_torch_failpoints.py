@@ -518,6 +518,9 @@ NO_LAUNCH = {
     ("core/engine.py", "_flush_body"):
         "an output's flush and the test formatter (no output launches)",
     ("core/engine.py", "_schedule_retry"): "a timer on a closed loop",
+    ("core/engine.py", "_quarantine_at_stop"): "the stop's DLQ write",
+    ("core/engine.py", "_handle_flush_result"):
+        "the DLQ write of a dropped chunk",
     ("core/engine.py", "flush_now"): "call_soon_threadsafe on a closed loop",
     ("core/output_thread.py", "_worker"):
         "the worker hooks of an output and its loop's stop",

@@ -427,25 +427,44 @@ def test_dedup_ledger_equals_reference():
         assert (a.size(), a.dedup_hits) == (b.size(), b.dedup_hits)
 
 
-def test_unported_forward_options_raise_by_name():
-    """A defer_ack_window other than its default, a threaded input and
-    a durable ledger raise, naming what is not ported."""
+def test_unported_forward_options_raise_by_name(tmp_path):
+    """The options the port refused before it had storage and
+    backpressure now start as the reference's do (``threaded``,
+    ``storage.type``, ``defer_ack_window``, ``mem_buf_limit``, a durable
+    ledger under ``storage.path``); a tenant still raises by name."""
+    from fluentbit_tpu.core.relay import DedupLedger as JLedger
     from fluentbit_tpu_torch.core.relay import DedupLedger
 
-    for props, word in (({"threaded": "on"}, "'threaded' is not ported"),
-                        ({"storage.type": "filesystem"}, "'storage.type'"),
-                        ({"defer_ack_window": "10"}, "defer_ack_window"),
-                        ({"tenant": "a"}, "'tenant' is not ported"),
-                        ({"mem_buf_limit": "5M"}, "'mem_buf_limit'")):
-        ctx = flb.create(device="cpu")
-        ctx.input("forward", port="0", **props)
-        with pytest.raises(ValueError, match=word):
-            ctx.start()
-    with pytest.raises(ValueError, match="durable dedup ledger"):
-        DedupLedger("/some/storage/path")
+    for props in ({"threaded": "on"}, {"storage.type": "filesystem"},
+                  {"defer_ack_window": "10"}, {"mem_buf_limit": "5M"}):
+        ctx = flb.create(device="cpu", **{"storage.path": str(tmp_path)})
+        ffd = ctx.input("forward", port="0", listen="127.0.0.1", **props)
+        ctx.start()
+        try:
+            assert ctx.bound_port(ffd)
+            ins = ctx.engine.inputs[0]
+            want = ref.create()
+            want.input("forward", port="0", **props)
+            wins = want.engine.inputs[0]
+            wins.configure()
+            assert (ins.threaded, ins.storage_type, ins.mem_buf_limit,
+                    ins.plugin.defer_ack_window) == (
+                wins.threaded, wins.storage_type, wins.mem_buf_limit,
+                float(props.get("defer_ack_window", 5)))
+        finally:
+            ctx.stop()
     ctx = flb.create(device="cpu")
-    with pytest.raises(ValueError, match="'storage.path' is not ported"):
-        ctx.service_set(**{"storage.path": "/x"})
+    ctx.input("forward", port="0", tenant="a")
+    with pytest.raises(ValueError, match="'tenant' is not ported"):
+        ctx.start()
+    # the durable ledger: what one package records, the other reads
+    DedupLedger(str(tmp_path / "l")).record("c1")
+    assert JLedger(str(tmp_path / "l")).snapshot() == {"c1": 1}
+    JLedger(str(tmp_path / "m")).record("c2")
+    assert DedupLedger(str(tmp_path / "m")).snapshot() == {"c2": 1}
+    ctx = flb.create(device="cpu")
+    ctx.service_set(**{"storage.path": "/x"})
+    assert ctx.engine.service.storage_path == "/x"
 
 
 def test_counters_registered_and_counted():

@@ -708,7 +708,7 @@ def test_unported_or_bad_tls_keys_raise(kind, name, props, word):
         ctx.start()
 
 
-@pytest.mark.parametrize("key", ["qos.enable", "storage.path",
+@pytest.mark.parametrize("key", ["qos.enable", "daemon",
                                  "tpu.enable", "hot_reload_diff",
                                  "http_server"])
 def test_unported_service_keys_raise(key):
@@ -722,7 +722,10 @@ def test_ported_service_keys_set_what_the_reference_sets():
             "guard.breaker_cooldown": "1500ms", "guard.breaker_probes": "2",
             "guard.enable": "off", "guard.flush_timeout": "750ms",
             "guard.shed_watermark": "0.6", "guard.stall_after": "12s",
-            "guard.leak_grace": "2", "guard.worker_start_timeout": "3s"}
+            "guard.leak_grace": "2", "guard.worker_start_timeout": "3s",
+            "storage.path": "/var/lib/fb", "storage.sync": "full",
+            "storage.checksum": "on", "storage.backlog.mem_limit": "3M",
+            "storage.max_chunks_up": "9"}
     a = flb.create(device="cpu", **keys).service
     b = ref.create(**keys).service
     for attr in ("hot_reload", "guard_breaker_failures",
@@ -730,7 +733,9 @@ def test_ported_service_keys_set_what_the_reference_sets():
                  "guard_breaker_cooldown", "guard_breaker_probes",
                  "guard_enable", "guard_flush_timeout",
                  "guard_shed_watermark", "guard_stall_after",
-                 "guard_leak_grace", "guard_worker_start_timeout"):
+                 "guard_leak_grace", "guard_worker_start_timeout",
+                 "storage_path", "storage_sync", "storage_checksum",
+                 "storage_backlog_mem_limit", "storage_max_chunks_up"):
         assert getattr(a, attr) == getattr(b, attr), attr
     assert packb(a.guard_breaker_cooldown) == packb(1.5)
 

@@ -174,6 +174,7 @@ PORT_MODULES = (
     "core/guard.py", "core/tls.py", "core/fstore.py", "core/sidecar.py",
     "__main__.py", "supervisor.py",  # the relay tier and the CLI
     "failpoints/__init__.py", "ops/device.py",  # the guard's slice
+    "core/storage.py", "failpoints/soak.py",  # storage and backpressure
 )
 
 #: what a module that loads or builds the reference's native library or

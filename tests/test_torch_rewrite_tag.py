@@ -222,22 +222,27 @@ def test_emit_counter():
 
 @pytest.mark.parametrize("prop,value", [
     ("emitter_storage.type", "filesystem"), ("emitter_mem_buf_limit", "1M")])
-def test_unported_emitter_settings_raise(prop, value):
-    """The port's emitter has no buffer limit and no filesystem storage:
-    asking for either raises, the defaults are accepted."""
-    ctx = fluentbit_tpu_torch.create(device="cpu")
-    ctx.input("lib", tag="t")
-    ctx.filter("rewrite_tag", match="t", rule="$log .* moved true",
-               **{prop: value})
-    with pytest.raises(ValueError, match=prop.replace(".", r"\.")):
-        ctx.start()
-    ctx = fluentbit_tpu_torch.create(device="cpu")
-    ctx.input("lib", tag="t")
-    ctx.filter("rewrite_tag", match="t", rule="$log .* moved true",
-               **{"emitter_storage.type": "memory",
-                  "emitter_mem_buf_limit": "10M"})
-    ctx.start()
-    ctx.stop()
+def test_unported_emitter_settings_raise(prop, value, tmp_path):
+    """The emitter settings refused before the port had storage and
+    backpressure reach the hidden emitter as the reference's do: its
+    ``storage_type`` and ``mem_buf_limit`` (the defaults too)."""
+    got = {}
+    for name, create, kw in (("port", fluentbit_tpu_torch.create,
+                              {"device": "cpu"}),
+                             ("ref", fluentbit_tpu.create, {})):
+        for props in ({prop: value}, {}):
+            ctx = create(**kw, **{"storage.path": str(tmp_path / name)})
+            ctx.input("lib", tag="t")
+            ctx.filter("rewrite_tag", match="t", rule="$log .* moved true",
+                       **props)
+            ctx.start()
+            try:
+                em = ctx.engine.inputs[-1]
+                got[name, bool(props)] = (em.storage_type, em.mem_buf_limit)
+            finally:
+                ctx.stop()
+    assert got["port", True] == got["ref", True]
+    assert got["port", False] == got["ref", False] == ("memory", 10 << 20)
 
 
 def test_own_emitter_reentry_runs_no_second_match(monkeypatch):
